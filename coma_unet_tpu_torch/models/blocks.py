@@ -1,0 +1,373 @@
+"""Building blocks of the covariate-modulated 3-D attention U-Net
+(counterpart of `coma_unet_tpu/models/blocks.py`).
+
+Parameter names equal the flax names (`kernel`, `bias`, `experts`,
+`route`, `film`, `prelu.alpha`, `conv0`, ...), so that a flax parameter tree
+maps onto a state dict mechanically (`coma_unet_tpu_torch.convert`).
+Activations are NCDHW and computed in the configured compute dtype; params
+are kept in the param dtype (f32) and cast at use, as in the JAX package.
+
+Every conv block takes `kernels`: when True its conv goes through the op
+wrapper of its family (`conv3d_s1`, `conv3d_s2`, `conv3d_t2`) and its
+instance norm + FiLM + activation through `norm_act`; each wrapper launches
+the family's CUDA kernel for a CUDA tensor and runs the plain version for a
+CPU tensor. When False the block uses PyTorch's built-in ops, as the JAX
+package leaves those sites to XLA. The models set `kernels` by U-Net level
+(`models/attention_unet.py`), never by tensor shape.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from coma_unet_tpu_torch.ops.conv3d import conv3d_ref, conv3d_s1
+from coma_unet_tpu_torch.ops.conv3d_strided import (
+    conv3d_s2,
+    conv3d_t2,
+    conv_transpose3d_ref,
+)
+from coma_unet_tpu_torch.ops.norm_act import ACTS, apply_act, norm_act
+
+# flax's lecun_normal: a normal truncated at two standard deviations, with
+# the standard deviation rescaled so that the truncated variance is 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fill_(param: torch.Tensor, draw) -> None:
+    """Fill `param` from a CPU draw, so that one generator gives the same
+    values whatever the parameter's device."""
+    with torch.no_grad():
+        param.copy_(draw(torch.empty(param.shape, dtype=torch.float32)))
+
+
+def conv_init_(param: torch.Tensor, fan_in: int,
+               generator: Optional[torch.Generator]) -> None:
+    """torch's Conv3d default, as the JAX package uses it:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / float(np.sqrt(fan_in))
+    _fill_(param, lambda t: t.uniform_(-bound, bound, generator=generator))
+
+
+def dense_init_(layer: nn.Linear, generator: Optional[torch.Generator],
+                zero: bool = False) -> None:
+    """flax Dense init: lecun-normal kernel (or zeros) and a zero bias."""
+    std = float(np.sqrt(1.0 / layer.in_features)) / _TRUNC_STD
+    if zero:
+        _fill_(layer.weight, torch.zeros_like)
+    else:
+        _fill_(layer.weight, lambda t: nn.init.trunc_normal_(
+            t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+    _fill_(layer.bias, torch.zeros_like)
+
+
+class PReLU(nn.Module):
+    """torch-default PReLU: one shared learnable slope, init 0.25."""
+
+    def __init__(self, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(
+            torch.full((1,), 0.25, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_act(x, "prelu", self.alpha)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-sample, per-channel normalization over the spatial dims (torch
+    InstanceNorm3d defaults). Stats in f32; the normalize step runs in x's
+    dtype, as the JAX package's `InstanceNorm` does."""
+    dims = tuple(range(2, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = (xf - mean).square().mean(dims, keepdim=True)
+    return (x - mean.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """`instance_norm` as a module (no parameters: affine=False)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x)
+
+
+class Norm(nn.Module):
+    """Norm factory: "instance" or "none" ("batch" is not ported yet)."""
+
+    def __init__(self, kind: Optional[str] = "instance"):
+        super().__init__()
+        if kind not in (None, "none", "instance"):
+            raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        self.kind = kind or "none"
+        self.inorm = InstanceNorm() if self.kind == "instance" else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.inorm is None else self.inorm(x)
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           transposed: bool = False, kernels: bool = False) -> torch.Tensor:
+    """SAME conv (stride 1 or 2) or the lhs-dilated transposed conv, with
+    shared `[Cout, Cin, k, k, k]` or per-sample `[B, Cout, Cin, k, k, k]`
+    weights. `kernels` routes to the kernel families' wrappers (stride-1
+    k in {1, 3}, stride-2 k=3, transposed stride-2 k=3); otherwise PyTorch's
+    built-in convs."""
+    if not kernels:
+        if transposed:
+            return conv_transpose3d_ref(x, w, bias, stride)
+        return conv3d_ref(x, w, bias, stride)
+    x, w = x.contiguous(), w.contiguous()
+    if transposed and stride == 2:
+        return conv3d_t2(x, w, bias)
+    if not transposed and stride == 2:
+        return conv3d_s2(x, w, bias)
+    if not transposed and stride == 1:
+        return conv3d_s1(x, w, bias)
+    raise ValueError(f"no kernel family for stride {stride}, "
+                     f"transposed={transposed}")
+
+
+def norm_film_act(y: torch.Tensor, norm: Norm, act: Optional[str],
+                  alpha: Optional[torch.Tensor],
+                  scale: Optional[torch.Tensor],
+                  shift: Optional[torch.Tensor],
+                  kernels: bool) -> torch.Tensor:
+    """norm -> FiLM (`scale`, `shift` [B, C] f32, or None) -> act."""
+    if kernels and norm.kind == "instance":
+        return norm_act(y, alpha, act, scale, shift)
+    y = norm(y)
+    if scale is not None:
+        y = (y * scale[:, :, None, None, None].to(y.dtype)
+             + shift[:, :, None, None, None].to(y.dtype))
+    return apply_act(y, act or "none", alpha)
+
+
+def _check_act(act: Optional[str]) -> None:
+    if (act or "none") not in ACTS:
+        raise NotImplementedError(f"activation {act!r} is not ported yet")
+
+
+class Convolution(nn.Module):
+    """MONAI-equivalent Convolution: conv (or transposed conv) -> norm ->
+    act. `conv_only=True` skips norm and act."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, strides: int = 1,
+                 act: Optional[str] = "prelu",
+                 norm: Optional[str] = "instance", conv_only: bool = False,
+                 is_transposed: bool = False, use_bias: bool = True,
+                 kernels: bool = False, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        _check_act(act)
+        k = kernel_size
+        self.strides, self.is_transposed = strides, is_transposed
+        self.conv_only, self.act, self.kernels = conv_only, act, kernels
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(
+            (out_channels, in_channels, k, k, k), dtype=param_dtype,
+            device=device))
+        conv_init_(self.kernel, in_channels * k ** 3, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=param_dtype,
+                                              device=device))
+                     if use_bias else None)
+        if not conv_only:
+            self.norm = Norm(norm)
+            if act == "prelu":
+                self.prelu = PReLU(param_dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv3d(x.to(self.dtype), self.kernel.to(self.dtype), self.bias,
+                   self.strides, self.is_transposed, self.kernels)
+        if self.conv_only:
+            return y
+        alpha = self.prelu.alpha if self.act == "prelu" else None
+        return norm_film_act(y, self.norm, self.act, alpha, None, None,
+                             self.kernels)
+
+
+class CondConvolution(nn.Module):
+    """Covariate-conditioned convolution (the reconstructed `CondConv`): a
+    routing Dense maps the first `num_covars` covariates to sigmoid gates
+    over `num_experts` expert kernels, mixed per sample in the compute dtype;
+    an optional FiLM Dense (zero-initialized, scale = 1 + s) follows the
+    norm."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, strides: int = 1,
+                 act: Optional[str] = "prelu",
+                 norm: Optional[str] = "instance", conv_only: bool = False,
+                 is_transposed: bool = False, num_experts: int = 8,
+                 num_covars: int = 5, film: bool = True,
+                 use_bias: bool = True, kernels: bool = False,
+                 dtype=torch.bfloat16, param_dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        _check_act(act)
+        k = kernel_size
+        self.strides, self.is_transposed = strides, is_transposed
+        self.conv_only, self.act, self.kernels = conv_only, act, kernels
+        self.num_covars, self.dtype = num_covars, dtype
+        self.experts = nn.Parameter(torch.empty(
+            (num_experts, out_channels, in_channels, k, k, k),
+            dtype=param_dtype, device=device))
+        conv_init_(self.experts, in_channels * k ** 3, generator)
+        self.route = nn.Linear(num_covars, num_experts, dtype=param_dtype,
+                               device=device)
+        dense_init_(self.route, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=param_dtype,
+                                              device=device))
+                     if use_bias else None)
+        self.film = None
+        if not conv_only:
+            self.norm = Norm(norm)
+            if film:
+                self.film = nn.Linear(num_covars, 2 * out_channels,
+                                      dtype=param_dtype, device=device)
+                dense_init_(self.film, generator, zero=True)
+            if act == "prelu":
+                self.prelu = PReLU(param_dtype, device)
+
+    def forward(self, x: torch.Tensor,
+                covariate: Optional[torch.Tensor]) -> torch.Tensor:
+        b = x.shape[0]
+        if covariate is None:
+            cov = torch.zeros((b, self.num_covars), dtype=torch.float32,
+                              device=x.device)
+        else:
+            cov = covariate.reshape(b, -1)[:, :self.num_covars].float()
+        gates = torch.sigmoid(self.route(cov))
+        kern = torch.einsum("be,e...->b...", gates.to(self.dtype),
+                            self.experts.to(self.dtype))
+        y = conv3d(x.to(self.dtype), kern, self.bias, self.strides,
+                   self.is_transposed, self.kernels)
+        if self.conv_only:
+            return y
+        scale = shift = None
+        if self.film is not None:
+            sc, shift = self.film(cov).chunk(2, dim=-1)
+            scale = 1.0 + sc
+        alpha = self.prelu.alpha if self.act == "prelu" else None
+        return norm_film_act(y, self.norm, self.act, alpha, scale, shift,
+                             self.kernels)
+
+
+class ConvBlock(nn.Module):
+    """attentionunet.ConvBlock: Convolution(stride s) + Convolution(stride
+    1), ReLU activations; the conditional variant routes the covariates into
+    both convs."""
+
+    def __init__(self, in_channels: int, out_channels: int, strides: int = 1,
+                 kernel_size: int = 3, conditional: bool = False,
+                 num_covars: int = 5, num_experts: int = 8, film: bool = True,
+                 norm: str = "instance", kernels: bool = False, **common):
+        super().__init__()
+        self.conditional = conditional
+        args = dict(kernel_size=kernel_size, act="relu", norm=norm,
+                    kernels=kernels, **common)
+        if conditional:
+            cond = dict(num_covars=num_covars, num_experts=num_experts,
+                        film=film, **args)
+            self.conv0 = CondConvolution(in_channels, out_channels,
+                                         strides=strides, **cond)
+            self.conv1 = CondConvolution(out_channels, out_channels, **cond)
+        else:
+            self.conv0 = Convolution(in_channels, out_channels,
+                                     strides=strides, **args)
+            self.conv1 = Convolution(out_channels, out_channels, **args)
+
+    def forward(self, x: torch.Tensor,
+                covariate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.conditional:
+            return self.conv1(self.conv0(x, covariate), covariate)
+        return self.conv1(self.conv0(x))
+
+
+class AttentionGate(nn.Module):
+    """Additive attention gate:
+    psi = sigmoid(norm(conv1x1(relu(norm(conv1x1(g)) + norm(conv1x1(x))))))
+    and out = x * psi; returns (out, psi)."""
+
+    def __init__(self, f_int: int, g_channels: int, x_channels: int,
+                 norm: str = "instance", kernels: bool = False, **common):
+        super().__init__()
+        args = dict(kernel_size=1, act=None, norm=norm, kernels=kernels,
+                    **common)
+        self.W_g = Convolution(g_channels, f_int, **args)
+        self.W_x = Convolution(x_channels, f_int, **args)
+        self.psi = Convolution(f_int, 1, **args)
+
+    def forward(self, g: torch.Tensor,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = torch.relu(self.W_g(g) + self.W_x(x))
+        psi = torch.sigmoid(self.psi(a).float()).to(x.dtype)
+        return x * psi, psi
+
+
+class UpBlock(nn.Module):
+    """Transposed-conv upsampling; the conditional variant uses the
+    expert-mixture transposed conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, strides: int = 2,
+                 kernel_size: int = 3, conditional: bool = False,
+                 num_covars: int = 6, num_experts: int = 8, film: bool = True,
+                 norm: str = "instance", kernels: bool = False, **common):
+        super().__init__()
+        self.conditional = conditional
+        args = dict(kernel_size=kernel_size, strides=strides, act="relu",
+                    norm=norm, is_transposed=True, kernels=kernels, **common)
+        if conditional:
+            self.up = CondConvolution(in_channels, out_channels,
+                                      num_covars=num_covars,
+                                      num_experts=num_experts, film=film,
+                                      **args)
+        else:
+            self.up = Convolution(in_channels, out_channels, **args)
+
+    def forward(self, x: torch.Tensor,
+                covariate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.conditional:
+            return self.up(x, covariate)
+        return self.up(x)
+
+
+class StackedFusionConvLayers(nn.Module):
+    """N-conv LeakyReLU fusion stack: in -> bottleneck, (N-2) x bottleneck
+    -> bottleneck, bottleneck -> out; k=3 Convolutions."""
+
+    def __init__(self, in_channels: int, bottleneck_channels: int,
+                 out_channels: int, num_convs: int = 3,
+                 norm: str = "instance", kernels: bool = False, **common):
+        super().__init__()
+        widths = [bottleneck_channels] * (num_convs - 1) + [out_channels]
+        self.num_convs = num_convs
+        for i, w in enumerate(widths):
+            setattr(self, f"conv{i}", Convolution(
+                in_channels, w, act="leakyrelu", norm=norm, kernels=kernels,
+                **common))
+            in_channels = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv{i}")(x)
+        return x
+
+
+class ProjectionHead(nn.Module):
+    """Per-level contrastive embedding: 1x1x1 ConvBlock to one channel ->
+    flatten -> ReLU (f32)."""
+
+    def __init__(self, in_channels: int, norm: str = "instance",
+                 kernels: bool = False, **common):
+        super().__init__()
+        self.conv = ConvBlock(in_channels, 1, kernel_size=1, norm=norm,
+                              kernels=kernels, **common)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return torch.relu(x.reshape(x.shape[0], -1).float())
