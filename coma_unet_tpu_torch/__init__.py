@@ -8,10 +8,15 @@ in Pallas for the TPU are CUDA kernels here (`csrc/`), built at first use
 package it reads only the configuration file (`config.py`).
 
 Ported so far: the serving forward of the flagship ContraAttnUNet
-(`models/`, `infer/`).
+(`models/`, `infer/`) and its train step (`losses/`, `train/`), whose
+backward runs through hand-written kernels too.
 """
 
-from coma_unet_tpu_torch.config import ModelConfig  # noqa: F401
+from coma_unet_tpu_torch.config import (  # noqa: F401
+    LossConfig,
+    ModelConfig,
+    TrainConfig,
+)
 from coma_unet_tpu_torch.models.attention_unet import (  # noqa: F401
     AttentionUNet,
     UNetFeatures,

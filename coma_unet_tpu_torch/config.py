@@ -1,4 +1,4 @@
-"""The model configuration, shared with the JAX package.
+"""The model, loss and training configurations, shared with the JAX package.
 
 `coma_unet_tpu/config.py` imports only the standard library, but importing it
 as `coma_unet_tpu.config` first runs `coma_unet_tpu/__init__.py`, which
@@ -27,6 +27,9 @@ def _load():
     return module
 
 
-ModelConfig = _load().ModelConfig
+_CONFIG = _load()
+ModelConfig = _CONFIG.ModelConfig
+LossConfig = _CONFIG.LossConfig
+TrainConfig = _CONFIG.TrainConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["LossConfig", "ModelConfig", "TrainConfig"]

@@ -49,7 +49,7 @@ def from_flax(params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
         if tuple(value.shape) != want:
             raise ValueError(f"{key}: flax shape {tuple(value.shape)}, "
                              f"port shape {want}")
-        state[key] = torch.from_numpy(np.ascontiguousarray(value)).to(
+        state[key] = torch.from_numpy(np.array(value)).to(
             target[key].dtype)
     missing = sorted(set(target) - set(state))
     if extra or missing:

@@ -11,7 +11,9 @@ or a failed build raises `RuntimeError` with the compiler's output.
 
 The launch counters live here: `LAUNCHES[family]` counts kernel launches,
 and `PLAIN_ON_CUDA` / `PLAIN_ON_CPU` count calls of a family's plain PyTorch
-version by the device of its input.
+version by the device of its input. `FWD_FAMILIES` are the kernels a
+forward runs, `BWD_FAMILIES` those only a backward runs (a backward also
+launches forward families for its input gradients); `FAMILIES` is both.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from pathlib import Path
 
 import torch
 
-FAMILIES = ("s1", "s2", "t2", "norm_act")
+FWD_FAMILIES = ("s1", "s2", "t2", "norm_act")
+BWD_FAMILIES = ("s1_dw", "strided_dw", "norm_act_bwd")
+FAMILIES = FWD_FAMILIES + BWD_FAMILIES
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 PLAIN_ON_CPU: Counter = Counter()
@@ -45,6 +49,9 @@ _SIGNATURES = {
     "coma_conv3d_s2": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "coma_conv3d_t2": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "coma_norm_act": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+    "coma_conv3d_s1_dw": [_P] * 4 + [_I] * 9 + [_P],
+    "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 8 + [_P],
+    "coma_norm_act_bwd": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -1,5 +1,5 @@
-"""ROI label compaction and per-ROI painting (counterpart of
-`coma_unet_tpu/ops/roi.py:26-107`).
+"""ROI label compaction, per-ROI painting and the ROI weight mask
+(counterpart of `coma_unet_tpu/ops/roi.py:26-126`).
 
 A raw ROI label volume is compacted once to ids in [0, R] through a lookup
 table (0 = background); per-ROI scalars are painted back onto the volume
@@ -46,3 +46,14 @@ def paint_roi_values(compact: torch.Tensor, per_roi_values: torch.Tensor,
     ids = compact.reshape(b, -1).to(torch.int64)
     ids = torch.where((ids >= 1) & (ids <= r), ids, 0)
     return table.gather(1, ids).reshape(compact.shape)
+
+
+def roi_weight_mask(compact: torch.Tensor, roi_weights: torch.Tensor,
+                    background: float = 1.0) -> torch.Tensor:
+    """Weight volume (counterpart of `coma_unet_tpu/ops/roi.py:110-126`):
+    `roi_weights[i - 1]` [R] where the compact id is i in 1..R, `background`
+    everywhere else."""
+    r = roi_weights.shape[-1]
+    table = torch.cat([roi_weights.new_full((1,), background), roi_weights])
+    ids = compact.to(torch.int64)
+    return table[torch.where((ids >= 1) & (ids <= r), ids, 0)]

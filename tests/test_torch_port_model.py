@@ -7,7 +7,7 @@ added to every leaf (flax zero-initializes the FiLM heads, so without the
 noise FiLM would be the identity and go unchecked), bridged to the port by
 `from_flax`. Tolerance: rtol = atol = 1e-4, as the existing end-to-end
 parity test uses. Also pinned here: the bridge is strict, the forward
-reaches all four kernel families' wrappers, inference and sliding-window
+reaches all four forward kernel families' wrappers, inference and sliding-window
 blending match the JAX package's, and the port never imports JAX.
 """
 
@@ -119,7 +119,8 @@ def test_forward_reaches_every_kernel_wrapper(setup):
     *_, batch, _, port = setup
     ops.reset_counts()
     _port_forward(port, batch, with_projections=False)
-    assert all(ops.PLAIN_ON_CPU[f] > 0 for f in ops.FAMILIES), dict(ops.PLAIN_ON_CPU)
+    assert all(ops.PLAIN_ON_CPU[f] > 0 for f in ops.FWD_FAMILIES), dict(ops.PLAIN_ON_CPU)
+    assert not any(ops.PLAIN_ON_CPU[f] for f in ops.BWD_FAMILIES)
     assert not ops.LAUNCHES and not ops.PLAIN_ON_CUDA
 
 
