@@ -6,16 +6,22 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device:  nvidia-smi's name and power limit, torch and CUDA versions;
               the card must be compute capability 9.0.
-  2. build:   compiles the hand-written kernels (coma_unet_tpu_torch/csrc)
-              into build/coma_unet_tpu_torch/.
+  2. build:   compiles the hand-written kernels (coma_unet_tpu_torch/csrc),
+              one nvcc per source in parallel, into build/coma_unet_tpu_torch/.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
-              forward and train step give it -- the forward kernels K1-K4,
-              the weight gradients KB1/KB2 and the norm backward KB3 --
-              against its plain PyTorch version on the same inputs upcast to
-              f32 (TF32 off), bf16 outputs within KERNEL_TOL and f32 outputs
-              within F32_TOL of max|plain|; times both (CUDA events), and
-              for KB1/KB2 also the built-in weight gradient on the bf16
-              operands (what autograd of a bf16 conv runs).
+              forward and train step and the 216^3 template-space path give
+              it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
+              the norm backward KB3, the entries `instance_norm` (K4) and
+              `conv3d_w64` (K1), and the H-parity split KS -- against its
+              plain PyTorch version on the same inputs upcast to f32 (TF32
+              off), bf16 outputs within KERNEL_TOL and f32 outputs within
+              F32_TOL of max|plain|, KS bit for bit; times the kernel, the
+              plain version on the kernel's own inputs and, where one
+              PyTorch call computes the same function, that call (CUDA
+              events), and computes each case's bound: the larger of its
+              bytes over 3.35 TB/s and its operations over the H100's peak
+              for their type (bf16 tensor cores for the convs, f32 for the
+              norms).
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -32,11 +38,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               forward.
   7. training: the default ModelConfig at 128^3, b=2, `LossConfig()`,
               AdamW(1e-3): six steps of `make_train_step` on one batch; the
-              losses must be finite and fall, all seven kernel families must
-              have launched and no plain version may have run on the GPU.
-              Then the median step time, the peak memory and a
+              losses must be finite and fall, all seven kernel families of
+              the path must have launched and no plain version may have run
+              on the GPU. Then the median step time, the peak memory and a
               torch.profiler top-10 of device time for one more step.
-The last two lines are a JSON summary of the kernels and
+  8. template parity: the full-width template-space model at 88^3, b=1
+              (88 mod 32 = 24, the edge tiles of 216; levels 88 -> 44 -> 22
+              -> 11 -> 6, so the up 6 -> 12 is cropped to 11), GPU kernels
+              in bf16 against the CPU in f32, as phase 4.
+  9. template space: `ExperimentConfig(data=DataConfig(template_space=True),
+              loss=LossConfig(roi_weight=1.0)).normalized()` at 216^3 with
+              the 8 template ROIs: the median b=1 forward of `make_infer_fn`;
+              `make_eval_step` at b=2, whose voxel and ROI metrics must match
+              the same metrics computed on the CPU in f64 from the card's
+              `pred` within METRIC_TOL, SSIM inside [-1, 1]; four b=1 train
+              steps, whose losses must be finite and fall with RnC at its
+              n<2 guard and every parameter outside the projection heads
+              given a finite gradient. The eval and train steps are the
+              slice's main path: every kernel family of the path must launch
+              there and no plain version may run on the GPU. Then the peak
+              memory and a torch.profiler top-10 for one train step.
+The last two lines are a JSON summary of the kernels (`launches` from the
+template-space path, phase 9; `launches_by_path` for every path) and
 {"ok": true, "device": {...}}. There is no CPU path.
 """
 
@@ -60,11 +83,19 @@ LOSS_TOL = 1e-2       # relative loss difference, bf16 GPU step vs f32 CPU step
 GRAD_RATIO = 1.25     # a group's gradient error may reach max(GRAD_RATIO x the plain bf16
 GRAD_FLOOR = 2e-2     # route's, GRAD_FLOOR): sound kernels read <= 1.14x over four seeds
                       # and targets, half the batch left out of one KB1 call >= 1.44x
+METRIC_TOL = 1e-4     # |card - cpu f64| <= METRIC_TOL * |cpu f64| (+ 1e-6 of the key's max)
+DEVICE = "cuda"       # every phase runs on the card; there is no CPU path
 TRAIN_STEPS = 6
+TEMPLATE_STEPS = 4
+PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
-           "conv3d.py:260 _pallas_conv3d_fwd; conv3d_packed.py:105 _packed_fwd"),
+           "conv3d.py:260 _pallas_conv3d_fwd; conv3d.py:187 "
+           "_pallas_conv3d_fwd_htiled; conv3d_packed.py:105 _packed_fwd; "
+           "conv3d_packed.py:264 pallas_conv3d_w64"),
     "s2": ("conv3d_s2", "coma_unet_tpu_torch/csrc/conv3d_strided.cu",
            "coma_unet_tpu/ops/pallas/conv3d_strided.py:299 _s2_fwd_v2; "
            ":136 _s2_fwd_v1; phase_split.py:86 pallas_hwsplit"),
@@ -72,15 +103,19 @@ SOURCES = {
            "coma_unet_tpu/ops/pallas/conv3d_strided.py:444 _t2_fwd_v1; "
            ":730 _t2_fwd_v2"),
     "norm_act": ("norm_act", "coma_unet_tpu_torch/csrc/norm_act.cu",
-                 "coma_unet_tpu/ops/pallas/norm_act.py:185 _norm_act_fwd_impl"),
+                 "coma_unet_tpu/ops/pallas/norm_act.py:185 _norm_act_fwd_impl; "
+                 "instance_norm.py:59 pallas_instance_norm"),
     "s1_dw": ("conv3d_s1_dw", "coma_unet_tpu_torch/csrc/conv3d_dw.cu",
               "coma_unet_tpu/ops/pallas/conv3d.py:586 _pallas_conv3d_dw; "
+              "conv3d.py:516 _pallas_conv3d_dw_htiled; "
               "conv3d_p1.py:319 _p1_dw; conv3d_packed.py:195 _packed_dw"),
     "strided_dw": ("conv3d_strided_dw", "coma_unet_tpu_torch/csrc/conv3d_dw.cu",
                    "coma_unet_tpu/ops/pallas/conv3d_strided.py:579 _dw_dil_v1; "
                    ":830 _dw_v2"),
     "norm_act_bwd": ("norm_act_bwd", "coma_unet_tpu_torch/csrc/norm_act.cu",
                      "coma_unet_tpu/ops/pallas/norm_act.py:220 _norm_act_bwd_impl"),
+    "phase_split": ("hsplit", "coma_unet_tpu_torch/csrc/phase_split.cu",
+                    "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
 }
 
 
@@ -130,43 +165,64 @@ def phase_build() -> None:
 
 
 def _kernel_cases():
-    """(family, site, input shape, weight shape or None, extra) at the
-    shapes of the 128^3 b=2 serving forward and train step."""
+    """(family, site, input shape, weight shape or None, extra, entry) at
+    the shapes of the 128^3 b=2 serving forward and train step and of the
+    216^3 b=1 template-space path; `entry` names a standalone entry point
+    (`instance_norm`, `conv3d_w64`, `hsplit`) or is None for the family's
+    own wrapper."""
     v0, v1 = (128,) * 3, (64,) * 3
-    s1 = [  # (site, Cin, Cout, k, per_sample, spatial)
-        ("head.conv0", 1, 32, 3, True, v0), ("head.conv1", 32, 32, 3, True, v0),
-        ("merge0", 64, 32, 3, False, v0),
-        ("deep_modulator_3c.conv0", 3, 16, 3, False, v0),
-        ("deep_modulator_3c.conv1", 16, 16, 3, False, v0),
-        ("deep_modulator_3c.conv2", 16, 1, 3, False, v0),
-        ("fusion_layer.conv0", 2, 8, 3, False, v0),
-        ("fusion_layer.conv1", 8, 8, 3, False, v0),
-        ("fusion_layer.conv2", 8, 1, 3, False, v0),
-        ("gate0.W_g", 32, 16, 1, False, v0), ("gate0.psi", 16, 1, 1, False, v0),
-        ("reduce", 32, 1, 1, True, v0), ("final_pred_head", 2, 1, 1, False, v0),
-        ("down0.conv1", 64, 64, 3, True, v1), ("merge1", 128, 64, 3, False, v1),
-        ("gate1.W_g", 64, 32, 1, False, v1), ("gate1.psi", 32, 1, 1, False, v1),
+    t0, t1 = (216,) * 3, (108,) * 3
+    s1 = [  # (site, batch, Cin, Cout, k, per_sample, spatial)
+        ("head.conv0", 2, 1, 32, 3, True, v0), ("head.conv1", 2, 32, 32, 3, True, v0),
+        ("merge0", 2, 64, 32, 3, False, v0),
+        ("deep_modulator_3c.conv0", 2, 3, 16, 3, False, v0),
+        ("deep_modulator_3c.conv1", 2, 16, 16, 3, False, v0),
+        ("deep_modulator_3c.conv2", 2, 16, 1, 3, False, v0),
+        ("fusion_layer.conv0", 2, 2, 8, 3, False, v0),
+        ("fusion_layer.conv1", 2, 8, 8, 3, False, v0),
+        ("fusion_layer.conv2", 2, 8, 1, 3, False, v0),
+        ("gate0.W_g", 2, 32, 16, 1, False, v0), ("gate0.psi", 2, 16, 1, 1, False, v0),
+        ("reduce", 2, 32, 1, 1, True, v0), ("final_pred_head", 2, 2, 1, 1, False, v0),
+        ("down0.conv1", 2, 64, 64, 3, True, v1), ("merge1", 2, 128, 64, 3, False, v1),
+        ("gate1.W_g", 2, 64, 32, 1, False, v1), ("gate1.psi", 2, 32, 1, 1, False, v1),
+        # the template-space path at 216^3 (rows #3 and #5: H, W = 216 give
+        # edge tiles of 24 in K1's 32 x 32 tile)
+        ("216 head.conv1", 1, 32, 32, 3, True, t0), ("216 merge0", 1, 64, 32, 3, False, t0),
+        ("216 deep_modulator_3c.conv1", 1, 16, 16, 3, False, t0),
+        ("216 gate0.psi", 1, 16, 1, 1, False, t0),
+        ("216 down0.conv1", 1, 64, 64, 3, True, t1), ("216 merge1", 1, 128, 64, 3, False, t1),
     ]
-    cases = [("s1", site, (2, ci) + sp, (co, ci, k, k, k), ps)
-             for site, ci, co, k, ps, sp in s1]
-    cases.append(("s2", "down0.conv0", (2, 32) + v0, (64, 32, 3, 3, 3), True))
-    cases.append(("t2", "up0", (2, 64) + v1, (32, 64, 3, 3, 3), True))
-    # KB1: x [2, Cin, ...] and the output cotangent [2, Cout, ...]
-    cases += [("s1_dw", site, (2, ci) + sp, (co, k), ps)
-              for site, ci, co, k, ps, sp in s1]
-    # KB2: full [2, 32, 128^3], half [2, 64, 64^3] in both roles
-    cases.append(("strided_dw", "down0.conv0 (s2: full=x, half=g)",
-                  (2, 32) + v0, (2, 64) + v1, True))
-    cases.append(("strided_dw", "up0 (t2: full=g, half=x)",
-                  (2, 32) + v0, (2, 64) + v1, True))
-    norms = [("head.conv1", 32, "relu", True, v0), ("merge0", 32, "prelu", False, v0),
-             ("deep_modulator_3c.conv0", 16, "leakyrelu", False, v0),
-             ("gate0.psi", 1, "none", False, v0),
-             ("final_pred_head", 1, "prelu", False, v0),
-             ("down0.conv1", 64, "relu", True, v1)]
+    cases = [("s1", site, (b, ci) + sp, (co, ci, k, k, k), ps, None)
+             for site, b, ci, co, k, ps, sp in s1]
+    cases.append(("s1", "conv3d_w64 64->64", (2, 64, 64, 64, 64),
+                  (64, 64, 3, 3, 3), False, "conv3d_w64"))
+    cases.append(("s2", "down0.conv0", (2, 32) + v0, (64, 32, 3, 3, 3), True, None))
+    cases.append(("s2", "216 down0.conv0", (1, 32) + t0, (64, 32, 3, 3, 3), True, None))
+    cases.append(("t2", "up0", (2, 64) + v1, (32, 64, 3, 3, 3), True, None))
+    cases.append(("t2", "216 up0", (1, 64) + t1, (32, 64, 3, 3, 3), True, None))
+    # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]
+    cases += [("s1_dw", site, (b, ci) + sp, (co, k), ps, None)
+              for site, b, ci, co, k, ps, sp in s1]
+    # KB2: full [B, 32, D^3], half [B, 64, (D/2)^3] in both roles
+    for b, full, half, tag in ((2, v0, v1, ""), (1, t0, t1, "216 ")):
+        cases.append(("strided_dw", f"{tag}down0.conv0 (s2: full=x, half=g)",
+                      (b, 32) + full, (b, 64) + half, True, None))
+        cases.append(("strided_dw", f"{tag}up0 (t2: full=g, half=x)",
+                      (b, 32) + full, (b, 64) + half, True, None))
+    norms = [("head.conv1", 2, 32, "relu", True, v0),
+             ("merge0", 2, 32, "prelu", False, v0),
+             ("deep_modulator_3c.conv0", 2, 16, "leakyrelu", False, v0),
+             ("gate0.psi", 2, 1, "none", False, v0),
+             ("final_pred_head", 2, 1, "prelu", False, v0),
+             ("down0.conv1", 2, 64, "relu", True, v1),
+             ("216 head.conv1", 1, 32, "relu", True, t0)]
     for family in ("norm_act", "norm_act_bwd"):
-        cases += [(family, site, (2, c) + sp, None, (act, film))
-                  for site, c, act, film, sp in norms]
+        cases += [(family, site, (b, c) + sp, None, (act, film), None)
+                  for site, b, c, act, film, sp in norms]
+    cases += [("norm_act", f"instance_norm {act} 216", (1, 32) + t0, None,
+               (act, False), "instance_norm")
+              for act in ("none", "relu", "leakyrelu")]
+    cases.append(("phase_split", "hsplit 216", (1, 32) + t0, None, None, "hsplit"))
     return cases
 
 
@@ -182,44 +238,71 @@ def _norm_inputs(xshape, act, film, gen, dev):
     return x, alpha, scale, shift
 
 
-def _case_calls(family, xshape, wshape, extra, gen, dev):
-    """(kernel call, plain call on the f32 upcast inputs, plain call on the
-    kernel's own inputs, the built-in bf16 weight gradient or None) for one
-    phase-3 case; each returns a tensor or a tuple of tensors."""
+def _voxels(shape) -> int:
+    return int(np.prod(shape[2:]))
+
+
+def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
+    """One phase-3 case: a dict with the kernel call, the plain call on the
+    f32 upcast inputs (`ref`), the plain call on the kernel's own inputs,
+    the one PyTorch call that computes the same function (`library`, or
+    None), the inputs, and the operations and their peak rate for the
+    bound. Each call returns a tensor or a tuple of tensors."""
+    import torch.nn.functional as F
+
     from coma_unet_tpu_torch import ops
     from coma_unet_tpu_torch.ops.conv3d import conv3d_weight_ref
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
+    if family == "phase_split":
+        x = randn(xshape)
+        return dict(kernel=lambda: ops.hsplit(x), ref=lambda: ops.hsplit_plain(x),
+                    plain=lambda: ops.hsplit_plain(x), library=None, inputs=(x,),
+                    ops=0, rate=PEAK_F32)
     if family == "norm_act":
         x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
         act = extra[0]
-        return (lambda: ops.norm_act(x, alpha, act, scale, shift),
-                lambda: ops.norm_act_plain(x.float(), alpha, act, scale, shift),
-                lambda: ops.norm_act_plain(x, alpha, act, scale, shift), None)
+        common = dict(inputs=(x,), ops=8 * x.numel(), rate=PEAK_F32)
+        if entry == "instance_norm":
+            return dict(kernel=lambda: ops.instance_norm(x, act=act),
+                        ref=lambda: ops.norm_act_plain(x.float(), None, act),
+                        plain=lambda: ops.norm_act_plain(x, None, act),
+                        library=(lambda: F.instance_norm(x)) if act == "none" else None,
+                        **common)
+        return dict(kernel=lambda: ops.norm_act(x, alpha, act, scale, shift),
+                    ref=lambda: ops.norm_act_plain(x.float(), alpha, act, scale, shift),
+                    plain=lambda: ops.norm_act_plain(x, alpha, act, scale, shift),
+                    library=None, **common)
     if family == "norm_act_bwd":
         x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
         act = extra[0]
         g = randn(xshape)
         _, stats = ops.norm_act_forward(x, alpha, act, scale, shift)
-        return (lambda: ops.norm_act_bwd(x, g, stats, alpha, act, scale, shift),
-                lambda: ops.norm_act_bwd_plain(x.float(), g.float(), alpha, act,
-                                               scale, shift),
-                lambda: ops.norm_act_bwd_plain(x, g, alpha, act, scale, shift), None)
+        return dict(kernel=lambda: ops.norm_act_bwd(x, g, stats, alpha, act, scale, shift),
+                    ref=lambda: ops.norm_act_bwd_plain(x.float(), g.float(), alpha, act,
+                                                       scale, shift),
+                    plain=lambda: ops.norm_act_bwd_plain(x, g, alpha, act, scale, shift),
+                    library=None, inputs=(x, g), ops=14 * x.numel(), rate=PEAK_F32)
     if family == "s1_dw":
         (co, k), ps = wshape, extra
         x, g = randn(xshape), randn((xshape[0], co) + xshape[2:])
-        return (lambda: ops.conv3d_s1_dw(x, g, k, ps),
-                lambda: ops.conv3d_s1_dw_plain(x.float(), g.float(), k, ps),
-                lambda: ops.conv3d_s1_dw_plain(x, g, k, ps),
-                lambda: conv3d_weight_ref(x, g, k, ps))
+        flops = 2 * xshape[0] * co * xshape[1] * k ** 3 * _voxels(xshape)
+        return dict(kernel=lambda: ops.conv3d_s1_dw(x, g, k, ps),
+                    ref=lambda: ops.conv3d_s1_dw_plain(x.float(), g.float(), k, ps),
+                    plain=lambda: ops.conv3d_s1_dw_plain(x, g, k, ps),
+                    library=lambda: conv3d_weight_ref(x, g, k, ps), inputs=(x, g),
+                    ops=flops, rate=PEAK_BF16)
     if family == "strided_dw":
         full, half = randn(xshape), randn(wshape)
-        return (lambda: ops.conv3d_strided_dw(full, half, extra),
-                lambda: ops.conv3d_strided_dw_plain(full.float(), half.float(), extra),
-                lambda: ops.conv3d_strided_dw_plain(full, half, extra),
-                lambda: conv3d_weight_ref(full, half, 3, extra, 2))
+        flops = 2 * xshape[0] * wshape[1] * xshape[1] * 27 * _voxels(wshape)
+        return dict(kernel=lambda: ops.conv3d_strided_dw(full, half, extra),
+                    ref=lambda: ops.conv3d_strided_dw_plain(full.float(), half.float(),
+                                                            extra),
+                    plain=lambda: ops.conv3d_strided_dw_plain(full, half, extra),
+                    library=lambda: conv3d_weight_ref(full, half, 3, extra, 2),
+                    inputs=(full, half), ops=flops, rate=PEAK_BF16)
     kernel, plain = {"s1": (ops.conv3d_s1, ops.conv3d_s1_plain),
                      "s2": (ops.conv3d_s2, ops.conv3d_s2_plain),
                      "t2": (ops.conv3d_t2, ops.conv3d_t2_plain)}[family]
@@ -229,24 +312,47 @@ def _case_calls(family, xshape, wshape, extra, gen, dev):
     fan_in = wshape[-4] * wshape[-1] ** 3
     w = (torch.randn(wshape, generator=gen, device=dev) / fan_in ** 0.5).bfloat16()
     bias = 0.1 * torch.randn((wshape[-5],), generator=gen, device=dev)
-    return (lambda: kernel(x, w, bias), lambda: plain(x.float(), w.float(), bias),
-            lambda: plain(x, w, bias), None)
+    if entry == "conv3d_w64":
+        call, bias = (lambda: ops.conv3d_w64(x, w)), None
+    else:
+        call = lambda: kernel(x, w, bias)  # noqa: E731
+    # output positions: the stride-2 grid for s2; every input position feeds
+    # one output per tap for t2 and s1
+    positions = _voxels(xshape) // 8 if family == "s2" else _voxels(xshape)
+    flops = 2 * xshape[0] * wshape[-5] * wshape[-4] * wshape[-1] ** 3 * positions
+    # the plain version of a forward conv is PyTorch's built-in conv: the
+    # library call and the plain version on the kernel's inputs are one call
+    return dict(kernel=call, ref=lambda: plain(x.float(), w.float(), bias),
+                plain=lambda: plain(x, w, bias), library="plain",
+                inputs=(x, w) + (() if bias is None else (bias,)),
+                ops=flops, rate=PEAK_BF16)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(ops_count: float, rate: float, nbytes: int):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_ops, t_bytes = ops_count / rate, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
 def phase_kernels(summary: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev = torch.device("cuda")
-    # rel: max error over max|plain| of the bf16 outputs and of the f32 ones;
-    # bf16_ms: the built-in weight gradient on the bf16 operands
-    print(f"{'family':12s} {'site':34s} {'input':22s} {'max_abs_err':>11s} "
-          f"{'rel bf16':>9s} {'rel f32':>9s} {'ms':>9s} {'plain_ms':>9s} {'bf16_ms':>9s}")
-    for family, site, xshape, wshape, extra in _kernel_cases():
-        kernel, ref_fn, plain, builtin = _case_calls(family, xshape, wshape, extra,
-                                                     gen, dev)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    dev = torch.device(DEVICE)
+    # rel: max error over max|plain| of the bf16 outputs and of the f32 ones
+    print(f"{'family':12s} {'site':34s} {'input':24s} {'max_abs_err':>11s} "
+          f"{'rel bf16':>9s} {'rel f32':>9s} {'ms':>9s} {'plain_ms':>9s} "
+          f"{'lib_ms':>9s} {'bound_ms':>9s} bound_by")
+    for family, site, xshape, wshape, extra, entry in _kernel_cases():
+        case = _case_calls(family, xshape, wshape, extra, entry, gen, dev)
+        exact = family == "phase_split"
         with torch.no_grad():
-            got, ref = kernel(), ref_fn()
+            got, ref = case["kernel"](), case["ref"]()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
@@ -256,6 +362,9 @@ def phase_kernels(summary: dict) -> None:
                       f"{tuple(a.shape)} vs {tuple(r.shape)}")
                 check(a.dtype in rel, f"{family} {site}: output dtype {a.dtype}")
                 check(bool(torch.isfinite(a).all()), f"{family} {site}: non-finite")
+                if exact:
+                    check(a.dtype == r.dtype and bool(torch.equal(a, r)),
+                          f"{family} {site}: not bit-equal to the plain version")
                 tol = KERNEL_TOL if a.dtype == torch.bfloat16 else F32_TOL
                 e = (a.float() - r.float()).abs().max().item()
                 scale_ref = r.abs().max().item()
@@ -263,21 +372,33 @@ def phase_kernels(summary: dict) -> None:
                       f"{family} {site}: {a.dtype} max error {e} > {tol} * {scale_ref}")
                 err = max(err, e)
                 rel[a.dtype] = max(rel[a.dtype] or 0.0, e / scale_ref if scale_ref else 0.0)
-            ms = median_ms(kernel)
-            plain_ms = median_ms(plain)
-            bf16_ms = median_ms(builtin) if builtin else None
+            ms = median_ms(case["kernel"])
+            plain_ms = median_ms(case["plain"])
+            library = case["library"]
+            lib_ms = (plain_ms if library == "plain"
+                      else median_ms(library) if library else None)
+        b_ms, b_by = bound_ms(case["ops"], case["rate"],
+                              _nbytes(case["inputs"]) + _nbytes(got))
+        del got, ref, case
         cols = [f"{v:9.2e}" if v is not None else f"{'-':>9s}" for v in rel.values()]
         cols.append(f"{ms:9.3f} {plain_ms:9.3f}")
-        cols.append(f"{bf16_ms:9.3f}" if bf16_ms is not None else f"{'-':>9s}")
-        print(f"{family:12s} {site:34s} {str(list(xshape)):22s} {err:11.3e} "
+        cols.append(f"{lib_ms:9.3f}" if lib_ms is not None else f"{'-':>9s}")
+        cols.append(f"{b_ms:9.3f} {b_by}")
+        print(f"{family:12s} {site:34s} {str(list(xshape)):24s} {err:11.3e} "
               + " ".join(cols))
-        entry = summary.setdefault(family, {"max_abs_err": 0.0, "ms": 0.0,
-                                            "plain_ms": 0.0})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["ms"] += ms
-        entry["plain_ms"] += plain_ms
-        if bf16_ms is not None:
-            entry["plain_bf16_ms"] = entry.get("plain_bf16_ms", 0.0) + bf16_ms
+        entry_sum = summary.setdefault(family, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": 0.0, "library_all": True, "operations": 0.0,
+            "bytes": 0.0})
+        entry_sum["max_abs_err"] = max(entry_sum["max_abs_err"], err)
+        entry_sum["ms"] += ms
+        entry_sum["plain_ms"] += plain_ms
+        entry_sum["bound_ms"] += b_ms
+        entry_sum[b_by] += b_ms   # which limit carries the family's bound
+        if lib_ms is None:
+            entry_sum["library_all"] = False
+        else:
+            entry_sum["library_ms"] += lib_ms
 
 
 def _batch(rng: np.random.Generator, b: int, s: int, r: int = 36) -> dict:
@@ -299,31 +420,45 @@ def _args(batch: dict, device) -> tuple:
                  ("mri", "covars", "roi_loc", "roi_std", "roi_compact"))
 
 
-def phase_parity() -> float:
+def phase_parity(s: int = 64, b: int = 2, template: bool = False) -> float:
+    """The full-width model at s^3, batch b, on the GPU through the kernels
+    in bf16 against the CPU in f32 through the plain versions. `template`
+    builds the template-space configuration (prompts at s^3, 8 ROIs)."""
     import dataclasses
 
-    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+    from coma_unet_tpu_torch import (
+        ContraAttnUNet,
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+        TEMPLATE_ROI_INDICES,
+    )
 
-    s = 64
     cfg = ModelConfig(prompt_shape=(s, s, s))
+    r = 36
+    if template:
+        cfg = ExperimentConfig(data=DataConfig(
+            template_space=True, volume_shape=(s, s, s))).normalized().model
+        r = len(TEMPLATE_ROI_INDICES)
+    check(tuple(cfg.prompt_shape) == (s, s, s), f"prompts {cfg.prompt_shape}")
     cpu_cfg = dataclasses.replace(cfg, compute_dtype="float32")
     gen = torch.Generator().manual_seed(0)
-    ref_model = ContraAttnUNet(cpu_cfg, generator=gen).eval()
+    ref_model = ContraAttnUNet(cpu_cfg, device="cpu", generator=gen).eval()
     with torch.no_grad():  # FiLM starts at zero: give it and the routing signal
         for name, p in ref_model.named_parameters():
             if ".film." in name or ".route." in name:
                 p.add_(0.5 * torch.randn(p.shape, generator=gen))
-    gpu_model = ContraAttnUNet(cfg, device="cuda").eval()
+    gpu_model = ContraAttnUNet(cfg, device=DEVICE).eval()
     gpu_model.load_state_dict(ref_model.state_dict())
     # the same bf16 forward through the plain versions on the CPU: the share
     # of the error that bf16 rounding alone explains
-    bf16_model = ContraAttnUNet(cfg).eval()
+    bf16_model = ContraAttnUNet(cfg, device="cpu").eval()
     bf16_model.load_state_dict(ref_model.state_dict())
-    batch = _batch(np.random.default_rng(1), b=2, s=s)
-    batch["covars"][:, 0] = [1.0, 0.0]  # one abeta+ and one abeta- prompt
+    batch = _batch(np.random.default_rng(1), b=b, s=s, r=r)
+    batch["covars"][:, 0] = [1.0, 0.0][:b]  # abeta+ and abeta- prompts
     t0 = time.perf_counter()
     with torch.inference_mode():
-        got = gpu_model(*_args(batch, "cuda"), with_projections=False).out.cpu()
+        got = gpu_model(*_args(batch, DEVICE), with_projections=False).out.cpu()
         gpu_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ref = ref_model(*_args(batch, "cpu"), with_projections=False).out
@@ -334,7 +469,9 @@ def phase_parity() -> float:
         return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
     rel = rel_l2(got, ref)
-    print(f"parity 64^3 b=2: rel L2(out) = {rel:.4e} (tol {PARITY_TOL}); "
+    check(tuple(got.shape) == (b, 1, s, s, s), f"parity: out {tuple(got.shape)}")
+    print(f"parity {s}^3 b={b}{' template' if template else ''}: rel L2(out) = "
+          f"{rel:.4e} (tol {PARITY_TOL}); "
           f"plain bf16 on CPU vs f32: {rel_l2(plain_bf16, ref):.4e}; kernels "
           f"vs plain bf16: {rel_l2(got, plain_bf16):.4e}; max|ref| "
           f"{ref.abs().max().item():.4f}; gpu {gpu_s:.2f} s, cpu f32 {cpu_s:.1f} s")
@@ -433,14 +570,14 @@ def phase_gradients() -> None:
     cfg = ModelConfig(prompt_shape=(s, s, s))
     gen = torch.Generator().manual_seed(0)
     ref_model = ContraAttnUNet(dataclasses.replace(cfg, compute_dtype="float32"),
-                               generator=gen)
+                               device="cpu", generator=gen)
     with torch.no_grad():  # FiLM starts at zero: give it and the routing signal
         for name, p in ref_model.named_parameters():
             if ".film." in name or ".route." in name:
                 p.add_(0.5 * torch.randn(p.shape, generator=gen))
     gpu_model = ContraAttnUNet(cfg, device="cuda")
     gpu_model.load_state_dict(ref_model.state_dict())
-    bf16_model = ContraAttnUNet(cfg)
+    bf16_model = ContraAttnUNet(cfg, device="cpu")
     bf16_model.load_state_dict(ref_model.state_dict())
     batch = _batch(np.random.default_rng(1), b=2, s=s)
     batch["covars"][:, 0] = [1.0, 0.0]  # one abeta+ and one abeta- prompt
@@ -522,7 +659,7 @@ def phase_training() -> dict:
     check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(state.step == TRAIN_STEPS, f"train state counts {state.step} updates")
-    for family in ops.FAMILIES:
+    for family in ops.PATH_FAMILIES:
         check(launches.get(family, 0) > 0, f"{family}: no kernel launch in training")
     check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
     med = statistics.median(step_ms[1:])
@@ -530,11 +667,18 @@ def phase_training() -> dict:
           f"({med / 2:.2f} ms/volume); all steps ms {[round(t, 2) for t in step_ms]}; "
           f"peak memory {peak:.2f} GiB")
 
+    profile_step(lambda: step(batch, roi_w))
+    return launches
+
+
+def profile_step(fn) -> None:
+    """torch.profiler over one call of `fn`: wall time, summed kernel time,
+    the device's idle share and the top 10 kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, roi_w)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
@@ -552,7 +696,152 @@ def phase_training() -> dict:
           f"(device idle share {max(0.0, 1 - total / wall):.3f}); top 10 kernels:")
     for e in kernels[:10]:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+
+
+def _check_metrics(name: str, got: dict, want: dict) -> float:
+    """Every value of `got` (card) within METRIC_TOL of `want` (CPU f64),
+    relative, plus 1e-6 of the key's largest value; SSIM, whose range is
+    [-1, 1] and whose value between unrelated volumes is near 0, within
+    METRIC_TOL absolute. Returns the worst relative error."""
+    worst = 0.0
+    check(set(got) == set(want), f"{name}: keys {sorted(got)} vs {sorted(want)}")
+    for key, ref in want.items():
+        a = got[key].double().cpu()
+        check(a.shape == ref.shape, f"{name} {key}: shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a).all()), f"{name} {key}: non-finite")
+        err = (a - ref).abs()
+        floor = METRIC_TOL if key == "ssim" else 1e-6 * float(ref.abs().max())
+        check(bool((err <= METRIC_TOL * ref.abs() + floor).all()),
+              f"{name} {key}: card vs cpu f64 differ by {float(err.max())}")
+        worst = max(worst, float((err / (ref.abs() + floor + 1e-30)).max()))
+    return worst
+
+
+def phase_template() -> dict:
+    """The template-space path at 216^3: forward, eval with the metric
+    suite, four train steps."""
+    from coma_unet_tpu_torch import (
+        ContraAttnUNet,
+        DataConfig,
+        ExperimentConfig,
+        LossConfig,
+        TEMPLATE_ROI_INDICES,
+    )
+    from coma_unet_tpu_torch import ops
+    from coma_unet_tpu_torch.infer import make_infer_fn
+    from coma_unet_tpu_torch.metrics import roi_metrics, voxel_metrics
+    from coma_unet_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    cfg = ExperimentConfig(data=DataConfig(template_space=True),
+                           loss=LossConfig(roi_weight=1.0)).normalized()
+    s = cfg.data.volume_shape[0]
+    r = len(TEMPLATE_ROI_INDICES)
+    check(tuple(cfg.data.volume_shape) == (216,) * 3, f"{cfg.data.volume_shape}")
+    check(tuple(cfg.model.prompt_shape) == (s,) * 3, f"{cfg.model.prompt_shape}")
+    model = ContraAttnUNet(cfg.model, generator=torch.Generator().manual_seed(0))
+    check(next(model.parameters()).device.type == DEVICE,
+          "the model did not build on the GPU")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the b=1 forward through make_infer_fn
+    one = _batch(np.random.default_rng(3), b=1, s=s, r=r)
+    infer = make_infer_fn(model)
+    args = _args(one, DEVICE)
+    ops.reset_counts()
+    out = infer(*args)
+    torch.cuda.synchronize()
+    fwd_launches, fwd_plain = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+    check(tuple(out.shape) == (1, 1, s, s, s), f"template out {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "template: non-finite forward")
+    for family in ops.FWD_FAMILIES:
+        check(fwd_launches.get(family, 0) > 0, f"{family}: no launch in the forward")
+    check(sum(fwd_plain.values()) == 0, f"plain versions ran on the GPU: {fwd_plain}")
+    fwd_ms = median_ms(lambda: infer(*args), reps=10)
+    print(f"template forward b=1 {s}^3: median {fwd_ms:.2f} ms over 10 calls "
+          f"(make_infer_fn, CUDA events)")
+
+    two = _batch(np.random.default_rng(4), b=2, s=s, r=r)
+    two["covars"][:, 0] = [1.0, 0.0]
+    eval_step = make_eval_step(model, r)
+    eval_ms = [_timed(lambda: eval_step(two)) for _ in range(4)]
+
+    # the slice's main path: one eval at b=2, then four train steps at b=1
+    ops.reset_counts()
+    pred, vox, roi = eval_step(two)
+    check(tuple(pred.shape) == (2, 1, s, s, s), f"eval pred {tuple(pred.shape)}")
+    check(bool(torch.isfinite(pred).all()), "eval: non-finite pred")
+    ssim = vox["ssim"].cpu()
+    check(bool(((ssim >= -1.0) & (ssim <= 1.0)).all()), f"ssim outside [-1, 1]: {ssim}")
+    t0 = time.perf_counter()
+    cpu = {k: torch.as_tensor(v) for k, v in two.items()}
+    pred64, tau64 = pred.double().cpu(), cpu["tau"].double()
+    want_vox = voxel_metrics(pred64, tau64)
+    want_roi = roi_metrics(pred64, tau64, cpu["roi_compact"], r)
+    cpu_s = time.perf_counter() - t0
+    worst_vox = _check_metrics("eval voxel", vox, want_vox)
+    worst_roi = _check_metrics("eval roi", roi, want_roi)
+    tau, compact = (torch.as_tensor(two[k], device=DEVICE) for k in ("tau", "roi_compact"))
+    metrics_ms = median_ms(lambda: (voxel_metrics(pred, tau),
+                                    roi_metrics(pred, tau, compact, r)), reps=5)
+    print(f"template eval b=2 {s}^3: median {statistics.median(eval_ms[1:]):.2f} ms "
+          f"over calls 2-4 (first {eval_ms[0]:.2f} ms), of which the metric suite "
+          f"{metrics_ms:.2f} ms (CUDA events); metrics vs cpu f64 (computed in "
+          f"{cpu_s:.1f} s): "
+          f"worst rel voxel {worst_vox:.2e}, roi {worst_roi:.2e} (tol {METRIC_TOL}); "
+          f"ssim {[round(float(v), 6) for v in ssim]}, mae "
+          f"{[round(float(v), 6) for v in vox['mae'].cpu()]}")
+    del pred, vox, roi, want_vox, want_roi, pred64, tau, compact
+
+    state = create_train_state(model, cfg.train.lr, cfg.train.weight_decay)
+    step = make_train_step(model, cfg.loss, state.optimizer)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in one.items()}
+    roi_w = torch.full((r,), cfg.loss.roi_weight, device=DEVICE)
+    losses, tcds, step_ms = [], [], []
+    for _ in range(TEMPLATE_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, roi_w)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        tcds.append(float(metrics["tcds_loss"]))
+    launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"template train losses: {[round(v, 6) for v in losses]}; tcds {tcds}; "
+          f"grad_norm {float(metrics['grad_norm']):.4f}")
+    print(f"template path launches (one eval + {TEMPLATE_STEPS} steps): {launches}; "
+          f"plain on cuda: {plain_cuda}")
+    check(all(np.isfinite(losses)), f"non-finite template loss: {losses}")
+    check(losses[-1] < losses[0], f"template loss did not fall: {losses}")
+    check(all(v == 0.0 for v in tcds), f"RnC did not take its n<2 guard: {tcds}")
+    check(state.step == TEMPLATE_STEPS, f"train state counts {state.step} updates")
+    heads = ("proj", "final_proj")
+    for name, p in model.named_parameters():
+        if name.startswith(heads):  # RnC's guard at b=1 reads no projection
+            check(p.grad is None, f"{name}: a gradient through the RnC guard")
+        else:
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{name}: no finite gradient in the template train step")
+    for family in ops.PATH_FAMILIES:
+        check(launches.get(family, 0) > 0, f"{family}: no launch on the template path")
+    check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
+    med = statistics.median(step_ms[1:])
+    print(f"template train step b=1 {s}^3: median {med:.2f} ms over steps "
+          f"2-{TEMPLATE_STEPS}; all steps ms {[round(t, 2) for t in step_ms]}; "
+          f"peak memory {peak:.2f} GiB (forward, eval and train)")
+    profile_step(lambda: step(batch, roi_w))
     return launches
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def main() -> int:
@@ -567,21 +856,23 @@ def main() -> int:
     phase_kernels(summary)
     phase_parity()
     phase_gradients()
-    serving = phase_serving()
-    launches = phase_training()
+    paths = {"serving": phase_serving(), "training": phase_training()}
+    torch.cuda.empty_cache()
+    phase_parity(s=88, b=1, template=True)
+    paths["template"] = phase_template()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]
-        kernel = {"name": name, "route": "cuda", "source": source,
-                  "replaces": replaces, "launches": launches.get(family, 0),
-                  "max_abs_err": entry["max_abs_err"],
-                  "ms": round(entry["ms"], 4),
-                  "plain_ms": round(entry["plain_ms"], 4)}
-        if "plain_bf16_ms" in entry:
-            kernel["plain_bf16_ms"] = round(entry["plain_bf16_ms"], 4)
-        if family in serving:
-            kernel["serving_launches"] = serving[family]
-        kernels.append(kernel)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": paths["template"].get(family, 0),
+            "launches_by_path": {p: n.get(family, 0) for p, n in paths.items()},
+            "max_abs_err": entry["max_abs_err"],
+            "ms": round(entry["ms"], 4), "plain_ms": round(entry["plain_ms"], 4),
+            "bound_ms": round(entry["bound_ms"], 4),
+            "bound_by": max(("operations", "bytes"), key=lambda k: entry[k]),
+            "library_ms": (round(entry["library_ms"], 4) if entry["library_all"]
+                           else None)})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,17 +4,23 @@ A port of the JAX package `coma_unet_tpu`, which stays the reference: the
 same model, parameter names and NCDHW layouts, checked against it on the
 CPU (`tests/test_torch_port_*.py`). The kernels that the JAX package wrote
 in Pallas for the TPU are CUDA kernels here (`csrc/`), built at first use
-(`ops/_build.py`). This package imports neither JAX nor flax; from the JAX
-package it reads only the configuration file (`config.py`).
+(`ops/_build.py`). This package imports neither JAX nor flax, and needs no
+file of the JAX package: its configuration (`config.py`) is its own copy.
 
 Ported so far: the serving forward of the flagship ContraAttnUNet
-(`models/`, `infer/`) and its train step (`losses/`, `train/`), whose
-backward runs through hand-written kernels too.
+(`models/`, `infer/`), its train step (`losses/`, `train/`), whose
+backward runs through hand-written kernels too, and its eval step with the
+metric suite (`metrics/`), at 128^3 and in template space at 216^3. Models
+build on the GPU unless asked for the CPU (`device="cpu"`).
 """
 
 from coma_unet_tpu_torch.config import (  # noqa: F401
+    DataConfig,
+    ExperimentConfig,
     LossConfig,
     ModelConfig,
+    ROI_INDICES,
+    TEMPLATE_ROI_INDICES,
     TrainConfig,
 )
 from coma_unet_tpu_torch.models.attention_unet import (  # noqa: F401

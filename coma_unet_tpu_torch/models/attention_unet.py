@@ -28,6 +28,7 @@ from coma_unet_tpu_torch.models.blocks import (
     ConvBlock,
     Convolution,
     UpBlock,
+    resolve_device,
 )
 
 KERNEL_LEVELS = 2  # levels 0 .. KERNEL_LEVELS - 1 run on the kernels
@@ -53,12 +54,14 @@ class UNetFeatures:
 
 
 class AttentionUNet(nn.Module):
-    """The encoder-decoder backbone (reduce conv included)."""
+    """The encoder-decoder backbone (reduce conv included). It builds on the
+    GPU unless `device` says otherwise, and raises where there is none."""
 
     def __init__(self, config, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
+        device = resolve_device(device)
         if cfg.dropout > 0.0:
             raise NotImplementedError("dropout is not ported yet")
         common = dict(dtype=getattr(torch, cfg.compute_dtype),
@@ -119,8 +122,9 @@ class AttentionUNet(nn.Module):
         for i in range(self.depth - 2, -1, -1):
             up = getattr(self, f"up{i}")(d, cov_full)
             if up.shape[2:] != encoder[i].shape[2:]:
-                # odd level sizes (e.g. 216^3: 27 -> up 28): crop the
-                # upsample to the skip, as the JAX package does
+                # odd level sizes (216^3: 216 -> 108 -> 54 -> 27 -> 14, and
+                # the up 14 -> 28 meets the skip of 27): crop the upsample
+                # to the skip, as the JAX package does
                 ed, eh, ew = encoder[i].shape[2:]
                 up = up[:, :, :ed, :eh, :ew]
             att, psi = getattr(self, f"gate{i}")(up, encoder[i])

@@ -13,7 +13,9 @@ instance norm + FiLM + activation through `norm_act`; each wrapper launches
 the family's CUDA kernel for a CUDA tensor and runs the plain version for a
 CPU tensor. When False the block uses PyTorch's built-in ops, as the JAX
 package leaves those sites to XLA. The models set `kernels` by U-Net level
-(`models/attention_unet.py`), never by tensor shape.
+(`models/attention_unet.py`), never by tensor shape. Blocks, like the
+models, build on the GPU unless `device` names another device
+(`resolve_device`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,19 @@ from coma_unet_tpu_torch.ops.norm_act import ACTS, apply_act, norm_act
 # flax's lecun_normal: a normal truncated at two standard deviations, with
 # the standard deviation rescaled so that the truncated variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None. The port builds on the GPU
+    unless the caller asks for the CPU; with no card, a model built without
+    `device` raises instead of running the plain versions on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds its models on the GPU unless "
+            "asked otherwise; pass device=\"cpu\" to build on the CPU")
+    return torch.device("cuda")
 
 
 def _fill_(param: torch.Tensor, draw) -> None:
@@ -70,8 +85,8 @@ class PReLU(nn.Module):
 
     def __init__(self, param_dtype=torch.float32, device=None):
         super().__init__()
-        self.alpha = nn.Parameter(
-            torch.full((1,), 0.25, dtype=param_dtype, device=device))
+        self.alpha = nn.Parameter(torch.full(
+            (1,), 0.25, dtype=param_dtype, device=resolve_device(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_act(x, "prelu", self.alpha)
@@ -165,6 +180,7 @@ class Convolution(nn.Module):
                  param_dtype=torch.float32, device=None, generator=None):
         super().__init__()
         _check_act(act)
+        device = resolve_device(device)
         k = kernel_size
         self.strides, self.is_transposed = strides, is_transposed
         self.conv_only, self.act, self.kernels = conv_only, act, kernels
@@ -209,6 +225,7 @@ class CondConvolution(nn.Module):
                  device=None, generator=None):
         super().__init__()
         _check_act(act)
+        device = resolve_device(device)
         k = kernel_size
         self.strides, self.is_transposed = strides, is_transposed
         self.conv_only, self.act, self.kernels = conv_only, act, kernels

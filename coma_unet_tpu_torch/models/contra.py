@@ -28,6 +28,7 @@ from coma_unet_tpu_torch.models.blocks import (
     ProjectionHead,
     StackedFusionConvLayers,
     dense_init_,
+    resolve_device,
 )
 from coma_unet_tpu_torch.ops.roi import paint_roi_values
 
@@ -47,13 +48,17 @@ class ContraAttnUNet(nn.Module):
     `covars` [B, K] carries [abeta, age, sex, edu, cog, meta_tau];
     `roi_loc`/`roi_std` are the per-sample per-ROI prediction tables [B, R];
     `roi_compact` is the compacted ROI id volume [B, D, H, W], ids 0..R.
-    Parameters are drawn from `generator` with the flax initializers.
+    Parameters are drawn from `generator` with the flax initializers. The
+    model builds on the GPU unless `device` says otherwise (`device="cpu"`
+    for the CPU, where the kernel wrappers run their plain versions), and
+    raises where there is no GPU.
     """
 
     def __init__(self, config, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
+        device = resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         pdtype = getattr(torch, cfg.param_dtype)
         common = dict(dtype=self.dtype, param_dtype=pdtype, device=device,

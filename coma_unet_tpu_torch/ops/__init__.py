@@ -1,18 +1,23 @@
 """Tensor ops of the port. Each kernel family has a wrapper that launches a
 hand-written CUDA kernel for a CUDA tensor and runs the plain PyTorch
 version for a CPU tensor: the forward families `s1`, `s2`, `t2`,
-`norm_act` (`FWD_FAMILIES`) and the backward families `s1_dw`,
-`strided_dw`, `norm_act_bwd` (`BWD_FAMILIES`). `conv3d_s1`, `conv3d_s2`,
-`conv3d_t2` and `norm_act` are autograd Functions whose backward runs
-kernels too."""
+`norm_act` (`FWD_FAMILIES`), the backward families `s1_dw`,
+`strided_dw`, `norm_act_bwd` (`BWD_FAMILIES`) and the standalone
+`phase_split` (`ENTRY_FAMILIES`). `conv3d_s1`, `conv3d_s2`, `conv3d_t2`
+and `norm_act` are autograd Functions whose backward runs kernels too;
+`instance_norm` and `conv3d_w64` are entry points over K4 and K1. The
+per-ROI sums and SSIM of the metric suite are PyTorch built-ins, as the JAX
+package leaves them to XLA."""
 
 from coma_unet_tpu_torch.ops._build import (  # noqa: F401
     BWD_FAMILIES,
+    ENTRY_FAMILIES,
     FAMILIES,
     FWD_FAMILIES,
     LAUNCHES,
     PLAIN_ON_CPU,
     PLAIN_ON_CUDA,
+    PATH_FAMILIES,
     reset_counts,
 )
 from coma_unet_tpu_torch.ops.conv3d import (  # noqa: F401
@@ -20,6 +25,7 @@ from coma_unet_tpu_torch.ops.conv3d import (  # noqa: F401
     conv3d_s1_dw,
     conv3d_s1_dw_plain,
     conv3d_s1_plain,
+    conv3d_w64,
 )
 from coma_unet_tpu_torch.ops.conv3d_strided import (  # noqa: F401
     conv3d_s2,
@@ -30,15 +36,24 @@ from coma_unet_tpu_torch.ops.conv3d_strided import (  # noqa: F401
     conv3d_t2_plain,
 )
 from coma_unet_tpu_torch.ops.norm_act import (  # noqa: F401
+    instance_norm,
     norm_act,
     norm_act_bwd,
     norm_act_bwd_plain,
     norm_act_forward,
     norm_act_plain,
 )
+from coma_unet_tpu_torch.ops.phase_split import (  # noqa: F401
+    hsplit,
+    hsplit_plain,
+)
 from coma_unet_tpu_torch.ops.roi import (  # noqa: F401
     compact_roi,
     make_roi_lut,
     paint_roi_values,
+    roi_counts,
+    roi_reduce,
+    roi_sums,
     roi_weight_mask,
 )
+from coma_unet_tpu_torch.ops.ssim import ssim3d  # noqa: F401

@@ -1,10 +1,10 @@
 """Builds the hand-written CUDA kernels of `coma_unet_tpu_torch/csrc` and
 launches them.
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface, under `build/coma_unet_tpu_torch/`
-at the root of the checkout, named after a hash of the sources so that an
-edit rebuilds. The library is loaded with ctypes; every pointer and the
+The sources are compiled at first use with `nvcc` for `sm_90a`, one `nvcc`
+per source, all started together, and linked into one shared library with
+a plain C interface, under `build/coma_unet_tpu_torch/` at the root of the
+checkout, named after a hash of the sources so that an edit rebuilds. The library is loaded with ctypes; every pointer and the
 stream pass as `c_void_p`. Each C entry point returns `cudaGetLastError()`
 after its launches, and `launch` raises if that is not 0. A missing `nvcc`
 or a failed build raises `RuntimeError` with the compiler's output.
@@ -13,7 +13,10 @@ The launch counters live here: `LAUNCHES[family]` counts kernel launches,
 and `PLAIN_ON_CUDA` / `PLAIN_ON_CPU` count calls of a family's plain PyTorch
 version by the device of its input. `FWD_FAMILIES` are the kernels a
 forward runs, `BWD_FAMILIES` those only a backward runs (a backward also
-launches forward families for its input gradients); `FAMILIES` is both.
+launches forward families for its input gradients); `PATH_FAMILIES` is
+both, the kernels of the model's paths. `ENTRY_FAMILIES` are kernels that
+only a standalone entry point runs (`phase_split`, as in the JAX package);
+`FAMILIES` is every family.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ import torch
 
 FWD_FAMILIES = ("s1", "s2", "t2", "norm_act")
 BWD_FAMILIES = ("s1_dw", "strided_dw", "norm_act_bwd")
-FAMILIES = FWD_FAMILIES + BWD_FAMILIES
+PATH_FAMILIES = FWD_FAMILIES + BWD_FAMILIES
+ENTRY_FAMILIES = ("phase_split",)
+FAMILIES = PATH_FAMILIES + ENTRY_FAMILIES
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 PLAIN_ON_CPU: Counter = Counter()
@@ -40,7 +45,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "coma_unet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # C entry points: name -> argtypes (all return an int cudaError_t)
@@ -52,6 +57,7 @@ _SIGNATURES = {
     "coma_conv3d_s1_dw": [_P] * 4 + [_I] * 9 + [_P],
     "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 8 + [_P],
     "coma_norm_act_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 _lib = None
@@ -101,14 +107,30 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{path.stem}.{tag}.o" for path in cu]
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+             str(src)] for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    link = [nvcc, "-shared", "-gencode", NVCC_FLAGS[1], "-o", str(tmp),
+            *map(str, objs)]
+    rcs = [proc.returncode for proc in procs]
+    if not any(rcs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        outs.append(proc.stdout + proc.stderr)
+        rcs.append(proc.returncode)
+    log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out in zip(cmds, outs))
     (BUILD_DIR / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(rcs):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({max(rcs)}):\n{log}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -211,3 +211,16 @@ def conv3d_s1(x: torch.Tensor, w: torch.Tensor,
     the plain versions."""
     device_check("conv3d_s1", x)
     return Conv3dS1.apply(x, w, bias)
+
+
+def conv3d_w64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME k=3 conv of x [B, Cin, D, H, 64] (D even) with shared
+    weights w [Cout, Cin, 3, 3, 3]: counterpart of `coma_unet_tpu/ops/
+    pallas/conv3d_packed.py:pallas_conv3d_w64`. The TPU packs D-pairs onto
+    its 128 lanes around the kernel; here it is K1 on the plain layout."""
+    if (x.dim() != 5 or x.shape[-1] != 64 or x.shape[2] % 2
+            or w.dim() != 5 or tuple(w.shape[2:]) != (3, 3, 3)):
+        raise ValueError(f"conv3d_w64 takes x [B, C, D even, H, 64] and w "
+                         f"[Cout, Cin, 3, 3, 3], got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    return conv3d_s1(x, w)

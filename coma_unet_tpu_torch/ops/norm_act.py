@@ -236,3 +236,23 @@ def norm_act(x: torch.Tensor, alpha: Optional[torch.Tensor],
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"norm_act: unsupported device {x.device}")
     return NormAct.apply(x, alpha, scale, shift, act, eps)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  act: Optional[str] = None,
+                  negative_slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """Instance norm of x [B, C, D, H, W] with f32 stats, then act in {None,
+    "relu", "leakyrelu"}: counterpart of `coma_unet_tpu/ops/pallas/
+    instance_norm.py:pallas_instance_norm`, as K4 with no FiLM. A leaky
+    slope other than K4's 0.01 goes to K4 as its PReLU slope. The Pallas
+    kernel takes var = E[x^2] - mean^2; K4 merges shifted partials, so the
+    two agree to rounding, not bit for bit."""
+    act = act or "none"
+    if act not in ("none", "relu", "leakyrelu"):
+        raise ValueError(f"instance_norm: unknown activation {act!r}")
+    alpha = None
+    if act == "leakyrelu" and negative_slope != LEAKY_SLOPE:
+        act = "prelu"
+        alpha = torch.full((1,), float(negative_slope), dtype=torch.float32,
+                           device=x.device)
+    return norm_act(x, alpha, act, eps=eps)

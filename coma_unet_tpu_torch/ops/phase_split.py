@@ -1,0 +1,47 @@
+"""The H-parity split: kernel KS and its plain version.
+
+Counterpart of `coma_unet_tpu/ops/pallas/phase_split.py:pallas_hsplit`:
+x [B, C, D, H, W] (H even) -> (h0, h1), the phases [B, C, D, H/2, W] of
+even and odd H. The JAX package uses it only as a standalone prepass
+(`scripts/kernel_probe.py`); no strided kernel of the port needs it, since
+K2 reads its input with stride-2 addressing. The kernel's source is
+`coma_unet_tpu_torch/csrc/phase_split.cu`; it copies bits, so it agrees
+with the plain version exactly, for any element type.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from coma_unet_tpu_torch.ops import _build
+from coma_unet_tpu_torch.ops.conv3d import device_check
+
+
+def hsplit_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of KS."""
+    _build.count_plain("phase_split", x)
+    return x[..., 0::2, :].contiguous(), x[..., 1::2, :].contiguous()
+
+
+def hsplit(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h0, h1) = (x[..., 0::2, :], x[..., 1::2, :]) of x [B, C, D, H, W],
+    H even, as contiguous tensors. A CUDA tensor launches KS or raises; a
+    CPU tensor takes the plain version."""
+    if x.dim() != 5 or x.shape[3] % 2:
+        raise ValueError(f"hsplit takes [B, C, D, H, W] with H even, got "
+                         f"{tuple(x.shape)}")
+    if not device_check("hsplit", x):
+        return hsplit_plain(x)
+    if not x.is_contiguous():
+        raise ValueError("hsplit: the CUDA kernel takes a contiguous tensor")
+    b, c, d, h, w = x.shape
+    shape = (b, c, d, h // 2, w)
+    h0 = torch.empty(shape, dtype=x.dtype, device=x.device)
+    h1 = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        _build.launch("phase_split", "coma_hsplit", x.device, x.data_ptr(),
+                      h0.data_ptr(), h1.data_ptr(), b * c * d * (h // 2),
+                      w * x.element_size())
+    return h0, h1

@@ -1,9 +1,9 @@
-"""ROI label compaction, per-ROI painting and the ROI weight mask
-(counterpart of `coma_unet_tpu/ops/roi.py:26-126`).
+"""ROI label compaction, per-ROI sums, per-ROI painting and the ROI weight
+mask (counterpart of `coma_unet_tpu/ops/roi.py:26-126`).
 
 A raw ROI label volume is compacted once to ids in [0, R] through a lookup
 table (0 = background); per-ROI scalars are painted back onto the volume
-with one gather, which is exact.
+with one gather, which is exact, and per-ROI sums are one scatter-add.
 """
 
 from __future__ import annotations
@@ -33,6 +33,44 @@ def compact_roi(roi: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Map a raw ROI label volume to compact ids in [0, R]."""
     idx = roi.to(torch.int64).clamp(0, lut.shape[0] - 1)
     return lut.to(roi.device)[idx]
+
+
+# voxels per partial sum of `roi_reduce`: each ROI's sum is the sum of its
+# partials, so no f32 accumulator takes more than this many additions
+ROI_CHUNK = 4096
+
+
+def roi_reduce(values: torch.Tensor, compact: torch.Tensor,
+               num_rois: int) -> torch.Tensor:
+    """Per-sample, per-ROI sums of `values` [B, ...] over the compact ids
+    [B, ...] in [0, R]: [B, R + 1], column 0 the background; ids outside
+    [0, R] count nowhere. Sums in f32 (f64 for f64 values): one scatter-add
+    into per-chunk partials of ROI_CHUNK voxels, then a sum over the
+    chunks, so that a sum over a whole 216^3 ROI keeps its precision."""
+    b = values.shape[0]
+    dtype = torch.promote_types(values.dtype, torch.float32)
+    v = values.reshape(b, -1).to(dtype)
+    ids = compact.reshape(b, -1).to(torch.int64)
+    width = num_rois + 2   # ids 0..R and one column for the ids outside
+    ids = torch.where((ids >= 0) & (ids <= num_rois), ids, num_rois + 1)
+    chunk = torch.arange(v.shape[1], device=v.device) // ROI_CHUNK
+    nchunk = -(-v.shape[1] // ROI_CHUNK)
+    part = torch.zeros((b, nchunk * width), dtype=dtype, device=v.device)
+    part.scatter_add_(1, ids + chunk * width, v)
+    return part.reshape(b, nchunk, width).sum(dim=1)[:, :num_rois + 1]
+
+
+def roi_sums(values: torch.Tensor, compact: torch.Tensor,
+             num_rois: int) -> torch.Tensor:
+    """Per-sample per-ROI sums over the foreground ROIs only: [B, R]."""
+    return roi_reduce(values, compact, num_rois)[:, 1:]
+
+
+def roi_counts(compact: torch.Tensor, num_rois: int) -> torch.Tensor:
+    """Per-sample per-ROI voxel counts: [B, R] f32."""
+    ones = torch.ones(compact.shape, dtype=torch.float32,
+                      device=compact.device)
+    return roi_sums(ones, compact, num_rois)
 
 
 def paint_roi_values(compact: torch.Tensor, per_roi_values: torch.Tensor,

@@ -1,5 +1,5 @@
 """Training of the port (counterpart of `coma_unet_tpu/train/`): the train
-step, AdamW and the plateau controller, and the train state."""
+and eval steps, AdamW and the plateau controller, and the train state."""
 
 from coma_unet_tpu_torch.train.optim import (  # noqa: F401
     ReduceLROnPlateau,
@@ -13,6 +13,7 @@ from coma_unet_tpu_torch.train.state import (  # noqa: F401
 )
 from coma_unet_tpu_torch.train.step import (  # noqa: F401
     global_norm,
+    make_eval_step,
     make_loss_fn,
     make_train_step,
 )

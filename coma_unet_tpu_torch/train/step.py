@@ -1,8 +1,10 @@
-"""The train step (counterpart of `coma_unet_tpu/train/step.py:
-make_train_step`): forward, composite loss, backward through the kernels'
-autograd Functions, AdamW update.
+"""The train and eval steps (counterpart of `coma_unet_tpu/train/step.py:
+make_train_step`, `make_eval_step`): forward, composite loss, backward
+through the kernels' autograd Functions, AdamW update; and the inference
+forward with the voxel and ROI metric suite.
 
-Batches are dicts of tensors on the model's device, NCDHW:
+Both steps follow the model's device: batches are dicts of tensors or
+arrays, moved to the model's device, NCDHW:
 
     mri, tau     [B, 1, D, H, W]  float
     roi_compact  [B, D, H, W]     int ids in [0, R]
@@ -21,8 +23,20 @@ import torch
 
 from coma_unet_tpu_torch.config import LossConfig
 from coma_unet_tpu_torch.losses.composite import GenerativeContrastiveLoss
+from coma_unet_tpu_torch.metrics.roi import roi_metrics
+from coma_unet_tpu_torch.metrics.voxel import voxel_metrics
 
 _INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
+
+
+def _device_of(model: torch.nn.Module) -> Optional[torch.device]:
+    """The device of the model's parameters (None for a model without)."""
+    param = next(model.parameters(), None)
+    return None if param is None else param.device
+
+
+def _to_device(batch, device: Optional[torch.device]) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def _apply(model, batch: Dict[str, torch.Tensor], prefix: str = ""):
@@ -79,11 +93,16 @@ def make_train_step(model: torch.nn.Module, loss_config: LossConfig,
     their global L2 norm."""
     loss_fn = make_loss_fn(model, loss_config)
     params = [p for p in model.parameters() if p.requires_grad]
+    device = _device_of(model)
 
     def step(batch: Dict[str, torch.Tensor], roi_weights: torch.Tensor,
              voxel_weights: Optional[torch.Tensor] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        batch = _to_device(batch, device)
+        roi_weights = torch.as_tensor(roi_weights, device=device)
+        if voxel_weights is not None:
+            voxel_weights = torch.as_tensor(voxel_weights, device=device)
         total, metrics = loss_fn(batch, roi_weights, voxel_weights)
         total.backward()
         metrics["grad_norm"] = global_norm(
@@ -92,3 +111,24 @@ def make_train_step(model: torch.nn.Module, loss_config: LossConfig,
         return metrics
 
     return step
+
+
+def make_eval_step(model: torch.nn.Module, num_rois: int) -> Callable:
+    """eval_step(batch) -> (pred, vox, roi): the inference forward in
+    `.eval()` mode under `torch.inference_mode()`, then `voxel_metrics`
+    and `roi_metrics` of `pred` against `batch["tau"]` over the compact ROI
+    ids 1..num_rois, all on the model's device (the device half of the
+    reference's `contrastive_test`)."""
+    device = _device_of(model)
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        model.eval()
+        batch = _to_device(batch, device)
+        pred = model(*(batch.get(k) for k in _INPUTS),
+                     with_projections=False).out
+        vox = voxel_metrics(pred, batch["tau"])
+        roi = roi_metrics(pred, batch["tau"], batch["roi_compact"], num_rois)
+        return pred, vox, roi
+
+    return eval_step

@@ -13,6 +13,7 @@ blending match the JAX package's, and the port never imports JAX.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +30,7 @@ from coma_unet_tpu.config import ModelConfig  # noqa: E402
 from coma_unet_tpu.infer import sliding_window as jax_sw  # noqa: E402
 from coma_unet_tpu.models import ContraAttnUNet as FlaxContra  # noqa: E402
 import coma_unet_tpu_torch  # noqa: E402
-from coma_unet_tpu_torch import ContraAttnUNet, ops  # noqa: E402
+from coma_unet_tpu_torch import AttentionUNet, ContraAttnUNet, ops  # noqa: E402
 from coma_unet_tpu_torch.convert import from_flax  # noqa: E402
 from coma_unet_tpu_torch.infer import (  # noqa: E402
     make_infer_fn,
@@ -86,7 +87,7 @@ def setup():
             np.float32), variables["params"])
     outs = {wp: _flax_apply(flax_model, params, batch, wp)
             for wp in (True, False)}
-    port = ContraAttnUNet(CFG).eval()
+    port = ContraAttnUNet(CFG, device="cpu").eval()
     port.load_state_dict(from_flax(params, port))
     return flax_model, params, batch, outs, port
 
@@ -161,13 +162,20 @@ def test_port_runs_without_jax():
         "cfg = ModelConfig(channels=(2, 4, 8), latent_spaces=(8,) * 3,\n"
         "                  prompt_shape=(8, 8, 8), num_experts=2,\n"
         "                  compute_dtype='float32')\n"
-        "m = ContraAttnUNet(cfg, generator=torch.Generator().manual_seed(0))\n"
+        "m = ContraAttnUNet(cfg, device='cpu',\n"
+        "                   generator=torch.Generator().manual_seed(0))\n"
         "with torch.inference_mode():\n"
         "    out = m(torch.rand(2, 1, 8, 8, 8), torch.rand(2, 6)).out\n"
         "assert out.shape == (2, 1, 8, 8, 8) and bool(torch.isfinite(out).all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'coma_unet_tpu')]\n"
         "assert not bad, bad\n"
+        "from pathlib import Path\n"
+        f"ref = Path({str(ROOT / 'coma_unet_tpu')!r})\n"
+        "files = [Path(getattr(m, '__file__', None) or '/').resolve()\n"
+        "         for m in list(sys.modules.values())]\n"
+        "loaded = [str(f) for f in files if f.is_relative_to(ref)]\n"
+        "assert not loaded, loaded\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
@@ -176,20 +184,78 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+# a string that is a path into the JAX package ("coma_unet_tpu",
+# "coma_unet_tpu/config.py", "../coma_unet_tpu/ops"), not prose naming one
+_REF_PATH = re.compile(r"^(\.{1,2}/)*coma_unet_tpu(/[\w./-]*)?$")
+_LOADERS = {"spec_from_file_location", "SourceFileLoader", "load_source",
+            "run_path"}
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                yield first.value
+
+
 def test_port_source_imports_no_jax():
-    """AST scan: no import of jax, flax, optax or orbax, and nothing of the
-    JAX package (its config file is loaded by path, not imported)."""
+    """AST scan: no import of jax, flax, optax or orbax, nothing of the JAX
+    package, no loader that runs a file by path, and no string that names a
+    path into the JAX package."""
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "coma_unet_tpu"}
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        docs = {id(node) for node in _docstrings(tree)}
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
+            elif isinstance(node, (ast.Attribute, ast.Name)):
+                name = node.attr if isinstance(node, ast.Attribute) else node.id
+                assert name not in _LOADERS, f"{path}:{node.lineno}: {name}"
+                continue
+            elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and id(node) not in docs):
+                assert not _REF_PATH.match(node.value.strip()), (
+                    f"{path}:{node.lineno}: {node.value!r}")
+                continue
             else:
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path}: {name}"
+
+
+def test_purity_scan_catches_a_load_by_path():
+    """The scan above fails on the by-path loader the port once had."""
+    src = ('import importlib.util\n'
+           'from pathlib import Path\n'
+           'p = Path(__file__).parents[1] / "coma_unet_tpu" / "config.py"\n'
+           'spec = importlib.util.spec_from_file_location("c", p)\n')
+    tree = ast.parse(src)
+    names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert names & _LOADERS
+    assert any(_REF_PATH.match(v) for v in strings)
+    assert not _REF_PATH.match("coma_unet_tpu_torch/csrc/conv3d_s1.cu")
+    assert not _REF_PATH.match("coma_unet_tpu/ops/pallas/conv3d.py:260 _fwd")
+
+
+def test_models_build_on_the_gpu_by_default(monkeypatch):
+    """Without `device` a model builds on the GPU; where there is none it
+    raises and names the way to the CPU, instead of running the plain
+    versions there."""
+    cfg = ModelConfig(channels=(2, 4), strides=(2, 2), latent_spaces=(8,) * 2,
+                      prompt_shape=(8, 8, 8), num_experts=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (ContraAttnUNet, AttentionUNet):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cls(cfg)
+    model = ContraAttnUNet(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

@@ -113,7 +113,7 @@ def _jax_step(params, batch, loss_config):
 
 
 def _port(params):
-    port = ContraAttnUNet(CFG)
+    port = ContraAttnUNet(CFG, device="cpu")
     port.load_state_dict(from_flax(params, port))
     return port
 
@@ -229,7 +229,7 @@ def test_train_step_runs_every_wrapper(params):
                            make_optimizer(port.parameters(), 1e-3))
     ops.reset_counts()
     step(_torch_batch(_batch(np.random.default_rng(2))), torch.from_numpy(ROI_W))
-    assert all(ops.PLAIN_ON_CPU[f] > 0 for f in ops.FAMILIES), dict(ops.PLAIN_ON_CPU)
+    assert all(ops.PLAIN_ON_CPU[f] > 0 for f in ops.PATH_FAMILIES), dict(ops.PLAIN_ON_CPU)
     assert not ops.LAUNCHES and not ops.PLAIN_ON_CUDA
 
 
