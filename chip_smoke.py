@@ -7,7 +7,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device:  nvidia-smi's name and power limit, torch and CUDA versions;
               the card must be compute capability 9.0.
   2. build:   compiles the hand-written kernels (coma_unet_tpu_torch/csrc),
-              one nvcc per source in parallel, into build/coma_unet_tpu_torch/.
+              one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
+              prints ptxas's registers and spills per kernel, and counts the
+              HMMA (tensor-core) instructions of each instantiation of KB1's
+              tensor-core kernel in `cuobjdump -sass` of the library: none
+              fails.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -21,7 +25,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               events), and computes each case's bound: the larger of its
               bytes over 3.35 TB/s and its operations over the H100's peak
               for their type (bf16 tensor cores for the convs, f32 for the
-              norms).
+              norms). KB1 cases also run twice and must be bit-identical.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -90,6 +94,7 @@ TEMPLATE_STEPS = 4
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
+TC_KERNEL = "conv3d_dw_tc_kernel"  # KB1 on the tensor cores (csrc/conv3d_dw_tc.cu)
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -105,7 +110,7 @@ SOURCES = {
     "norm_act": ("norm_act", "coma_unet_tpu_torch/csrc/norm_act.cu",
                  "coma_unet_tpu/ops/pallas/norm_act.py:185 _norm_act_fwd_impl; "
                  "instance_norm.py:59 pallas_instance_norm"),
-    "s1_dw": ("conv3d_s1_dw", "coma_unet_tpu_torch/csrc/conv3d_dw.cu",
+    "s1_dw": ("conv3d_s1_dw", "coma_unet_tpu_torch/csrc/conv3d_dw_tc.cu",
               "coma_unet_tpu/ops/pallas/conv3d.py:586 _pallas_conv3d_dw; "
               "conv3d.py:516 _pallas_conv3d_dw_htiled; "
               "conv3d_p1.py:319 _p1_dw; conv3d_packed.py:195 _packed_dw"),
@@ -155,13 +160,56 @@ def phase_build() -> None:
     from coma_unet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    lib = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
     log = _build.BUILD_DIR / "build.log"
     if log.is_file():
+        name = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = _kernel_name(line.split("'")[1] if "'" in line else line)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas: {name}: {line.split(':', 1)[-1].strip()}")
+    hmma = sass_hmma(lib, TC_KERNEL)
+    print(f"HMMA instructions per {TC_KERNEL} instantiation (cuobjdump -sass): "
+          f"{json.dumps({_kernel_name(k): n for k, n in hmma.items()})}")
+    check(len(hmma) > 0, f"no {TC_KERNEL} in the library")
+    check(all(n > 0 for n in hmma.values()), f"{TC_KERNEL} without HMMA: {hmma}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's mangled name from its own name on, with its template
+    arguments (`conv3d_dw_tc_kernelILi3ELi16ELi32ELi8E...`): the prefix that
+    names the source file's anonymous namespace is dropped."""
+    import re
+
+    m = re.search(r"_[0-9a-f]{8}(\d+)(\w+)$", mangled)
+    return m.group(2)[:int(m.group(1)) + 24] if m else mangled
+
+
+def sass_hmma(lib, kernel: str) -> dict:
+    """The number of HMMA instructions in each function of `lib` whose
+    (mangled) name contains `kernel`, from `cuobjdump -sass`."""
+    import shutil
+    from pathlib import Path
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if kernel in name:
+                counts[name] = 0
+        elif name in counts and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _kernel_cases():
@@ -200,9 +248,13 @@ def _kernel_cases():
     cases.append(("s2", "216 down0.conv0", (1, 32) + t0, (64, 32, 3, 3, 3), True, None))
     cases.append(("t2", "up0", (2, 64) + v1, (32, 64, 3, 3, 3), True, None))
     cases.append(("t2", "216 up0", (1, 64) + t1, (32, 64, 3, 3, 3), True, None))
-    # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]
+    # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]; the path's
+    # sites, and two off the path whose odd W takes the scalar loads and
+    # whose channel counts pad both channel tiles
+    odd = [("odd W k=3 (scalar loads)", 2, 24, 40, 3, True, (10, 9, 27)),
+           ("odd W k=1 (scalar loads)", 1, 40, 20, 1, False, (5, 6, 45))]
     cases += [("s1_dw", site, (b, ci) + sp, (co, k), ps, None)
-              for site, b, ci, co, k, ps, sp in s1]
+              for site, b, ci, co, k, ps, sp in s1 + odd]
     # KB2: full [B, 32, D^3], half [B, 64, (D/2)^3] in both roles
     for b, full, half, tag in ((2, v0, v1, ""), (1, t0, t1, "216 ")):
         cases.append(("strided_dw", f"{tag}down0.conv0 (s2: full=x, half=g)",
@@ -286,14 +338,17 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                     plain=lambda: ops.norm_act_bwd_plain(x, g, alpha, act, scale, shift),
                     library=None, inputs=(x, g), ops=14 * x.numel(), rate=PEAK_F32)
     if family == "s1_dw":
+        from coma_unet_tpu_torch.ops.conv3d import dw_plan
+
         (co, k), ps = wshape, extra
-        x, g = randn(xshape), randn((xshape[0], co) + xshape[2:])
-        flops = 2 * xshape[0] * co * xshape[1] * k ** 3 * _voxels(xshape)
+        b, ci = xshape[:2]
+        x, g = randn(xshape), randn((b, co) + xshape[2:])
+        flops = 2 * b * co * ci * k ** 3 * _voxels(xshape)
         return dict(kernel=lambda: ops.conv3d_s1_dw(x, g, k, ps),
                     ref=lambda: ops.conv3d_s1_dw_plain(x.float(), g.float(), k, ps),
                     plain=lambda: ops.conv3d_s1_dw_plain(x, g, k, ps),
                     library=lambda: conv3d_weight_ref(x, g, k, ps), inputs=(x, g),
-                    ops=flops, rate=PEAK_BF16)
+                    ops=flops, rate=PEAK_BF16, plan=dw_plan(b, ci, co, *xshape[2:], k))
     if family == "strided_dw":
         full, half = randn(xshape), randn(wshape)
         flops = 2 * xshape[0] * wshape[1] * xshape[1] * 27 * _voxels(wshape)
@@ -339,6 +394,16 @@ def bound_ms(ops_count: float, rate: float, nbytes: int):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _kb1_checks(case: dict, got: torch.Tensor, site: str) -> str:
+    """KB1 at one site: a second call must be bit-identical to the first.
+    Returns a line with the cut `dw_plan` chose."""
+    again = case["kernel"]()
+    check(bool(torch.equal(again, got)), f"s1_dw {site}: two calls differ")
+    plan = case["plan"]
+    return (f"  KB1 {site}: ct={plan.ct} at={plan.at} bricks/split={plan.bps} "
+            f"splits={plan.splits}; two calls bit-identical")
+
+
 def phase_kernels(summary: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -372,6 +437,7 @@ def phase_kernels(summary: dict) -> None:
                       f"{family} {site}: {a.dtype} max error {e} > {tol} * {scale_ref}")
                 err = max(err, e)
                 rel[a.dtype] = max(rel[a.dtype] or 0.0, e / scale_ref if scale_ref else 0.0)
+            note = _kb1_checks(case, got[0], site) if family == "s1_dw" else None
             ms = median_ms(case["kernel"])
             plain_ms = median_ms(case["plain"])
             library = case["library"]
@@ -386,6 +452,8 @@ def phase_kernels(summary: dict) -> None:
         cols.append(f"{b_ms:9.3f} {b_by}")
         print(f"{family:12s} {site:34s} {str(list(xshape)):24s} {err:11.3e} "
               + " ".join(cols))
+        if note:
+            print(note)
         entry_sum = summary.setdefault(family, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "library_ms": 0.0, "library_all": True, "operations": 0.0,
@@ -696,6 +764,17 @@ def profile_step(fn) -> None:
           f"(device idle share {max(0.0, 1 - total / wall):.3f}); top 10 kernels:")
     for e in kernels[:10]:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    # every instantiation of a kernel together: its name without namespace,
+    # template arguments and parameters
+    by_name: dict = {}
+    for e in kernels:
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split()[-1].split("::")[-1]
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + device_us(e) / 1e3, calls + e.count)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    print("  by kernel name: " + "; ".join(
+        f"{name} {ms:.3f} ms x{calls} ({ms / total:.1%})" for name, (ms, calls) in top))
 
 
 def _check_metrics(name: str, got: dict, want: dict) -> float:

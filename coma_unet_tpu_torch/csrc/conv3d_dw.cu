@@ -1,45 +1,36 @@
-// KB1: weight gradient of the stride-1 SAME 3-D convolution (k in {1, 3}),
 // KB2: weight gradient of the stride-2 k=3 convolution and, with the roles
-//      of its operands swapped, of the transposed stride-2 convolution.
+// of its operands swapped, of the transposed stride-2 convolution:
+//   M[cp, cf, t] = sum_p half[cp, p] * full[cf, 2p + t - 1],
+// per sample or summed over the batch, with p over the positions of the
+// half-resolution tensor (3-D), t over the 27 taps (kd major) and `full`
+// read as zero outside its bounds. Both are bf16 NCDHW; M is f32
+// [Cp, Cf, 27] (shared) or [B, Cp, Cf, 27] (per sample), summed in f32. For
+// the stride-2 conv (half = g, full = x) M is dW; for the transposed conv
+// (half = x, full = g) dW is M with its two channel axes swapped and its
+// taps flipped (done by the caller on these small tensors).
 //
-// Both compute, per sample or summed over the batch,
-//   out[a, c, t] = sum_p G[a, p] * X[c, S * p + t - K / 2]
-// with p over the positions of G (3-D), t over the K^3 taps (3-D, kd major)
-// and X read as zero outside its bounds. G and X are bf16 NCDHW; out is f32
-// [A, C, K^3] (shared) or [B, A, C, K^3] (per sample), summed in f32.
-//   KB1 (S = 1): G = g [B, Cout, D, H, W], X = x [B, Cin, D, H, W]; out is
-//                dW [Cout, Cin, k, k, k] as it stands. Cin = 1 (the U-Net
-//                head) needs no special case.
-//   KB2 (S = 2, K = 3): G = the half-resolution tensor, X = the full one:
-//                M[cp, cf, t] = sum_p half[cp, p] * full[cf, 2p + t - 1].
-//                For the stride-2 conv (half = g, full = x) M is dW; for the
-//                transposed conv (half = x, full = g) dW is M with its two
-//                channel axes swapped and its taps flipped (done by the
-//                caller on these small tensors).
-//
-// Replaces, from coma_unet_tpu/ops/pallas/ (rows of the kernel table in
-// PERF.md): KB1 -- conv3d.py `_pallas_conv3d_dw` (`_dw_kernel`,
-// `_dw_k1_kernel`), conv3d_p1.py `_p1_dw` and conv3d_packed.py `_packed_dw`
-// (one function on three TPU layouts), and the Cin = 1 route that the JAX
-// package sends to phase_dot.shift_dot_dw; KB2 -- conv3d_strided.py
-// `_dw_dil_v1` (`_dw_dil_kernel`) and `_dw_v2` (`_dw_kernel_v2`).
+// Replaces, from coma_unet_tpu/ops/pallas/ (rows #16 and #17 of the kernel
+// table in PERF.md): conv3d_strided.py `_dw_dil_v1` (`_dw_dil_kernel`) and
+// `_dw_v2` (`_dw_kernel_v2`). KB1, the stride-1 weight gradient, has its own
+// tensor-core kernel (conv3d_dw_tc.cu).
 //
 // What bounds it on the H100: arithmetic. The reduction runs over every
-// position of G (2M per sample at 128^3) for an output of at most a few
-// hundred thousand values, so head.conv1's dW is 116 G multiply-adds, as
-// many as its forward. This simple version runs on the CUDA cores in f32.
+// half-resolution position for an output of a few tens of thousands of
+// values. This simple version runs on the CUDA cores in f32, and its
+// gather's index arithmetic rivals its FMAs.
 //
-// Design: a GEMM out[a, n] = sum_p G[a, p] * Xcol[n, p], n = c * K^3 + t,
-// whose long reduction axis is split across blocks. Block (n tile, a tile,
-// split) takes KC consecutive positions of one sample and walks them KT at
-// a time: it stages the G tile [KT][MT] and the gathered X tile [KT][NT]
-// (stride-S addressing and the zero halo done at the gather) in shared
-// memory as f32, and each of its 16 x 16 threads keeps a TM x TN tile of
-// f32 sums, so a shared-memory read feeds TM or TN FMAs. Each block writes
-// its partial sums to a workspace; a second launch sums the partials of
-// each output in a fixed order, so results are identical from run to run
-// (no float atomics). Element offsets are 64-bit.
-#include "common.cuh"
+// Design: a GEMM out[a, n] = sum_p G[a, p] * Xcol[n, p], n = c * K^3 + t
+// (G = half, X = full, S = 2, K = 3), whose long reduction axis is split
+// across blocks. Block (n tile, a tile, split) takes KC consecutive
+// positions of one sample and walks them KT at a time: it stages the G tile
+// [KT][MT] and the gathered X tile [KT][NT] (stride-S addressing and the
+// zero halo done at the gather) in shared memory as f32, and each of its
+// 16 x 16 threads keeps a TM x TN tile of f32 sums, so a shared-memory read
+// feeds TM or TN FMAs. Each block writes its partial sums to a workspace; a
+// second launch (dw_reduce.cuh) sums the partials of each output in a fixed
+// order, so results are identical from run to run (no float atomics).
+// Element offsets are 64-bit.
+#include "dw_reduce.cuh"
 
 namespace {
 
@@ -174,18 +165,6 @@ conv3d_dw_kernel(const bf16* __restrict__ G, const bf16* __restrict__ X, float* 
   }
 }
 
-// out[o, e] = sum_{s < nsum} ws[o * nsum + s, e], in order of s.
-__global__ void dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int64_t AN,
-                                 int64_t nsum) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= AN) return;
-  const int64_t o = blockIdx.y;
-  const float* p = ws + o * nsum * AN + e;
-  float s = 0.f;
-  for (int64_t i = 0; i < nsum; ++i) s += p[i * AN];
-  out[o * AN + e] = s;
-}
-
 template <int S, int K, int TM, int TN>
 cudaError_t launch_dw(const bf16* G, const bf16* X, float* ws, float* out, int64_t B, int64_t A,
                       int64_t C, int64_t Pd, int64_t Ph, int64_t Pw, int64_t D, int64_t H,
@@ -197,10 +176,7 @@ cudaError_t launch_dw(const bf16* G, const bf16* X, float* ws, float* out, int64
                                                                   H, W, kc, sps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t AN = A * N;
-  const dim3 rgrid((unsigned)cdiv(AN, 256), (unsigned)(per_sample ? B : 1));
-  dw_reduce_kernel<<<rgrid, 256, 0, stream>>>(ws, out, AN, per_sample ? sps : B * sps);
-  return cudaGetLastError();
+  return launch_dw_reduce(ws, out, A * N, B, sps, per_sample, stream);
 }
 
 // Tile shape by the output's extent: TM a-rows and TN columns per thread.
@@ -224,22 +200,6 @@ int64_t check_dw(int64_t B, int64_t A, int64_t Pd, int64_t Ph, int64_t Pw, int64
 }
 
 }  // namespace
-
-// KB1. x [B, Cin, D, H, W], g [B, Cout, D, H, W] bf16; out f32 [Cout, Cin, k^3]
-// or, with per_sample, [B, Cout, Cin, k^3]; ws holds B * ceil(D*H*W / kc) *
-// Cout * Cin * k^3 floats of scratch.
-COMA_API int coma_conv3d_s1_dw(const void* x, const void* g, void* ws, void* out, int64_t B,
-                               int64_t Cin, int64_t Cout, int64_t D, int64_t H, int64_t W,
-                               int64_t k, int64_t per_sample, int64_t kc, void* stream) {
-  if ((k != 1 && k != 3) || check_dw(B, Cout, D, H, W, kc) < 0) return cudaErrorInvalidValue;
-  const auto gp = static_cast<const bf16*>(g);
-  const auto xp = static_cast<const bf16*>(x);
-  const auto wsp = static_cast<float*>(ws);
-  const auto op = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return k == 3 ? dispatch_dw<1, 3>(gp, xp, wsp, op, B, Cout, Cin, D, H, W, D, H, W, per_sample, kc, s)
-                : dispatch_dw<1, 1>(gp, xp, wsp, op, B, Cout, Cin, D, H, W, D, H, W, per_sample, kc, s);
-}
 
 // KB2. full [B, Cf, D, H, W], half [B, Cp, (D-1)/2+1, (H-1)/2+1, (W-1)/2+1]
 // bf16; out f32 M [Cp, Cf, 27] or, with per_sample, [B, Cp, Cf, 27]; ws holds

@@ -11,12 +11,13 @@ package's: x NCDHW, w OIDHW `[Cout, Cin, k, k, k]` shared or
 `[B, Cout, Cin, k, k, k]` per sample. `conv3d_s1` is a
 `torch.autograd.Function`: on a CUDA tensor its forward and backward launch
 the kernels (sources `coma_unet_tpu_torch/csrc/conv3d_s1.cu`,
-`csrc/conv3d_dw.cu`) or raise; on a CPU tensor they run the plain versions.
+`csrc/conv3d_dw_tc.cu`) or raise; on a CPU tensor they run the plain
+versions.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,26 +127,63 @@ def _k1(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-DW_KT = 32              # positions per step of KB1/KB2 (csrc/conv3d_dw.cu)
-DW_TARGET_BLOCKS = 2048  # blocks a weight-gradient launch aims for
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def dw_split(b: int, positions: int, a: int, n: int) -> int:
-    """Positions per block of KB1/KB2 (a multiple of DW_KT): the reduction
-    over b * positions is split so that the launch has about
-    DW_TARGET_BLOCKS blocks of (a, n) output tiles, and no fewer than
-    16 steps per block."""
-    tiles = -(-a // 32) * -(-n // 128)
-    splits = max(1, DW_TARGET_BLOCKS // tiles)
-    kc = max(-(-b * positions // splits), 16 * DW_KT)
-    return -(-kc // DW_KT) * DW_KT
+# KB1 (csrc/conv3d_dw_tc.cu): a block owns CT input channels x AT output
+# channels x k^3 taps of dW in registers and walks a run of bricks of
+# positions of one sample, one brick per shared-memory stage.
+DW_BRICK = (4, 4, 16)   # (bd, bh, bw) positions per brick; bw is one k16 mma step
+DW_TC_BLOCKS = 8 * 132  # blocks a launch aims for: 4 waves of 2 blocks per SM
+DW_MIN_BRICKS = 4       # bricks per split at least, for the partials' writes
+DW_MAX_BRICKS = 80      # and at most: the error of the tensor cores' f32 sums
+                        # grows with the run (216^3 merge0 on an H100,
+                        # chip_smoke.py phase 3: 2.1e-5 of max|dW| at 19840
+                        # positions a split, 4.1e-5 at 39680)
+GRID_MAX = 65535        # CUDA's limit on grid.y and grid.z
 
 
-def dw_workspace(b: int, positions: int, kc: int, a: int, n: int,
-                 device: torch.device) -> torch.Tensor:
-    """f32 scratch for the partial sums of every split of KB1/KB2."""
-    splits = b * -(-positions // kc)
-    return torch.empty(splits * a * n, dtype=torch.float32, device=device)
+class DwPlan(NamedTuple):
+    """How one KB1 call is cut. The bricks of each sample (`bricks` of
+    `brick` positions, in order w fastest) are split into
+    `splits_per_sample` runs of `bps` bricks (`positions` positions), so
+    no split straddles two samples. Each split writes its partial dW to
+    `workspace` floats of f32 scratch, and a second launch sums the
+    partials in split order. `grid` is the launch grid: input-channel tiles
+    of `ct`, output-channel tiles of `at`, splits."""
+    brick: Tuple[int, int, int]
+    ct: int
+    at: int
+    bricks: int
+    bps: int
+    positions: int
+    splits_per_sample: int
+    splits: int
+    workspace: int
+    grid: Tuple[int, int, int]
+
+
+def dw_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
+            k: int) -> DwPlan:
+    """The cut of KB1 for x [b, cin, d, h, w] and g [b, cout, d, h, w]:
+    tiles of CT input channels (16 for k = 3, whose block then fits twice
+    on an SM; 16 or 32 for k = 1) and AT = 8, 16 or 32 output channels (the
+    smallest that holds the layer, up to 32; narrower layers pad with
+    zeros), and runs of DW_MIN_BRICKS to DW_MAX_BRICKS bricks, so that the
+    launch has about DW_TC_BLOCKS blocks and at most GRID_MAX splits."""
+    bd, bh, bw = DW_BRICK
+    ct = 16 if cin <= 16 or k == 3 else 32
+    at = 8 if cout <= 8 else 16 if cout <= 16 else 32
+    bricks = _cdiv(d, bd) * _cdiv(h, bh) * _cdiv(w, bw)
+    tiles = _cdiv(cin, ct) * _cdiv(cout, at)
+    want = _cdiv(max(1, DW_TC_BLOCKS // tiles), b)  # splits per sample
+    bps = min(max(DW_MIN_BRICKS, _cdiv(bricks, want)), DW_MAX_BRICKS)
+    bps = max(bps, _cdiv(bricks * b, GRID_MAX))
+    sps = _cdiv(bricks, bps)
+    return DwPlan(DW_BRICK, ct, at, bricks, bps, bps * bd * bh * bw, sps,
+                  b * sps, b * sps * cout * cin * k ** 3,
+                  (_cdiv(cin, ct), _cdiv(cout, at), b * sps))
 
 
 def conv3d_s1_dw(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -153,7 +191,8 @@ def conv3d_s1_dw(x: torch.Tensor, g: torch.Tensor, k: int,
     """Weight gradient of the stride-1 SAME conv, f32: [Cout, Cin, k, k, k],
     or [B, Cout, Cin, k, k, k] per sample, from x [B, Cin, ...] and the
     output cotangent g [B, Cout, ...]. A CUDA tensor launches KB1 (bf16
-    only) or raises; a CPU tensor takes the plain version."""
+    only), cut as `dw_plan` says, or raises; a CPU tensor takes the plain
+    version."""
     if not device_check("conv3d_s1_dw", x):
         return conv3d_s1_dw_plain(x, g, k, per_sample)
     _build.check_cuda_input("x", x, 5, x.device)
@@ -163,14 +202,14 @@ def conv3d_s1_dw(x: torch.Tensor, g: torch.Tensor, k: int,
     if k not in (1, 3) or g.shape[0] != b or tuple(g.shape[2:]) != (d, h, wd):
         raise ValueError(f"conv3d_s1_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} do not fit a k={k} conv")
-    positions, n = d * h * wd, cin * k ** 3
-    kc = dw_split(b, positions, cout, n)
-    ws = dw_workspace(b, positions, kc, cout, n, x.device)
+    plan = dw_plan(b, cin, cout, d, h, wd, k)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     out = torch.empty(((b,) if per_sample else ()) + (cout, cin, k, k, k),
                       dtype=torch.float32, device=x.device)
     _build.launch("s1_dw", "coma_conv3d_s1_dw", x.device, x.data_ptr(),
                   g.data_ptr(), ws.data_ptr(), out.data_ptr(), b, cin, cout,
-                  d, h, wd, k, int(per_sample), kc)
+                  d, h, wd, k, int(per_sample), plan.ct, plan.at, *plan.brick,
+                  plan.bps)
     return out
 
 

@@ -32,8 +32,6 @@ from coma_unet_tpu_torch.ops.conv3d import (
     conv3d_ref,
     conv3d_weight_ref,
     device_check,
-    dw_split,
-    dw_workspace,
     flip_t,
 )
 
@@ -84,6 +82,20 @@ def conv3d_strided_dw_plain(full: torch.Tensor, half: torch.Tensor,
                              stride=2)
 
 
+DW_KT = 32              # positions per shared-memory step of KB2 (csrc/conv3d_dw.cu)
+DW_TARGET_BLOCKS = 2048  # blocks a KB2 launch aims for
+
+
+def dw_split(b: int, positions: int, a: int, n: int) -> int:
+    """Positions per block of KB2 (a multiple of DW_KT): the reduction over
+    b * positions is split so that the launch has about DW_TARGET_BLOCKS
+    blocks of (a, n) output tiles, and no fewer than 16 steps per block."""
+    tiles = -(-a // 32) * -(-n // 128)
+    splits = max(1, DW_TARGET_BLOCKS // tiles)
+    kc = max(-(-b * positions // splits), 16 * DW_KT)
+    return -(-kc // DW_KT) * DW_KT
+
+
 def _half(n: int) -> int:
     return (n - 1) // 2 + 1
 
@@ -108,7 +120,8 @@ def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
                          f"the stride-2 grid of full {tuple(full.shape)}")
     positions, n = pshape[0] * pshape[1] * pshape[2], cf * 27
     kc = dw_split(b, positions, cp, n)
-    ws = dw_workspace(b, positions, kc, cp, n, full.device)
+    splits = b * -(-positions // kc)
+    ws = torch.empty(splits * cp * n, dtype=torch.float32, device=full.device)
     out = torch.empty(((b,) if per_sample else ()) + (cp, cf, 3, 3, 3),
                       dtype=torch.float32, device=full.device)
     _build.launch("strided_dw", "coma_conv3d_strided_dw", full.device,
