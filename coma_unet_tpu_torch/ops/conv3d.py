@@ -10,9 +10,13 @@ function, split on the TPU only by its 128-lane tiling. Layouts are the JAX
 package's: x NCDHW, w OIDHW `[Cout, Cin, k, k, k]` shared or
 `[B, Cout, Cin, k, k, k]` per sample. `conv3d_s1` is a
 `torch.autograd.Function`: on a CUDA tensor its forward and backward launch
-the kernels (sources `coma_unet_tpu_torch/csrc/conv3d_s1.cu`,
-`csrc/conv3d_dw_tc.cu`) or raise; on a CPU tensor they run the plain
-versions.
+the kernels or raise; on a CPU tensor they run the plain versions.
+
+K1 (`csrc/conv3d_s1_tc.cu`) is one tensor-core kernel for every call:
+`mma.sync` over 4 or 8 x 4 x 16 bricks of output positions and 16-channel
+chunks of Cin, cut as `s1_plan` says. As the input gradient it reads
+`flip_t(w)` from w in place. KB1 (`csrc/conv3d_dw_tc.cu`) is cut by
+`dw_plan`.
 """
 
 from __future__ import annotations
@@ -84,13 +88,17 @@ def conv3d_s1_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int,
 
 
 def check_conv_args(x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor], ks: Sequence[int]):
-    """Validate a CUDA conv call; return (k, per_sample, f32 bias or None)."""
+                    bias: Optional[torch.Tensor], ks: Sequence[int],
+                    io_swapped: bool = False):
+    """Validate a CUDA conv call with weights w, or with `flip_t(w)` where
+    `io_swapped`; return (k, per_sample, f32 bias or None)."""
     _build.check_cuda_input("x", x, 5, x.device)
     per_sample = w.dim() == 6
     _build.check_cuda_input("w", w, 6 if per_sample else 5, x.device)
     k = w.shape[-1]
     cout, cin = w.shape[-5], w.shape[-4]
+    if io_swapped:
+        cout, cin = cin, cout
     if (k not in ks or tuple(w.shape[-3:]) != (k, k, k) or cin != x.shape[1]
             or (per_sample and w.shape[0] != x.shape[0])):
         raise ValueError(f"weights {tuple(w.shape)} do not fit input "
@@ -112,23 +120,71 @@ def device_check(name: str, x: torch.Tensor) -> bool:
     return False
 
 
-def _k1(x: torch.Tensor, w: torch.Tensor,
-        bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
+def _k1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+        flip: bool = False) -> torch.Tensor:
+    """K1 on a CUDA tensor, cut as `s1_plan` says; the plain version on a
+    CPU tensor. `flip` convolves with `flip_t(w)` (the input gradient),
+    which the kernel's weight packing reads from w in place."""
     if not device_check("conv3d_s1", x):
-        return conv3d_s1_plain(x, w, bias)
-    k, per_sample, bias32 = check_conv_args(x, w, bias, (1, 3))
+        return conv3d_s1_plain(x, flip_t(w) if flip else w, bias)
+    k, per_sample, bias32 = check_conv_args(x, w, bias, (1, 3), flip)
     b, cin, d, h, wd = x.shape
-    cout = w.shape[-5]
+    cout = w.shape[-4] if flip else w.shape[-5]
+    plan = s1_plan(b, cin, cout, d, h, wd, k, per_sample)
     y = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
-    _build.launch("s1", "coma_conv3d_s1", x.device, x.data_ptr(),
-                  w.data_ptr(), _build.ptr(bias32), y.data_ptr(),
-                  b, cin, cout, d, h, wd, k, int(per_sample))
+    wpack = torch.empty(plan.wpack, dtype=x.dtype, device=x.device)
+    _build.launch("s1", "coma_conv3d_s1_tc", x.device, x.data_ptr(),
+                  w.data_ptr(), wpack.data_ptr(), _build.ptr(bias32),
+                  y.data_ptr(), b, cin, cout, d, h, wd, k, int(per_sample),
+                  int(flip), *plan.brick, plan.ct, plan.at, plan.grid[0])
     return y
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+GRID_MAX = 65535        # CUDA's limit on grid.y and grid.z (and K1's grid.x)
+
+# K1 (csrc/conv3d_s1_tc.cu): a block owns a brick of output positions of one
+# sample x AT output channels in registers and walks Cin in chunks of S1_CT
+# channels, every tap per chunk.
+S1_BH, S1_BW = 4, 16    # the brick's H and W extent; bw is one m16 tile of mma
+S1_CT = 16              # input channels per chunk: one k16 step
+
+
+class S1Plan(NamedTuple):
+    """How one K1 call is cut. A block owns `brick` output positions
+    (d, h, w) of one sample and `at` output channels and stages Cin `ct`
+    channels at a time. `grid` is the launch grid: blocks along the
+    `bricks` bricks of a sample (each walking bricks grid[0] apart),
+    output-channel tiles, samples. `wpack` is the bf16 length of the
+    packed weights."""
+    brick: Tuple[int, int, int]
+    ct: int
+    at: int
+    bricks: int
+    grid: Tuple[int, int, int]
+    wpack: int
+
+
+def s1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int,
+            per_sample: bool = False) -> S1Plan:
+    """The cut of K1 for x [b, cin, d, h, w] and k^3 weights to `cout`
+    channels (per sample or shared): chunks of S1_CT input channels,
+    AT = 8, 16, 32 or 64 output channels (the smallest that holds the
+    layer, up to 64; narrower layers pad with zeros) and bricks of
+    (bd, S1_BH, S1_BW) positions, bd = 8 for k = 3 at AT = 32 (a warp's
+    tile then holds as many products as at AT = 64) and 4 otherwise; at
+    most GRID_MAX blocks along the bricks."""
+    at = 8 if cout <= 8 else 16 if cout <= 16 else 32 if cout <= 32 else 64
+    brick = (8 if k == 3 and at == 32 else 4, S1_BH, S1_BW)
+    bricks = _cdiv(d, brick[0]) * _cdiv(h, S1_BH) * _cdiv(w, S1_BW)
+    tiles = _cdiv(cout, at)
+    wpack = ((b if per_sample else 1) * tiles * _cdiv(cin, S1_CT) * k ** 3
+             * at * S1_CT)
+    return S1Plan(brick, S1_CT, at, bricks, (min(bricks, GRID_MAX), tiles, b),
+                  wpack)
 
 
 # KB1 (csrc/conv3d_dw_tc.cu): a block owns CT input channels x AT output
@@ -141,7 +197,6 @@ DW_MAX_BRICKS = 80      # and at most: the error of the tensor cores' f32 sums
                         # grows with the run (216^3 merge0 on an H100,
                         # chip_smoke.py phase 3: 2.1e-5 of max|dW| at 19840
                         # positions a split, 4.1e-5 at 39680)
-GRID_MAX = 65535        # CUDA's limit on grid.y and grid.z
 
 
 class DwPlan(NamedTuple):
@@ -219,9 +274,18 @@ def bias_grad(g: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return g.float().sum(dim=(0, 2, 3, 4)).to(bias.dtype)
 
 
+def conv3d_s1_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the stride-1 SAME conv with weights w (shared or
+    per sample) for the output cotangent g: the conv of g with `flip_t(w)`,
+    K1 on a CUDA tensor (its weight packing reads w flipped in place) or
+    the plain version on a CPU tensor."""
+    return _k1(g, w, None, flip=True)
+
+
 class Conv3dS1(torch.autograd.Function):
     """y = conv(x, w) + bias; backward as `conv3d.py:_bwd`/`_bwd_b`: dx is
-    K1 on g with `flip_t(w)`, dW is KB1, dbias a plain reduction."""
+    K1 on g with `flip_t(w)` (`conv3d_s1_dx`), dW is KB1, dbias a plain
+    reduction."""
 
     @staticmethod
     def forward(ctx, x, w, bias):
@@ -234,7 +298,7 @@ class Conv3dS1(torch.autograd.Function):
         gx = g.to(x.dtype).contiguous()
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
-            dx = _k1(gx, flip_t(w), None)
+            dx = conv3d_s1_dx(gx, w)
         if ctx.needs_input_grad[1]:
             dw = conv3d_s1_dw(x, gx, w.shape[-1], w.dim() == 6).to(w.dtype)
         if ctx.needs_input_grad[2]:
@@ -246,8 +310,8 @@ def conv3d_s1(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = conv(x, w) + bias, stride 1, SAME padding, k = w.shape[-1] in
     {1, 3}, differentiable in x, w and bias. A CUDA tensor launches K1
-    (bf16 only; KB1 and K1 in the backward) or raises; a CPU tensor takes
-    the plain versions."""
+    (bf16 only, cut as `s1_plan` says; KB1 and K1 in the backward) or
+    raises; a CPU tensor takes the plain versions."""
     device_check("conv3d_s1", x)
     return Conv3dS1.apply(x, w, bias)
 
