@@ -12,8 +12,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's and KB1's, in `cuobjdump -sass` of
-              the library: none fails.
+              tensor-core kernels, K1's, K2's and KB1's, in `cuobjdump -sass`
+              of the library: each must have some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -29,8 +29,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               for their type (bf16 tensor cores for the convs, f32 for the
               norms). K1 also runs at the input-gradient shapes of the wide
               sites and of one narrow one (the cotangent through flip_t(w),
-              library: cuDNN's dgrad). K1 and KB1 cases run twice and must
-              be bit-identical; each K1 case prints the cut `s1_plan` chose.
+              library: cuDNN's dgrad), K2 at up0's input-gradient shapes
+              (`conv3d_s2_dx`: the cotangent through flip_t(w); library:
+              PyTorch's stride-2 conv on flip_t(w)) and at odd sizes off the
+              path. K1, K2 and KB1 cases run twice and must be
+              bit-identical; each K1 and K2 case prints the cut `s1_plan` or
+              `s2_plan` chose.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -39,7 +43,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               (plain versions; the rounding baseline): the loss difference
               and, per module group, the relative L2 error of the gradients,
               which may reach GRAD_RATIO x the bf16 route's. Every parameter
-              with a CPU gradient must get a finite one on the GPU.
+              with a CPU gradient must get a finite one on the GPU. At b=2,
+              then at b=3, where RnC's loss must be non-zero, so its
+              gradient reaches the projection heads and, through K2's
+              input-gradient role, the encoder.
   6. serving: the default ModelConfig at 128^3: three b=2 full-volume
               requests through `make_infer_fn` and one 216^3 sliding-window
               request; every forward kernel family must have launched and no
@@ -104,15 +111,16 @@ TEMPLATE_STEPS = 4
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
-# the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu) and KB1 (csrc/conv3d_dw_tc.cu)
-TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_dw_tc_kernel")
+# the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu)
+# and KB1 (csrc/conv3d_dw_tc.cu)
+TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_dw_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
            "conv3d.py:260 _pallas_conv3d_fwd; conv3d.py:187 "
            "_pallas_conv3d_fwd_htiled; conv3d_packed.py:105 _packed_fwd; "
            "conv3d_packed.py:264 pallas_conv3d_w64"),
-    "s2": ("conv3d_s2", "coma_unet_tpu_torch/csrc/conv3d_strided.cu",
+    "s2": ("conv3d_s2", "coma_unet_tpu_torch/csrc/conv3d_s2_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_strided.py:299 _s2_fwd_v2; "
            ":136 _s2_fwd_v1; phase_split.py:86 pallas_hwsplit"),
     "t2": ("conv3d_t2", "coma_unet_tpu_torch/csrc/conv3d_strided.cu",
@@ -133,9 +141,9 @@ SOURCES = {
     "phase_split": ("hsplit", "coma_unet_tpu_torch/csrc/phase_split.cu",
                     "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
 }
-# kernels below the profile's top 8 whose device time it prints by name:
-# K1's weight packing and KB1/KB2's split-K sum
-SMALL_KERNELS = ("s1_pack_weights", "dw_reduce_kernel")
+# kernels whose device time the profile prints by name, in or below its top
+# 8: K2, K1's (and K2's) weight packing and KB1/KB2's split-K sum
+SMALL_KERNELS = ("conv3d_s2_tc_kernel", "s1_pack_weights", "dw_reduce_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -231,9 +239,9 @@ def _kernel_cases():
     """(family, site, input shape, weight shape or None, extra, entry) at
     the shapes of the 128^3 b=2 serving forward and train step and of the
     216^3 b=1 template-space path; `entry` names a standalone entry point
-    (`instance_norm`, `conv3d_w64`, `hsplit`), is "dx" for K1 as an input
-    gradient (input: the cotangent; weights: the forward layer's), or is
-    None for the family's own wrapper."""
+    (`instance_norm`, `conv3d_w64`, `hsplit`), is "dx" for K1 or K2 as an
+    input gradient (input: the cotangent; weights: the forward layer's), or
+    is None for the family's own wrapper."""
     v0, v1 = (128,) * 3, (64,) * 3
     t0, t1 = (216,) * 3, (108,) * 3
     s1 = [  # (site, batch, Cin, Cout, k, per_sample, spatial)
@@ -271,6 +279,16 @@ def _kernel_cases():
               for site, b, ci, co, ps, sp in dx]
     cases.append(("s2", "down0.conv0", (2, 32) + v0, (64, 32, 3, 3, 3), True, None))
     cases.append(("s2", "216 down0.conv0", (1, 32) + t0, (64, 32, 3, 3, 3), True, None))
+    cases.append(("s2", "216 b=2 down0.conv0 (eval)", (2, 32) + t0, (64, 32, 3, 3, 3), True,
+                  None))
+    # K2 as up0's input gradient (Conv3dT2.backward: the cotangent [B, 32,
+    # ...] through flip_t of up0's per-sample [B, 32, 64, 3^3], 32 -> 64), and
+    # odd sizes off the path, whose masks and zero-padded chunk and output
+    # tile it exercises
+    cases.append(("s2", "up0 dx 32->64", (2, 32) + v0, (32, 64, 3, 3, 3), True, "dx"))
+    cases.append(("s2", "216 up0 dx 32->64", (1, 32) + t0, (32, 64, 3, 3, 3), True, "dx"))
+    cases.append(("s2", "odd sizes 24->40", (2, 24, 27, 18, 45), (40, 24, 3, 3, 3), True,
+                  None))
     cases.append(("t2", "up0", (2, 64) + v1, (32, 64, 3, 3, 3), True, None))
     cases.append(("t2", "216 up0", (1, 64) + t1, (32, 64, 3, 3, 3), True, None))
     # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]; the path's
@@ -334,6 +352,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         flip_t,
         s1_plan,
     )
+    from coma_unet_tpu_torch.ops.conv3d_strided import conv3d_s2_dx, s2_plan
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -402,6 +421,9 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     library = "plain"
     if entry == "conv3d_w64":
         call, bias = (lambda: ops.conv3d_w64(x, w)), None
+    elif entry == "dx" and family == "s2":  # the stride-2 conv of g on flip_t(wf)
+        wf, w, bias = w, flip_t(w), None
+        call = lambda: conv3d_s2_dx(x, wf)  # noqa: E731
     elif entry == "dx":  # x is the cotangent, wf the forward weights
         wf, w, bias = w, flip_t(w), None
         call = lambda: conv3d_s1_dx(x, wf)  # noqa: E731
@@ -410,7 +432,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         call = lambda: kernel(x, w, bias)  # noqa: E731
     # output positions: the stride-2 grid for s2; every input position feeds
     # one output per tap for t2 and s1
-    positions = _voxels(xshape) // 8 if family == "s2" else _voxels(xshape)
+    positions = (int(np.prod([(n - 1) // 2 + 1 for n in xshape[2:]])) if family == "s2"
+                 else _voxels(xshape))
     flops = 2 * xshape[0] * wshape[-5] * wshape[-4] * wshape[-1] ** 3 * positions
     case = dict(kernel=call, ref=lambda: plain(x.float(), w.float(), bias),
                 plain=lambda: plain(x, w, bias), library=library,
@@ -419,6 +442,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     if family == "s1":
         case["plan"] = s1_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], w.shape[-1],
                                bool(extra))
+    elif family == "s2":
+        case["plan"] = s2_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], bool(extra))
     return case
 
 
@@ -448,13 +473,13 @@ def bound_ms(ops_count: float, rate: float, nbytes: int):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def _k1_checks(case: dict, got: torch.Tensor, site: str) -> str:
-    """K1 at one site: a second call must be bit-identical to the first.
-    Returns a line with the cut `s1_plan` chose."""
+def _conv_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
+    """K1 or K2 at one site: a second call must be bit-identical to the
+    first. Returns a line with the cut `s1_plan` or `s2_plan` chose."""
     again = case["kernel"]()
-    check(bool(torch.equal(again, got)), f"s1 {site}: two calls differ")
+    check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
-    return (f"  K1 {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
+    return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
             f"grid={plan.grid}; two calls bit-identical")
 
 
@@ -504,8 +529,8 @@ def phase_kernels(summary: dict) -> None:
             note = None
             if family == "s1_dw":
                 note = _kb1_checks(case, got[0], site)
-            elif family == "s1":
-                note = _k1_checks(case, got[0], site)
+            elif family in ("s1", "s2"):
+                note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2"}[family], site)
             ms = median_ms(case["kernel"])
             plain_ms = median_ms(case["plain"])
             library = case["library"]
@@ -692,15 +717,17 @@ def _loss_and_grads(model, batch: dict, device) -> tuple:
     tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     roi_w = torch.full((36,), 225.0, device=device)
     t0 = time.perf_counter()
-    total, _ = make_loss_fn(model, LossConfig())(tb, roi_w)
+    total, metrics = make_loss_fn(model, LossConfig())(tb, roi_w)
     total.backward()
     loss = float(total.detach())
     grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
              for n, p in model.named_parameters()}
-    return loss, grads, time.perf_counter() - t0
+    return loss, float(metrics["tcds_loss"]), grads, time.perf_counter() - t0
 
 
-def phase_gradients() -> None:
+def phase_gradients(b: int = 2) -> None:
+    """Phase 5 at batch b: at b=2 RnC is identically 0 (one pair, ranked
+    against itself); at b >= 3 it must be non-zero on every route."""
     import dataclasses
 
     from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
@@ -718,15 +745,19 @@ def phase_gradients() -> None:
     gpu_model.load_state_dict(ref_model.state_dict())
     bf16_model = ContraAttnUNet(cfg, device="cpu")
     bf16_model.load_state_dict(ref_model.state_dict())
-    batch = _batch(np.random.default_rng(1), b=2, s=s)
-    batch["covars"][:, 0] = [1.0, 0.0]  # one abeta+ and one abeta- prompt
+    batch = _batch(np.random.default_rng(1), b=b, s=s)
+    batch["covars"][:, 0] = [1.0, 0.0, 1.0][:b]  # abeta+ and abeta- prompts
 
-    loss_gpu, g_gpu, t_gpu = _loss_and_grads(gpu_model, batch, "cuda")
-    loss_ref, g_ref, t_ref = _loss_and_grads(ref_model, batch, "cpu")
-    loss_bf, g_bf, t_bf = _loss_and_grads(bf16_model, batch, "cpu")
-    print(f"gradients 64^3 b=2: loss gpu {loss_gpu:.6f}, cpu f32 {loss_ref:.6f}, "
-          f"cpu bf16 {loss_bf:.6f}; gpu {t_gpu:.2f} s, cpu f32 {t_ref:.1f} s, "
+    loss_gpu, rnc_gpu, g_gpu, t_gpu = _loss_and_grads(gpu_model, batch, "cuda")
+    loss_ref, rnc_ref, g_ref, t_ref = _loss_and_grads(ref_model, batch, "cpu")
+    loss_bf, rnc_bf, g_bf, t_bf = _loss_and_grads(bf16_model, batch, "cpu")
+    print(f"gradients 64^3 b={b}: loss gpu {loss_gpu:.6f}, cpu f32 {loss_ref:.6f}, "
+          f"cpu bf16 {loss_bf:.6f}; RnC gpu {rnc_gpu:.6f}, cpu f32 {rnc_ref:.6f}, "
+          f"cpu bf16 {rnc_bf:.6f}; gpu {t_gpu:.2f} s, cpu f32 {t_ref:.1f} s, "
           f"cpu bf16 {t_bf:.1f} s")
+    if b >= 3:
+        check(all(np.isfinite(v) and v != 0.0 for v in (rnc_gpu, rnc_ref, rnc_bf)),
+              f"gradients b={b}: RnC should be non-zero: {rnc_gpu}, {rnc_ref}, {rnc_bf}")
     for name, g in g_ref.items():
         if g is None:
             continue
@@ -762,7 +793,7 @@ def phase_gradients() -> None:
         if err > limit:
             failed.append(group)
     check(not failed, f"gradients: groups over their limit: {failed}")
-    print(f"gradients: loss rel diff {rel_loss:.3e}; {len(groups)} groups within "
+    print(f"gradients b={b}: loss rel diff {rel_loss:.3e}; {len(groups)} groups within "
           f"limits ({len(skip)} norm-fed conv biases excluded)")
 
 
@@ -846,7 +877,7 @@ def profile_step(fn) -> None:
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     print("  by kernel name: " + "; ".join(
         f"{name} {ms:.3f} ms x{calls} ({ms / total:.1%})" for name, (ms, calls) in top))
-    print("  small kernels: " + "; ".join(
+    print("  named kernels: " + "; ".join(
         f"{name} {by_name[name][0]:.3f} ms x{by_name[name][1]} "
         f"({by_name[name][0] / total:.2%})" if name in by_name else f"{name} not run"
         for name in SMALL_KERNELS))
@@ -1014,6 +1045,7 @@ def main() -> int:
     phase_kernels(summary)
     phase_parity()
     phase_gradients()
+    phase_gradients(b=3)
     paths = {"serving": phase_serving(), "training": phase_training()}
     torch.cuda.empty_cache()
     phase_parity(s=88, b=1, template=True)

@@ -80,10 +80,14 @@ constexpr int WARPS = 8, THREADS = 32 * WARPS;
 template <int K, int BD_, int AT, int VW>
 struct S1 {
   static constexpr int BD = BD_, MT = BD * BH / WARPS;  // m-tiles (brick rows) per warp
-  static constexpr int KS = K, R = K / 2, T = K * K * K;
+  static constexpr int R = K / 2, T = K * K * K;
   static constexpr int HD = BD + 2 * R, HH = BH + 2 * R, HW = BW + 2 * R;
   static constexpr int HROWS = HD * HH, XROWS = HROWS * HW;  // halo (d, h) rows, positions
-  static constexpr int NT = AT / 8;
+  static constexpr int NT = AT / 8, ATILE = AT;
+  // the row offset of tap t in the halo brick
+  __host__ __device__ static constexpr int toff(int t) {
+    return ((t / (K * K)) * HH + t / K % K) * HW + t % K;
+  }
   static constexpr int XS = padded(CT);  // X row: 16 channels padded to 3 16-byte units
   static constexpr int XELEMS = XROWS * XS, WELEMS = T * AT * CT;  // bf16 per stage
   static constexpr int STAGE = XELEMS + WELEMS;
@@ -98,9 +102,6 @@ struct S1 {
   static_assert(AT % 8 == 0 && BD * BH == MT * WARPS && 2 * STAGE * 2 <= 227 * 1024, "tiles");
 };
 
-// Element offset of 16-byte unit u of row r in the swizzled W tile [rows][16].
-__device__ __forceinline__ int swz(int r, int u) { return r * CT + ((u ^ ((r >> 2) & 1)) << 3); }
-
 struct S1Args {
   const bf16* x;
   const bf16* wp;     // packed weights [B?][nat][nch][T][AT][CT]
@@ -113,58 +114,15 @@ struct S1Args {
   int per_sample;
 };
 
-// The W tile of one chunk (contiguous in the packed copy) into sw by
-// cp.async, rows tap * AT + o swizzled.
-template <class Cf>
-__device__ __forceinline__ void load_w(bf16* sw, const bf16* src, int tid) {
-  const uint32_t base = smem_u32(sw);
-#pragma unroll 4
-  for (int i = tid; i < Cf::WELEMS / 8; i += THREADS)
-    cp_async16(base + swz(i >> 1, i & 1) * 2, src + i * 8, true);
-}
-
-// The fragments of tap t: A for the warp's MT m-tiles (the lane's address
-// a_lane[m] at tap 0, moved by the tap's row offset: one immediate), B for
-// its NT n-tiles.
-template <class Cf>
-__device__ __forceinline__ void load_frags(int t, uint32_t (&af)[Cf::MT][4],
-                                           uint32_t (&bfr)[Cf::NT][2], uint32_t sw,
-                                           const uint32_t (&a_lane)[Cf::MT], uint32_t b_lane) {
-  constexpr int K = Cf::KS;
-  const int toff = ((t / (K * K)) * Cf::HH + t / K % K) * Cf::HW + t % K;
-#pragma unroll
-  for (int m = 0; m < Cf::MT; ++m)
-    ldsm_x4(af[m][0], af[m][1], af[m][2], af[m][3], a_lane[m] + toff * Cf::XS * 2);
-  const uint32_t wt = sw + b_lane + t * Cf::NT * 8 * CT * 2;
-#pragma unroll
-  for (int n = 0; n + 1 < Cf::NT; n += 2)
-    ldsm_x4(bfr[n][0], bfr[n][1], bfr[n + 1][0], bfr[n + 1][1], wt + n * 8 * CT * 2);
-  if constexpr (Cf::NT % 2 == 1)
-    ldsm_x2(bfr[Cf::NT - 1][0], bfr[Cf::NT - 1][1], wt + (Cf::NT - 1) * 8 * CT * 2);
-}
-
-// The products of one staged chunk, tap by tap; tap t+1's fragments are
-// loaded before tap t's products.
+// The products of one staged chunk (K1's X stage at sx, its W tile after it).
 template <class Cf>
 __device__ __forceinline__ void mma_chunk(float (&acc)[Cf::MT][Cf::NT][4], uint32_t sx,
                                           const int (&arow0)[Cf::MT], int aunit,
                                           uint32_t b_lane) {
-  const uint32_t sw = sx + Cf::XELEMS * 2;
   uint32_t a_lane[Cf::MT];
 #pragma unroll
   for (int m = 0; m < Cf::MT; ++m) a_lane[m] = sx + (arow0[m] * Cf::XS + aunit * 8) * 2;
-  uint32_t af[2][Cf::MT][4], bfr[2][Cf::NT][2];
-  load_frags<Cf>(0, af[0], bfr[0], sw, a_lane, b_lane);
-#pragma unroll
-  for (int t = 0; t < Cf::T; ++t) {
-    if (t + 1 < Cf::T)
-      load_frags<Cf>(t + 1, af[(t + 1) & 1], bfr[(t + 1) & 1], sw, a_lane, b_lane);
-#pragma unroll
-    for (int m = 0; m < Cf::MT; ++m)
-#pragma unroll
-      for (int n = 0; n < Cf::NT; ++n)
-        mma_bf16(acc[m][n], af[t & 1][m], bfr[t & 1][n][0], bfr[t & 1][n][1]);
-  }
+  mma_taps<Cf>(acc, sx + Cf::XELEMS * 2, a_lane, b_lane);
 }
 
 template <int K, int BD, int AT, int VW>
@@ -218,7 +176,7 @@ conv3d_s1_tc_kernel(const S1Args p) {
 
     XStager<Cf> st(p, xb, 0, tid);
     XRegs<Cf> xr;
-    load_w<Cf>(stages + Cf::XELEMS, wt, tid);
+    load_w<Cf::WELEMS, THREADS>(stages + Cf::XELEMS, wt, tid);
     cp_async_commit();
     st.template load_x<VW>(xr, p, d0, h0, w0);
     st.store_x(xr, stages);
@@ -230,7 +188,7 @@ conv3d_s1_tc_kernel(const S1Args p) {
       bf16* const nxt = stages + (buf ^ 1) * Cf::STAGE;
       const bool more = ch + 1 < p.nch;
       if (more) {  // chunk i+1: W by cp.async, X into registers
-        load_w<Cf>(nxt + Cf::XELEMS, wt + (ch + 1) * (int64_t)Cf::WELEMS, tid);
+        load_w<Cf::WELEMS, THREADS>(nxt + Cf::XELEMS, wt + (ch + 1) * (int64_t)Cf::WELEMS, tid);
         cp_async_commit();
         st = XStager<Cf>(p, xb, (ch + 1) * CT, tid);
         st.template load_x<VW>(xr, p, d0, h0, w0);
@@ -339,6 +297,15 @@ cudaError_t dispatch_vw(const S1Args& p, int vw, int64_t bd, int64_t at, int64_t
 
 }  // namespace
 
+cudaError_t coma::pack_weights(const bf16* w, bf16* wp, int A, int C, int T, int AT, int nat,
+                               int nch, bool flip, int64_t nw, cudaStream_t stream) {
+  const int64_t total = nw * nat * nch * (int64_t)T * AT * CT;
+  const int64_t blocks = cdiv(total, 256) < 4096 ? cdiv(total, 256) : 4096;
+  s1_pack_weights<<<(unsigned)blocks, 256, 0, stream>>>(w, wp, A, C, T, AT, nat, nch, flip,
+                                                        total);
+  return cudaGetLastError();
+}
+
 COMA_API const char* coma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -382,13 +349,9 @@ COMA_API int coma_conv3d_s1_tc(const void* x, const void* w, void* wpack, const 
   p.nch = (int)cdiv(Cin, CT);
   p.nat = (int)cdiv(Cout, at);
   p.per_sample = per_sample != 0;
-  const int T = (int)(k * k * k);
-  const int64_t total = (per_sample ? B : 1) * p.nat * p.nch * (int64_t)T * at * CT;
-  const int64_t pack_blocks = cdiv(total, 256) < 4096 ? cdiv(total, 256) : 4096;
-  s1_pack_weights<<<(unsigned)pack_blocks, 256, 0, s>>>(static_cast<const bf16*>(w),
-                                                        static_cast<bf16*>(wpack), p.A, p.C, T,
-                                                        (int)at, p.nat, p.nch, flip != 0, total);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      pack_weights(static_cast<const bf16*>(w), static_cast<bf16*>(wpack), p.A, p.C,
+                   (int)(k * k * k), (int)at, p.nat, p.nch, flip != 0, per_sample ? B : 1, s);
   if (err != cudaSuccess) return err;
   if (k == 3) return dispatch_vw<3>(p, vw, bd, at, B, (unsigned)gx, s);
   return dispatch_vw<1>(p, vw, bd, at, B, (unsigned)gx, s);

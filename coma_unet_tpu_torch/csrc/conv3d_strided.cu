@@ -1,18 +1,12 @@
-// K2: stride-2 SAME 3-D convolution (k=3, padding 1 on each side) and
-// K3: the transposed stride-2 3-D convolution that is its adjoint.
+// K3: the transposed stride-2 3-D convolution (k=3), the adjoint of K2's
+// stride-2 SAME conv (csrc/conv3d_s2_tc.cu).
 //
-// Both take bf16 x and w, an optional f32 bias [Cout], write bf16 y and
-// accumulate in f32. w is [Cout, Cin, 3, 3, 3] (shared) or
+// It takes bf16 x and w, an optional f32 bias [Cout], writes bf16 y and
+// accumulates in f32. w is [Cout, Cin, 3, 3, 3] (shared) or
 // [B, Cout, Cin, 3, 3, 3] (per sample: the CondConv expert mixture).
 //
-// K2 replaces rows #10-#12 of the kernel table in PERF.md, from
-// coma_unet_tpu/ops/pallas/: conv3d_strided.py
-// `_s2_fwd_v1` (`_s2_kernel`) and `_s2_fwd_v2` (`_s2_kernel_v2`), and the
-// H/W-parity split prepass that feeds v2, phase_split.py `pallas_hwsplit`
-// (`_hwsplit_kernel`). K2 reads the input with stride-2 addressing in place,
-// so it needs no parity split and no packed output layout.
-//
-// K3 replaces rows #14-#15: conv3d_strided.py `_t2_fwd_v1` (`_t2_kernel`)
+// K3 replaces rows #14-#15 of the kernel table in PERF.md, from
+// coma_unet_tpu/ops/pallas/: conv3d_strided.py `_t2_fwd_v1` (`_t2_kernel`)
 // and `_t2_fwd_v2` (`_t2_kernel_v2` + `_t2_phase_merge`). It computes the
 // JAX form exactly:
 // per axis out[o] = sum_k xd[o + k - 1] * w[k], where xd is x dilated by 2
@@ -23,103 +17,19 @@
 // cube o = 2i + parity, and each of the 27 taps feeds exactly one of its 8
 // parity classes: no zero-inserted input is ever formed.
 //
-// What bounds them on the H100: like K1, arithmetic (27 * Cin multiply-adds
-// per output for K2, 27/8 * Cin per output for K3, at Cin, Cout <= 64),
-// here on the CUDA cores in f32. Design as K1: the input box with its halo
-// and the weights of a chunk of input channels are staged in shared memory
-// as f32, and each thread keeps f32 accumulators for a group of Q output
-// channels at several outputs -- 2 H rows for K2, the whole 2x2x2 output
-// cube for K3 -- so each shared-memory read feeds several FMAs. K2's
-// stride-2 reads of shared memory cost a 2-way bank conflict; K3 writes its
-// two W-neighbours as one bf16x2 store. Element offsets are 64-bit.
+// What bounds it on the H100: arithmetic (27/8 * Cin multiply-adds per
+// output, at Cin, Cout <= 64), here on the CUDA cores in f32. The input box
+// with its halo and the weights of a chunk of input channels are staged in
+// shared memory as f32, and each thread keeps f32 accumulators for a group
+// of Q output channels over the whole 2x2x2 output cube, so each
+// shared-memory read feeds several FMAs; it writes its two W-neighbours as
+// one bf16x2 store. Element offsets are 64-bit.
 #include "common.cuh"
 
 namespace {
 
 using coma::bf16;
 using coma::cdiv;
-
-// ---------------------------------------------------------------- K2 (s2)
-constexpr int S2_TX = 32, S2_TY = 8, S2_P = 2;   // threads (W, H); H rows per thread
-constexpr int S2_TW = S2_TX, S2_TH = S2_TY * S2_P;  // output tile 32 x 16
-constexpr int S2_IR = 2 * S2_TH + 1;                // input rows of the tile
-constexpr int S2_IC = 2 * S2_TW + 1;                // input columns of the tile
-
-template <int Q>
-__global__ void __launch_bounds__(S2_TX * S2_TY)
-conv3d_s2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int64_t Cin,
-                 int64_t Cout, int64_t D, int64_t H, int64_t W, int64_t Do, int64_t Ho,
-                 int64_t Wo, int64_t w_batch_stride) {
-  __shared__ float s_in[3][S2_IR][S2_IC];  // one input channel at a time
-  __shared__ __align__(16) float s_w[27 * Q];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * S2_TX + tx;
-  const int64_t n_wt = cdiv(Wo, S2_TW);
-  const int64_t oh0 = (blockIdx.x / n_wt) * S2_TH;
-  const int64_t ow0 = (blockIdx.x % n_wt) * S2_TW;
-  const int64_t od = blockIdx.y;
-  const int64_t n_co = cdiv(Cout, Q);
-  const int64_t b = blockIdx.z / n_co;
-  const int64_t co0 = (blockIdx.z % n_co) * Q;
-  const int64_t id0 = 2 * od - 1, ih0 = 2 * oh0 - 1, iw0 = 2 * ow0 - 1;
-  const bf16* xb = x + b * Cin * D * H * W;
-  const bf16* wb = w + b * w_batch_stride;
-
-  float acc[S2_P][Q];
-#pragma unroll
-  for (int p = 0; p < S2_P; ++p)
-#pragma unroll
-    for (int q = 0; q < Q; ++q) acc[p][q] = 0.f;
-
-  for (int64_t c = 0; c < Cin; ++c) {
-    float* s_flat = &s_in[0][0][0];
-    const bf16* xc = xb + c * D * H * W;
-    for (int i = tid; i < 3 * S2_IR * S2_IC; i += S2_TX * S2_TY) {
-      const int col = i % S2_IC;
-      const int r = (i / S2_IC) % S2_IR;
-      const int kd = i / (S2_IC * S2_IR);
-      const int64_t dd = id0 + kd, hh = ih0 + r, ww = iw0 + col;
-      float v = 0.f;
-      if (dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = __bfloat162float(xc[(dd * H + hh) * W + ww]);
-      s_flat[i] = v;
-    }
-    coma::load_weights<Q, 27>(s_w, wb, Cout, Cin, co0, c, 1, tid, S2_TX * S2_TY);
-    __syncthreads();
-#pragma unroll
-    for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        float v[2 * S2_P + 1];
-#pragma unroll
-        for (int r = 0; r < 2 * S2_P + 1; ++r) v[r] = s_in[kd][2 * ty * S2_P + r][2 * tx + kw];
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-          const float* wp = s_w + ((kd * 3 + kh) * 3 + kw) * Q;
-#pragma unroll
-          for (int p = 0; p < S2_P; ++p) coma::fma_q<Q>(acc[p], v[2 * p + kh], wp);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int64_t ow = ow0 + tx;
-  if (ow >= Wo) return;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int64_t co = co0 + q;
-    if (co >= Cout) break;
-    const float bv = bias ? bias[co] : 0.f;
-#pragma unroll
-    for (int p = 0; p < S2_P; ++p) {
-      const int64_t oh = oh0 + ty * S2_P + p;
-      if (oh < Ho) y[(((b * Cout + co) * Do + od) * Ho + oh) * Wo + ow] = __float2bfloat16(acc[p][q] + bv);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- K3 (t2)
 constexpr int T2_TX = 32, T2_TY = 8;  // threads over input (W, H) positions
@@ -208,35 +118,7 @@ conv3d_t2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <int Q>
-cudaError_t launch_s2(const bf16* x, const bf16* w, const float* bias, bf16* y, int64_t B,
-                      int64_t Cin, int64_t Cout, int64_t D, int64_t H, int64_t W, int64_t wbs,
-                      cudaStream_t stream) {
-  const int64_t Do = (D - 1) / 2 + 1, Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const dim3 grid((unsigned)(cdiv(Ho, S2_TH) * cdiv(Wo, S2_TW)), (unsigned)Do,
-                  (unsigned)(B * cdiv(Cout, Q)));
-  conv3d_s2_kernel<Q><<<grid, dim3(S2_TX, S2_TY), 0, stream>>>(x, w, bias, y, Cin, Cout, D, H, W,
-                                                                Do, Ho, Wo, wbs);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-// y is [B, Cout, (D-1)/2+1, (H-1)/2+1, (W-1)/2+1]; bias may be null.
-COMA_API int coma_conv3d_s2(const void* x, const void* w, const void* bias, void* y, int64_t B,
-                            int64_t Cin, int64_t Cout, int64_t D, int64_t H, int64_t W,
-                            int64_t per_sample, void* stream) {
-  if ((D - 1) / 2 + 1 > 65535 || B * cdiv(Cout, 4) > 65535) return cudaErrorInvalidValue;
-  const int64_t wbs = per_sample ? Cout * Cin * 27 : 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto xp = static_cast<const bf16*>(x);
-  const auto wp = static_cast<const bf16*>(w);
-  const auto bp = static_cast<const float*>(bias);
-  const auto yp = static_cast<bf16*>(y);
-  if (Cout >= 16) return launch_s2<16>(xp, wp, bp, yp, B, Cin, Cout, D, H, W, wbs, s);
-  if (Cout >= 8) return launch_s2<8>(xp, wp, bp, yp, B, Cin, Cout, D, H, W, wbs, s);
-  return launch_s2<4>(xp, wp, bp, yp, B, Cin, Cout, D, H, W, wbs, s);
-}
 
 // x is [B, Cin, Di, Hi, Wi]; y is [B, Cout, 2 Di, 2 Hi, 2 Wi]; bias may be null.
 COMA_API int coma_conv3d_t2(const void* x, const void* w, const void* bias, void* y, int64_t B,

@@ -1,7 +1,9 @@
-// Pieces shared by the tensor-core kernels K1 (conv3d_s1_tc.cu) and KB1
-// (conv3d_dw_tc.cu): shared-memory and cp.async wrappers, ldmatrix and the
-// bf16 mma.sync, the read-only global loads issued as volatile asm, and the
-// staging of an X halo brick from NCDHW into channels-last shared memory.
+// Pieces shared by the tensor-core kernels K1 (conv3d_s1_tc.cu), K2
+// (conv3d_s2_tc.cu) and KB1 (conv3d_dw_tc.cu): shared-memory and cp.async
+// wrappers, ldmatrix and the bf16 mma.sync, the read-only global loads
+// issued as volatile asm, the staging of an X halo brick from NCDHW into
+// channels-last shared memory, and the implicit GEMM per tap of K1 and K2
+// with K1's weight packing.
 #pragma once
 
 #include "common.cuh"
@@ -196,5 +198,73 @@ struct XStager {
     }
   }
 };
+
+// The implicit GEMM per tap of K1 and K2: a chunk of KSTEP input channels
+// is staged as X rows [positions][XS] (channels-last, XS = padded(16)) and a
+// W tile [taps][ATILE output channels][16], copied from the packed weights,
+// whose 32-byte rows swap their two 16-byte units when bit 2 of the row is
+// set, which keeps ldmatrix free of bank conflicts with no padding.
+constexpr int KSTEP = 16;
+
+// Element offset of 16-byte unit u of row r in the swizzled W tile.
+__device__ __forceinline__ int swz(int r, int u) {
+  return r * KSTEP + ((u ^ ((r >> 2) & 1)) << 3);
+}
+
+// One chunk's W tile of WELEMS bf16 (contiguous in the packed copy) into sw
+// by cp.async.
+template <int WELEMS, int THREADS>
+__device__ __forceinline__ void load_w(bf16* sw, const bf16* src, int tid) {
+  const uint32_t base = smem_u32(sw);
+#pragma unroll 4
+  for (int i = tid; i < WELEMS / 8; i += THREADS)
+    cp_async16(base + swz(i >> 1, i & 1) * 2, src + i * 8, true);
+}
+
+// The fragments of tap t: A for the warp's MT m-tiles (the lane's address
+// a_lane[m] at tap 0, moved by the tap's row offset Cf::toff(t): one
+// immediate), B for its NT n-tiles (b_lane: the lane's address in the tile
+// of tap 0).
+template <class Cf>
+__device__ __forceinline__ void load_frags(int t, uint32_t (&af)[Cf::MT][4],
+                                           uint32_t (&bfr)[Cf::NT][2], uint32_t sw,
+                                           const uint32_t (&a_lane)[Cf::MT], uint32_t b_lane) {
+  const int toff = Cf::toff(t);
+#pragma unroll
+  for (int m = 0; m < Cf::MT; ++m)
+    ldsm_x4(af[m][0], af[m][1], af[m][2], af[m][3], a_lane[m] + toff * Cf::XS * 2);
+  const uint32_t wt = sw + b_lane + t * Cf::ATILE * KSTEP * 2;
+#pragma unroll
+  for (int n = 0; n + 1 < Cf::NT; n += 2)
+    ldsm_x4(bfr[n][0], bfr[n][1], bfr[n + 1][0], bfr[n + 1][1], wt + n * 8 * KSTEP * 2);
+  if constexpr (Cf::NT % 2 == 1)
+    ldsm_x2(bfr[Cf::NT - 1][0], bfr[Cf::NT - 1][1], wt + (Cf::NT - 1) * 8 * KSTEP * 2);
+}
+
+// The products of one staged chunk, tap by tap over Cf::T taps; tap t+1's
+// fragments are loaded before tap t's products.
+template <class Cf>
+__device__ __forceinline__ void mma_taps(float (&acc)[Cf::MT][Cf::NT][4], uint32_t sw,
+                                         const uint32_t (&a_lane)[Cf::MT], uint32_t b_lane) {
+  uint32_t af[2][Cf::MT][4], bfr[2][Cf::NT][2];
+  load_frags<Cf>(0, af[0], bfr[0], sw, a_lane, b_lane);
+#pragma unroll
+  for (int t = 0; t < Cf::T; ++t) {
+    if (t + 1 < Cf::T)
+      load_frags<Cf>(t + 1, af[(t + 1) & 1], bfr[(t + 1) & 1], sw, a_lane, b_lane);
+#pragma unroll
+    for (int m = 0; m < Cf::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < Cf::NT; ++n)
+        mma_bf16(acc[m][n], af[t & 1][m], bfr[t & 1][n][0], bfr[t & 1][n][1]);
+  }
+}
+
+// Launches K1's weight packing (conv3d_s1_tc.cu) on `stream`: wp[bw][at][ch]
+// [t][o][cc] = w[bw][a][c][t] for bw < nw, a = at * AT + o < A and c = ch *
+// 16 + cc < C, else zero; with flip, w is read as flip_t of the forward
+// layer's [nw][C][A][T]. Returns cudaGetLastError().
+cudaError_t pack_weights(const bf16* w, bf16* wp, int A, int C, int T, int AT, int nat, int nch,
+                         bool flip, int64_t nw, cudaStream_t stream);
 
 }  // namespace coma

@@ -168,16 +168,22 @@ class S1Plan(NamedTuple):
     wpack: int
 
 
+def channel_tile(cout: int) -> int:
+    """AT of the tensor-core convs K1 and K2: 8, 16, 32 or 64 output
+    channels, the smallest that holds the layer, up to 64 (narrower layers
+    pad with zeros)."""
+    return 8 if cout <= 8 else 16 if cout <= 16 else 32 if cout <= 32 else 64
+
+
 def s1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int,
             per_sample: bool = False) -> S1Plan:
     """The cut of K1 for x [b, cin, d, h, w] and k^3 weights to `cout`
     channels (per sample or shared): chunks of S1_CT input channels,
-    AT = 8, 16, 32 or 64 output channels (the smallest that holds the
-    layer, up to 64; narrower layers pad with zeros) and bricks of
+    AT = `channel_tile(cout)` output channels and bricks of
     (bd, S1_BH, S1_BW) positions, bd = 8 for k = 3 at AT = 32 (a warp's
     tile then holds as many products as at AT = 64) and 4 otherwise; at
     most GRID_MAX blocks along the bricks."""
-    at = 8 if cout <= 8 else 16 if cout <= 16 else 32 if cout <= 32 else 64
+    at = channel_tile(cout)
     brick = (8 if k == 3 and at == 32 else 4, S1_BH, S1_BW)
     bricks = _cdiv(d, brick[0]) * _cdiv(h, S1_BH) * _cdiv(w, S1_BW)
     tiles = _cdiv(cout, at)

@@ -1,15 +1,22 @@
 """Stride-2 3-D convolutions between the 128^3 and 64^3 levels: kernels K2
-(stride-2 SAME conv) and K3 (its transposed conv), KB2 (the weight gradient
-of both), with their plain versions.
+(stride-2 SAME conv, and the transposed conv's input gradient) and K3 (the
+transposed conv), KB2 (the weight gradient of both), with their plain
+versions.
 
 Counterpart of `coma_unet_tpu/ops/pallas/conv3d_strided.py` (`_s2_fwd`,
-`_t2_fwd`) and `phase_split.py` (`pallas_hwsplit`, the parity prepass that K2
-makes unnecessary by reading the input with stride-2 addressing). Unlike the
-TPU kernels, both take and return the plain NCDHW layout: there is no packed
-64^3 layout here. Weights are OIDHW `[Cout, Cin, 3, 3, 3]` shared or
-`[B, Cout, Cin, 3, 3, 3]` per sample; K3's weights keep the JAX package's
-lhs-dilated correlation convention. The kernels' sources are
-`coma_unet_tpu_torch/csrc/conv3d_strided.cu` and `csrc/conv3d_dw.cu`.
+`_t2_fwd`) and `phase_split.py` (`pallas_hwsplit`, the parity prepass that
+K2 does in shared memory). Unlike the TPU kernels, both take and return the
+plain NCDHW layout: there is no packed 64^3 layout here. Weights are OIDHW
+`[Cout, Cin, 3, 3, 3]` shared or `[B, Cout, Cin, 3, 3, 3]` per sample; K3's
+weights keep the JAX package's lhs-dilated correlation convention.
+
+K2 (`csrc/conv3d_s2_tc.cu`) is one tensor-core kernel for every call: K1's
+implicit GEMM (`mma.sync` per tap, 16-channel chunks of Cin, W packed by
+K1's packing) over bricks of 2 x 4 x 16 output positions whose stride-2
+halo box is staged split by parity, cut as `s2_plan` says. As the
+transposed conv's input gradient (`conv3d_s2_dx`) it reads `flip_t(w)`
+from w in place. K3 is in `csrc/conv3d_strided.cu`, KB2 in
+`csrc/conv3d_dw.cu`.
 
 `conv3d_s2` and `conv3d_t2` are `torch.autograd.Function`s, closed under
 AD as in the JAX package (`conv3d_strided.py:961-1079`): the input gradient
@@ -20,14 +27,16 @@ swapped for the transposed conv.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from coma_unet_tpu_torch.ops import _build
 from coma_unet_tpu_torch.ops.conv3d import (
+    _cdiv,
     bias_grad,
+    channel_tile,
     check_conv_args,
     conv3d_ref,
     conv3d_weight_ref,
@@ -130,19 +139,67 @@ def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
     return out
 
 
-def _k2(x: torch.Tensor, w: torch.Tensor,
-        bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """K2 on a CUDA tensor, the plain version on a CPU tensor."""
+# K2 (csrc/conv3d_s2_tc.cu): a block owns AT output channels of one sample
+# and walks bricks of S2_BRICK output positions, each in chunks of S2_CT
+# input channels, every tap per chunk, staging the next step while it
+# computes this one.
+S2_BRICK = (2, 4, 16)   # (bd, bh, bw) output positions; bw is one m16 tile of mma
+S2_CT = 16              # input channels per chunk: one k16 step
+S2_BLOCKS = 132         # blocks a launch aims for: one a streaming multiprocessor
+                        # of the H100 (199 KB of shared memory each at AT = 64)
+
+
+class S2Plan(NamedTuple):
+    """How one K2 call is cut. A block owns `at` output channels of one
+    sample and walks bricks of `brick` output positions (d, h, w), staging
+    Cin `ct` channels at a time. `grid` is the launch grid: blocks along the
+    `bricks` bricks of a sample (block x walks bricks x, x + grid[0], ...),
+    output-channel tiles, samples. `wpack` is the bf16 length of the packed
+    weights."""
+    brick: Tuple[int, int, int]
+    ct: int
+    at: int
+    bricks: int
+    grid: Tuple[int, int, int]
+    wpack: int
+
+
+def s2_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
+            per_sample: bool = False) -> S2Plan:
+    """The cut of K2 for x [b, cin, d, h, w] and 3^3 weights to `cout`
+    channels (per sample or shared): chunks of S2_CT input channels,
+    AT = `channel_tile(cout)` output channels, bricks of S2_BRICK output
+    positions of the ((n - 1) // 2 + 1)-per-axis output, and about
+    S2_BLOCKS blocks in all, at least one per sample and output-channel
+    tile and at most one per brick."""
+    at = channel_tile(cout)
+    bd, bh, bw = S2_BRICK
+    bricks = _cdiv(_half(d), bd) * _cdiv(_half(h), bh) * _cdiv(_half(w), bw)
+    tiles = _cdiv(cout, at)
+    gx = min(bricks, _cdiv(S2_BLOCKS, tiles * b))
+    wpack = (b if per_sample else 1) * tiles * _cdiv(cin, S2_CT) * 27 * at * S2_CT
+    return S2Plan(S2_BRICK, S2_CT, at, bricks, (gx, tiles, b), wpack)
+
+
+def _k2(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+        flip: bool = False) -> torch.Tensor:
+    """K2 on a CUDA tensor, cut as `s2_plan` says; the plain version on a
+    CPU tensor. `flip` convolves with `flip_t(w)` (the transposed conv's
+    input gradient), which the kernel's weight packing reads from w in
+    place."""
     if not device_check("conv3d_s2", x):
-        return conv3d_s2_plain(x, w, bias)
-    _, per_sample, bias32 = check_conv_args(x, w, bias, (3,))
+        return conv3d_s2_plain(x, flip_t(w) if flip else w, bias)
+    _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
-    cout = w.shape[-5]
-    y = torch.empty((b, cout, (d - 1) // 2 + 1, (h - 1) // 2 + 1,
-                     (wd - 1) // 2 + 1), dtype=x.dtype, device=x.device)
-    _build.launch("s2", "coma_conv3d_s2", x.device, x.data_ptr(),
-                  w.data_ptr(), _build.ptr(bias32), y.data_ptr(),
-                  b, cin, cout, d, h, wd, int(per_sample))
+    cout = w.shape[-4] if flip else w.shape[-5]
+    plan = s2_plan(b, cin, cout, d, h, wd, per_sample)
+    y = torch.empty((b, cout, _half(d), _half(h), _half(wd)), dtype=x.dtype,
+                    device=x.device)
+    wpack = torch.empty(plan.wpack, dtype=x.dtype, device=x.device)
+    _build.launch("s2", "coma_conv3d_s2_tc", x.device, x.data_ptr(),
+                  w.data_ptr(), wpack.data_ptr(), _build.ptr(bias32),
+                  y.data_ptr(), b, cin, cout, d, h, wd, int(per_sample),
+                  int(flip), *plan.brick, plan.ct, plan.at, plan.grid[0])
     return y
 
 
@@ -162,9 +219,15 @@ def _k3(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def _input_grad(fn, g: torch.Tensor, w: torch.Tensor,
-                like: torch.Tensor) -> torch.Tensor:
-    dx = fn(g, flip_t(w), None)
+def conv3d_s2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the transposed stride-2 conv with weights w (shared
+    or per sample) for the output cotangent g: the stride-2 conv of g with
+    `flip_t(w)`, K2 on a CUDA tensor (its weight packing reads w flipped in
+    place) or the plain version on a CPU tensor."""
+    return _k2(g, w, None, flip=True)
+
+
+def _input_grad(dx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     if dx.shape != like.shape:
         raise ValueError(f"input gradient {tuple(dx.shape)} does not match "
                          f"the input {tuple(like.shape)}: the strided pair is "
@@ -187,7 +250,7 @@ class Conv3dS2(torch.autograd.Function):
         gx = g.to(x.dtype).contiguous()
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
-            dx = _input_grad(_k3, gx, w, x)
+            dx = _input_grad(_k3(gx, flip_t(w), None), x)
         if ctx.needs_input_grad[1]:
             dw = conv3d_strided_dw(x, gx, w.dim() == 6).to(w.dtype)
         if ctx.needs_input_grad[2]:
@@ -197,8 +260,8 @@ class Conv3dS2(torch.autograd.Function):
 
 class Conv3dT2(torch.autograd.Function):
     """Transposed stride-2 conv; backward as `_t2_vjp_bwd`: dx is K2 on g
-    with `flip_t(w)`, dW is KB2 (full = g, half = x) with its channel axes
-    swapped and its taps flipped."""
+    with `flip_t(w)` (`conv3d_s2_dx`), dW is KB2 (full = g, half = x) with
+    its channel axes swapped and its taps flipped."""
 
     @staticmethod
     def forward(ctx, x, w, bias):
@@ -211,7 +274,7 @@ class Conv3dT2(torch.autograd.Function):
         gx = g.to(x.dtype).contiguous()
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
-            dx = _input_grad(_k2, gx, w, x)
+            dx = _input_grad(conv3d_s2_dx(gx, w), x)
         if ctx.needs_input_grad[1]:
             m = conv3d_strided_dw(gx, x, w.dim() == 6)  # [(B,) Cin, Cout, taps]
             dw = torch.flip(m.transpose(-5, -4), dims=(-3, -2, -1)).to(w.dtype)
@@ -224,8 +287,9 @@ def conv3d_s2(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-2 SAME k=3 conv (padding 1/1): [B, Cin, D, H, W] ->
     [B, Cout, (D-1)//2+1, (H-1)//2+1, (W-1)//2+1], differentiable in x, w
-    and bias. A CUDA tensor launches K2 (bf16 only; K3 and KB2 in the
-    backward) or raises; a CPU tensor takes the plain versions."""
+    and bias. A CUDA tensor launches K2 (bf16 only, cut as `s2_plan` says;
+    K3 and KB2 in the backward) or raises; a CPU tensor takes the plain
+    versions."""
     device_check("conv3d_s2", x)
     return Conv3dS2.apply(x, w, bias)
 
@@ -235,7 +299,7 @@ def conv3d_t2(x: torch.Tensor, w: torch.Tensor,
     """Transposed stride-2 k=3 conv, [B, Cin, D, H, W] -> [B, Cout, 2D, 2H,
     2W] (= ConvTranspose3d(padding=1, output_padding=1) with flipped,
     io-swapped weights), differentiable in x, w and bias. A CUDA tensor
-    launches K3 (bf16 only; K2 and KB2 in the backward) or raises; a CPU
-    tensor takes the plain versions."""
+    launches K3 (bf16 only; K2 as `conv3d_s2_dx` and KB2 in the backward)
+    or raises; a CPU tensor takes the plain versions."""
     device_check("conv3d_t2", x)
     return Conv3dT2.apply(x, w, bias)

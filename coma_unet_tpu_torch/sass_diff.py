@@ -4,9 +4,9 @@
 
 Disassembles both shared libraries with `cuobjdump -sass` and compares the
 instructions of every function whose mangled name contains NAME (default:
-every function). nvcc names each source file's anonymous namespace after a
-hash that changes with the build, so names are compared with that hash
-removed; branch labels are renumbered per function in order of appearance.
+every function). nvcc names each source file's anonymous namespace after
+hashes that change with the build and with the source, so names are
+compared with them removed; branch labels are renumbered per function in order of appearance.
 Prints each function that differs or is missing on one side, then how many
 are identical; exits 1 unless all are.
 """
@@ -19,7 +19,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-_NAMESPACE_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# _GLOBAL__N__<hash>_<n>_<file>_cu_<hash>: both hashes go
+_NAMESPACE_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_(?:(\d+_\w+?_cu_)[0-9a-f]{8})?")
 _LABEL = re.compile(r"\.L_x_\d+")
 
 
@@ -42,7 +43,8 @@ def functions(lib: str, name: str = "") -> dict:
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            key = _NAMESPACE_HASH.sub("_GLOBAL__N__", line.split("Function :", 1)[1].strip())
+            key = _NAMESPACE_HASH.sub(lambda m: "_GLOBAL__N__" + (m.group(1) or ""),
+                                      line.split("Function :", 1)[1].strip())
             current = out.setdefault(key, []) if name in key else None
         elif current is not None and line.strip().startswith("/*"):
             current.append(line.strip())  # an instruction or its encoding
