@@ -12,8 +12,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's, K2's and KB1's, in `cuobjdump -sass`
-              of the library: each must have some.
+              tensor-core kernels, K1's, K2's, KB1's and KB2's, in
+              `cuobjdump -sass` of the library: each must have some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -32,9 +32,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               library: cuDNN's dgrad), K2 at up0's input-gradient shapes
               (`conv3d_s2_dx`: the cotangent through flip_t(w); library:
               PyTorch's stride-2 conv on flip_t(w)) and at odd sizes off the
-              path. K1, K2 and KB1 cases run twice and must be
-              bit-identical; each K1 and K2 case prints the cut `s1_plan` or
-              `s2_plan` chose.
+              path, KB2 also at odd sizes and channel counts off the path
+              (shared weights). K1, K2, KB1 and KB2 cases run twice and
+              must be bit-identical; each prints the cut `s1_plan`,
+              `s2_plan`, `dw_plan` or `sdw_plan` chose, and each KB2 case
+              its TFLOP/s and the share of its byte bound.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -111,9 +113,10 @@ TEMPLATE_STEPS = 4
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
-# the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu)
-# and KB1 (csrc/conv3d_dw_tc.cu)
-TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_dw_tc_kernel")
+# the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu),
+# KB1 (csrc/conv3d_dw_tc.cu) and KB2 (csrc/conv3d_dw_s2_tc.cu)
+TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_dw_tc_kernel",
+              "conv3d_dw_s2_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -133,7 +136,7 @@ SOURCES = {
               "coma_unet_tpu/ops/pallas/conv3d.py:586 _pallas_conv3d_dw; "
               "conv3d.py:516 _pallas_conv3d_dw_htiled; "
               "conv3d_p1.py:319 _p1_dw; conv3d_packed.py:195 _packed_dw"),
-    "strided_dw": ("conv3d_strided_dw", "coma_unet_tpu_torch/csrc/conv3d_dw.cu",
+    "strided_dw": ("conv3d_strided_dw", "coma_unet_tpu_torch/csrc/conv3d_dw_s2_tc.cu",
                    "coma_unet_tpu/ops/pallas/conv3d_strided.py:579 _dw_dil_v1; "
                    ":830 _dw_v2"),
     "norm_act_bwd": ("norm_act_bwd", "coma_unet_tpu_torch/csrc/norm_act.cu",
@@ -142,8 +145,9 @@ SOURCES = {
                     "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
 }
 # kernels whose device time the profile prints by name, in or below its top
-# 8: K2, K1's (and K2's) weight packing and KB1/KB2's split-K sum
-SMALL_KERNELS = ("conv3d_s2_tc_kernel", "s1_pack_weights", "dw_reduce_kernel")
+# 8: K2, KB2, K1's (and K2's) weight packing and KB1/KB2's split-K sum
+SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_dw_s2_tc_kernel", "s1_pack_weights",
+                 "dw_reduce_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -298,12 +302,17 @@ def _kernel_cases():
            ("odd W k=1 (scalar loads)", 1, 40, 20, 1, False, (5, 6, 45))]
     cases += [("s1_dw", site, (b, ci) + sp, (co, k), ps, None)
               for site, b, ci, co, k, ps, sp in s1 + odd]
-    # KB2: full [B, 32, D^3], half [B, 64, (D/2)^3] in both roles
+    # KB2: full [B, 32, D^3], half [B, 64, (D/2)^3] in both roles; and odd
+    # sizes off the path, whose scalar loads, masked bricks and zero-padded
+    # channel tiles (24 of 32 of full, 40 of 64 of half) it exercises, with
+    # shared weights (the split-K sum over the batch)
     for b, full, half, tag in ((2, v0, v1, ""), (1, t0, t1, "216 ")):
         cases.append(("strided_dw", f"{tag}down0.conv0 (s2: full=x, half=g)",
                       (b, 32) + full, (b, 64) + half, True, None))
         cases.append(("strided_dw", f"{tag}up0 (t2: full=g, half=x)",
                       (b, 32) + full, (b, 64) + half, True, None))
+    cases.append(("strided_dw", "odd sizes 24, 40 (shared)", (2, 24, 27, 18, 45),
+                  (2, 40, 14, 9, 23), False, None))
     norms = [("head.conv1", 2, 32, "relu", True, v0),
              ("merge0", 2, 32, "prelu", False, v0),
              ("deep_modulator_3c.conv0", 2, 16, "leakyrelu", False, v0),
@@ -399,6 +408,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                     library=lambda: conv3d_weight_ref(x, g, k, ps), inputs=(x, g),
                     ops=flops, rate=PEAK_BF16, plan=dw_plan(b, ci, co, *xshape[2:], k))
     if family == "strided_dw":
+        from coma_unet_tpu_torch.ops.conv3d_strided import sdw_plan
+
         full, half = randn(xshape), randn(wshape)
         flops = 2 * xshape[0] * wshape[1] * xshape[1] * 27 * _voxels(wshape)
         return dict(kernel=lambda: ops.conv3d_strided_dw(full, half, extra),
@@ -406,7 +417,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                                                             extra),
                     plain=lambda: ops.conv3d_strided_dw_plain(full, half, extra),
                     library=lambda: conv3d_weight_ref(full, half, 3, extra, 2),
-                    inputs=(full, half), ops=flops, rate=PEAK_BF16)
+                    inputs=(full, half), ops=flops, rate=PEAK_BF16,
+                    plan=sdw_plan(xshape[0], xshape[1], wshape[1], *xshape[2:]))
     kernel, plain = {"s1": (ops.conv3d_s1, ops.conv3d_s1_plain),
                      "s2": (ops.conv3d_s2, ops.conv3d_s2_plain),
                      "t2": (ops.conv3d_t2, ops.conv3d_t2_plain)}[family]
@@ -483,14 +495,14 @@ def _conv_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
             f"grid={plan.grid}; two calls bit-identical")
 
 
-def _kb1_checks(case: dict, got: torch.Tensor, site: str) -> str:
-    """KB1 at one site: a second call must be bit-identical to the first.
-    Returns a line with the cut `dw_plan` chose."""
+def _dw_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
+    """KB1 or KB2 at one site: a second call must be bit-identical to the
+    first. Returns a line with the cut `dw_plan` or `sdw_plan` chose."""
     again = case["kernel"]()
-    check(bool(torch.equal(again, got)), f"s1_dw {site}: two calls differ")
+    check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
-    return (f"  KB1 {site}: ct={plan.ct} at={plan.at} bricks/split={plan.bps} "
-            f"splits={plan.splits}; two calls bit-identical")
+    return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
+            f"bricks/split={plan.bps} splits={plan.splits}; two calls bit-identical")
 
 
 def phase_kernels(summary: dict) -> None:
@@ -527,8 +539,9 @@ def phase_kernels(summary: dict) -> None:
                 err = max(err, e)
                 rel[a.dtype] = max(rel[a.dtype] or 0.0, e / scale_ref if scale_ref else 0.0)
             note = None
-            if family == "s1_dw":
-                note = _kb1_checks(case, got[0], site)
+            if family in ("s1_dw", "strided_dw"):
+                note = _dw_checks(case, got[0], {"s1_dw": "KB1", "strided_dw": "KB2"}[family],
+                                  site)
             elif family in ("s1", "s2"):
                 note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2"}[family], site)
             ms = median_ms(case["kernel"])
@@ -536,8 +549,11 @@ def phase_kernels(summary: dict) -> None:
             library = case["library"]
             lib_ms = (plain_ms if library == "plain"
                       else median_ms(library) if library else None)
-        b_ms, b_by = bound_ms(case["ops"], case["rate"],
-                              _nbytes(case["inputs"]) + _nbytes(got))
+        nbytes = _nbytes(case["inputs"]) + _nbytes(got)
+        b_ms, b_by = bound_ms(case["ops"], case["rate"], nbytes)
+        if family == "strided_dw":
+            note += (f"; {case['ops'] / ms / 1e9:.1f} TFLOP/s, "
+                     f"{1e3 * nbytes / HBM_BYTES / ms:.1%} of its byte bound")
         del got, ref, case
         cols = [f"{v:9.2e}" if v is not None else f"{'-':>9s}" for v in rel.values()]
         cols.append(f"{ms:9.3f} {plain_ms:9.3f}")

@@ -92,7 +92,9 @@ struct Tc {
   static constexpr int HRSTEP = THREADS / CT, NX = (HROWS + HRSTEP - 1) / HRSTEP;
   static constexpr int NG = (AT * 2 * STEPS + THREADS - 1) / THREADS;
   static constexpr int SMEM = cmax(2 * STAGE * 2, J > 1 ? WARPS * NACC * 32 * 4 : 0);
-  static constexpr int CTILE = CT, ATILE = AT, BWID = BW;
+  static constexpr int CTILE = CT, ATILE = AT, BWID = BW, BHGT = BH;
+  // kw tap tw of a (kd, kh) row reads the halo position tw further on
+  __host__ __device__ static constexpr int kwoff(int tw) { return tw; }
   static_assert(BW == 16 && THREADS % CT == 0 && (THREADS / 2) % STEPS == 0, "staging map");
   static_assert(K == 1 || CT == 16, "k = 3 takes 16-channel tiles");
 };
@@ -107,85 +109,6 @@ struct TcArgs {
   int64_t nb, bps, sps;  // bricks per sample, per split; splits per sample
 };
 
-// What one thread stages, fixed for the block (see Tc).
-template <class Cf>
-struct Stager : XStager<Cf> {
-  int gv, gq, ga;  // G: 16-byte piece, k16 step, first output channel of the tile
-
-  __device__ __forceinline__ Stager(const TcArgs& p, const bf16* xb, int c0, int tid)
-      : XStager<Cf>(p, xb, c0, tid) {
-    gv = tid % 2;
-    gq = tid / 2 % Cf::STEPS;
-    ga = tid / (2 * Cf::STEPS);
-  }
-
-  // The G tile sg [AT][GS] of the brick: row a holds positions (dd, hh, ww)
-  // at (dd * BH + hh) * BW + ww, zero past the volume and past Cout.
-  template <int VW>
-  __device__ __forceinline__ void load_g(bf16* sg, const TcArgs& p, const bf16* gb, int a0,
-                                         int d0, int h0, int w0) const {
-    const int d = d0 + gq / BH, h = h0 + gq % BH, w = w0 + 8 * gv;
-    const bool in = d < p.D && h < p.H;
-    const int off = (d * p.H + h) * p.W + w;
-#pragma unroll
-    for (int j = 0; j < Cf::NG; ++j) {
-      const int a = ga + j * (Cf::THREADS / (2 * Cf::STEPS));
-      if (a < Cf::ATILE) {
-        const bool ok = in && a0 + a < p.A;
-        const bf16* src = gb + (ok ? a0 + a : 0) * p.plane + (ok ? off : 0);
-        bf16* dst = sg + a * Cf::GS + gq * BW + 8 * gv;
-        if constexpr (VW == 8) {
-          cp_async16(smem_u32(dst), src, ok && w < p.W);
-        } else if constexpr (VW == 4) {
-          cp_async8(smem_u32(dst), src, ok && w < p.W);
-          cp_async8(smem_u32(dst + 4), ok && w + 4 < p.W ? src + 4 : src, ok && w + 4 < p.W);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            reinterpret_cast<unsigned short*>(dst)[e] =
-                ok && w + e < p.W ? (unsigned short)ld_u16(src + e) : (unsigned short)0;
-        }
-      }
-    }
-  }
-};
-
-// The products of one staged brick: warp (td, th, jw) takes k16 steps jw,
-// jw + J, ... and, per step, taps (td, th, 0 .. K-1). A step's fragments
-// are all loaded before its products, so one ldmatrix latency covers them.
-template <class Cf, int K>
-__device__ __forceinline__ void mma_brick(float (&acc)[K][Cf::MT][Cf::NT][4], uint32_t sx,
-                                          uint32_t a_lane, uint32_t b_lane, uint32_t b_lane2,
-                                          int td, int th, int jw) {
-  const uint32_t sg = sx + Cf::XELEMS * 2;
-#pragma unroll 2
-  for (int q = jw; q < Cf::STEPS; q += Cf::J) {
-    const int dd = q / BH, hh = q % BH;
-    uint32_t bfr[Cf::NT][2];
-#pragma unroll
-    for (int n = 0; n + 1 < Cf::NT; n += 2)
-      ldsm_x4(bfr[n][0], bfr[n][1], bfr[n + 1][0], bfr[n + 1][1],
-              sg + b_lane + (n * 8 * Cf::GS + q * BW) * 2);
-    if constexpr (Cf::NT % 2 == 1)
-      ldsm_x2(bfr[Cf::NT - 1][0], bfr[Cf::NT - 1][1],
-              sg + b_lane2 + ((Cf::NT - 1) * 8 * Cf::GS + q * BW) * 2);
-    const int row0 = ((dd + td) * Cf::HH + hh + th) * Cf::HW;
-    uint32_t afr[K][Cf::MT][4];
-#pragma unroll
-    for (int tw = 0; tw < K; ++tw)
-#pragma unroll
-      for (int mt = 0; mt < Cf::MT; ++mt)
-        ldsm_x4_trans(afr[tw][mt], sx + a_lane + ((row0 + tw) * Cf::XS + mt * 16) * 2);
-#pragma unroll
-    for (int tw = 0; tw < K; ++tw)
-#pragma unroll
-      for (int mt = 0; mt < Cf::MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < Cf::NT; ++n)
-          mma_bf16(acc[tw][mt][n], afr[tw][mt], bfr[n][0], bfr[n][1]);
-  }
-}
-
 template <int K, int CT, int AT, int VW>
 __global__ void __launch_bounds__(Tc<K, CT, AT, VW>::THREADS, Tc<K, CT, AT, VW>::MIN_BLOCKS)
 conv3d_dw_tc_kernel(const TcArgs p) {
@@ -198,7 +121,8 @@ conv3d_dw_tc_kernel(const TcArgs p) {
   const int64_t bi0 = split % p.sps * p.bps;
   const int64_t bi1 = bi0 + p.bps < p.nb ? bi0 + p.bps : p.nb;
   const bf16* const gb = p.g + b * p.A * p.plane;
-  const Stager<Cf> st(p, p.x + b * p.C * p.plane, c0, tid);
+  const XStager<Cf> st(p, p.x + b * p.C * p.plane, c0, tid);
+  const GStager<Cf> gst(tid);
 
   const int jw = warp % Cf::J, tg = warp / Cf::J, td = tg / K, th = tg % K;
   // ldmatrix: lane l addresses row l % 8 of 8 x 8 matrix l / 8; matrices 0-3
@@ -225,7 +149,7 @@ conv3d_dw_tc_kernel(const TcArgs p) {
   int d0 = (int)(bi0 / ((int64_t)p.nbw * p.nbh)) * BD;
   XRegs<Cf> xr;
   if (bi0 < bi1) {
-    st.template load_g<VW>(stages + Cf::XELEMS, p, gb, a0, d0, h0, w0);
+    gst.template load_g<VW>(stages + Cf::XELEMS, p, gb, a0, d0, h0, w0);
     cp_async_commit();
     st.template load_x<VW>(xr, p, d0, h0, w0);
     st.store_x(xr, stages);
@@ -247,7 +171,7 @@ conv3d_dw_tc_kernel(const TcArgs p) {
           d0 += BD;
         }
       }
-      st.template load_g<VW>(nxt + Cf::XELEMS, p, gb, a0, d0, h0, w0);
+      gst.template load_g<VW>(nxt + Cf::XELEMS, p, gb, a0, d0, h0, w0);
       cp_async_commit();
       st.template load_x<VW>(xr, p, d0, h0, w0);
     }

@@ -45,7 +45,8 @@
 // Per chunk it stages in shared memory
 //  - the stride-2 halo box of the brick, (2BD+1)(2BH+1)(2BW+1) = 5 x 9 x 33
 //    input positions x 16 channels, channels-last, zero outside the volume,
-//    global -> registers -> shared as K1 stages its halo brick. Each axis of
+//    global -> registers -> shared as K1 stages its halo brick
+//    (tc_common.cuh:Box2, BoxStager, shared with KB2). Each axis of
 //    the box is stored split by parity (its n + 1 even positions, then its n
 //    odd ones: the TPU's pallas_hwsplit, in shared memory), so tap offset
 //    s along an axis reads position q + {0, n + 1, 1}[s] for output q: unit
@@ -79,23 +80,13 @@ constexpr int BD = 2, BH = 4, BW = 16;  // brick of output positions; BW is one 
 constexpr int CT = 16;                  // input channels per chunk: one k16 step
 constexpr int TAPS = 27;
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
-// the stride-2 halo box: 2n + 1 input positions along an axis of n outputs
-constexpr int HD = 2 * BD + 1, HH = 2 * BH + 1, HW = 2 * BW + 1;
-constexpr int HROWS = HD * HH, XROWS = HROWS * HW;  // box (d, h) rows, positions
-constexpr int XROW = padded(CT);                    // X row: 16 channels in 3 16-byte units
-constexpr int XELEMS = XROWS * XROW;
+// the stride-2 halo box (tc_common.cuh:Box2): 2n + 1 input positions along
+// an axis of n outputs, stored split by parity
+using Box = Box2<BD, BH, THREADS>;
+constexpr int HH = Box::HH, HW = Box::HW;
+constexpr int XROW = Box::XS;  // X row: 16 channels in 3 16-byte units
+constexpr int XELEMS = Box::XELEMS;
 constexpr int ROWS = BD * BH, POS = ROWS * BW;  // brick rows (m-tiles), positions
-// X staging: a thread holds channel pair tid % 8 of row piece tid / 8 % 4
-// (input w 8 v .. 8 v + 7 of the box's W extent after its first position)
-// of box rows tid / 32 + i * HRSTEP; the pieces' first thread also holds
-// the box's first position
-constexpr int PIECES = 2 * BW / 8;
-constexpr int HRSTEP = THREADS / (CT / 2 * PIECES), NX = (HROWS + HRSTEP - 1) / HRSTEP;
-
-// Where box position j (0 <= j <= 2n) along an axis of n outputs is stored.
-__host__ __device__ constexpr int split(int j, int n) { return j % 2 == 0 ? j / 2 : n + 1 + j / 2; }
-// Tap offset s (0, 1, 2) of output q reads box position 2q + s: stored at q + shift(s, n).
-__host__ __device__ constexpr int shift(int s, int n) { return s == 0 ? 0 : s == 1 ? n + 1 : 1; }
 
 template <int AT>
 struct S2 {
@@ -123,77 +114,6 @@ struct S2Args {
   int nbh, nbw, nb;   // output bricks along H and W; per sample
   int nch, nat;       // Cin chunks, Cout tiles
   int per_sample;
-};
-
-// One box in registers between its loads and its stores.
-struct BoxRegs {
-  uint4 v[NX][2];  // the 8-wide row piece of channels (c, c + 1)
-  uint32_t e[NX];  // the box's first position along W, channels (c, c + 1)
-};
-
-// The share of one chunk's halo box that a thread stages (see PIECES).
-struct BoxStager {
-  const bf16* xc;   // channel c = c0 + 2 cp of this sample (clamped to a valid one)
-  bool c0ok, c1ok;  // c < C, c + 1 < C
-  int cp, v, hr0;
-
-  __device__ __forceinline__ BoxStager(const S2Args& p, const bf16* xb, int c0, int tid) {
-    cp = tid % (CT / 2);
-    v = tid / (CT / 2) % PIECES;
-    hr0 = tid / (CT / 2 * PIECES);
-    const int c = c0 + 2 * cp;
-    c0ok = c < p.C;
-    c1ok = c + 1 < p.C;
-    xc = xb + (c0ok ? c : 0) * p.plane;
-  }
-
-  // The box whose first input position is (d0, h0, w0) = 2 x the brick's
-  // origin - 1, into registers; w0 + 1 is a multiple of 32.
-  template <int VX>
-  __device__ __forceinline__ void load_x(BoxRegs& r, const S2Args& p, int d0, int h0,
-                                         int w0) const {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      r.v[i][0] = r.v[i][1] = make_uint4(0u, 0u, 0u, 0u);
-      r.e[i] = 0u;
-      const int hr = hr0 + i * HRSTEP;
-      const int d = d0 + hr / HH, h = h0 + hr % HH;
-      if (hr < HROWS && (unsigned)d < (unsigned)p.D && (unsigned)h < (unsigned)p.H) {
-        const bf16* row = xc + (d * p.H + h) * p.W;
-        const int w = w0 + 1 + 8 * v;
-        const bool eok = v == 0 && w0 >= 0;
-        if (c0ok) {
-          r.v[i][0] = ld_row8<VX>(row, w, p.W);
-          if (eok) r.e[i] = ld_u16(row + w0);
-        }
-        if (c1ok) {
-          r.v[i][1] = ld_row8<VX>(row + p.plane, w, p.W);
-          if (eok) r.e[i] |= ld_u16(row + p.plane + w0) << 16;
-        }
-      }
-    }
-  }
-
-  // Registers -> the parity-split box sx [XROWS][XS]: element e of the row
-  // piece is box position j = 1 + 8 v + e along W, channels (2 cp, 2 cp + 1).
-  __device__ __forceinline__ void store_x(const BoxRegs& r, bf16* sx) const {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      const int hr = hr0 + i * HRSTEP;
-      if (hr < HROWS) {
-        const int srow = (split(hr / HH, BD) * HH + split(hr % HH, BH)) * HW;
-        uint32_t* dst = reinterpret_cast<uint32_t*>(sx + srow * XROW) + cp;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          // split(1 + 8 v + e, BW): odd positions for even e
-          const int s = e % 2 == 0 ? BW + 1 + 4 * v + e / 2 : 4 * v + (e + 1) / 2;
-          dst[s * (XROW / 2)] = __byte_perm(word(r.v[i][0], e / 2), word(r.v[i][1], e / 2),
-                                          (e & 1) ? 0x7632 : 0x5410);
-        }
-        if (v == 0) dst[0] = r.e[i];  // position 0 is stored first
-      }
-    }
-  }
 };
 
 template <int AT, int VX, int VY>
@@ -253,8 +173,8 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_s2_tc_kernel(const S2Args p
   // once: chunk ch stays in stage ch
   const bool resident = p.nch <= 2;
   auto wstage = [&](int s) { return sw + (resident ? s % p.nch : s & 1) * Cf::WELEMS; };
-  BoxStager st(p, xb, 0, tid);
-  BoxRegs xr;
+  BoxStager<Box> st(p, xb, 0, tid);
+  BoxRegs<Box> xr;
   {
     int d0, h0, w0;
     brick(0, d0, h0, w0);
@@ -274,7 +194,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_s2_tc_kernel(const S2Args p
       if (!resident || s + 1 < p.nch)
         load_w<Cf::WELEMS, THREADS>(wstage(s + 1), wt + ch * (int64_t)Cf::WELEMS, tid);
       cp_async_commit();
-      st = BoxStager(p, xb, ch * CT, tid);
+      st = BoxStager<Box>(p, xb, ch * CT, tid);
       st.load_x<VX>(xr, p, 2 * d0 - 1, 2 * h0 - 1, 2 * w0 - 1);
     }
     mma_taps<Cf>(acc, smem_u32(wstage(s)), a_lane, b_lane);

@@ -1,8 +1,10 @@
 // Pieces shared by the tensor-core kernels K1 (conv3d_s1_tc.cu), K2
-// (conv3d_s2_tc.cu) and KB1 (conv3d_dw_tc.cu): shared-memory and cp.async
-// wrappers, ldmatrix and the bf16 mma.sync, the read-only global loads
-// issued as volatile asm, the staging of an X halo brick from NCDHW into
-// channels-last shared memory, and the implicit GEMM per tap of K1 and K2
+// (conv3d_s2_tc.cu), KB1 (conv3d_dw_tc.cu) and KB2 (conv3d_dw_s2_tc.cu):
+// shared-memory and cp.async wrappers, ldmatrix and the bf16 mma.sync, the
+// read-only global loads issued as volatile asm, the staging of an X halo
+// brick (K1, KB1) and of a parity-split stride-2 halo box (K2, KB2) from
+// NCDHW into channels-last shared memory, the weight gradients' G tile and
+// per-brick products (KB1, KB2), and the implicit GEMM per tap of K1 and K2
 // with K1's weight packing.
 #pragma once
 
@@ -28,10 +30,20 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool va
                "r"(valid ? 8 : 0));
 }
 
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Waits for all but the most recent group.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
@@ -195,6 +207,215 @@ struct XStager {
           reinterpret_cast<uint32_t*>(sx + (hr * Cf::HW + hw) * Cf::XS)[cp] = r.e[i];
         }
       }
+    }
+  }
+};
+
+// The share of a weight gradient's G tile sg [ATILE][GS] that one thread
+// stages by cp.async (KB1, KB2): the brick's positions (dd, hh, ww) at
+// (dd * BHGT + hh) * BWID + ww of row a (BWID = 16: a k16 step is one brick
+// row), zero past the volume and past A. Thread t copies 16-byte piece
+// t % 2 of k16 step t / 2 % STEPS of channels t / (2 STEPS) + j * (THREADS /
+// (2 STEPS)). Cf gives STEPS, BHGT, BWID, THREADS, NG, ATILE and GS; Dims the G
+// tensor's sizes (A, D, H, W, plane).
+template <class Cf>
+struct GStager {
+  int gv, gq, ga;  // 16-byte piece, k16 step, first channel of the tile
+
+  __device__ __forceinline__ explicit GStager(int tid) {
+    gv = tid % 2;
+    gq = tid / 2 % Cf::STEPS;
+    ga = tid / (2 * Cf::STEPS);
+  }
+
+  // The tile of the brick at (d0, h0, w0) of one sample's G (gb), channels
+  // from a0, loaded VW elements at a time along W.
+  template <int VW, class Dims>
+  __device__ __forceinline__ void load_g(bf16* sg, const Dims& p, const bf16* gb, int a0, int d0,
+                                         int h0, int w0) const {
+    const int d = d0 + gq / Cf::BHGT, h = h0 + gq % Cf::BHGT, w = w0 + 8 * gv;
+    const bool in = d < p.D && h < p.H;
+    const int off = (d * p.H + h) * p.W + w;
+#pragma unroll
+    for (int j = 0; j < Cf::NG; ++j) {
+      const int a = ga + j * (Cf::THREADS / (2 * Cf::STEPS));
+      if (a < Cf::ATILE) {
+        const bool ok = in && a0 + a < p.A;
+        const bf16* src = gb + (ok ? a0 + a : 0) * p.plane + (ok ? off : 0);
+        bf16* dst = sg + a * Cf::GS + gq * Cf::BWID + 8 * gv;
+        if constexpr (VW == 8) {
+          cp_async16(smem_u32(dst), src, ok && w < p.W);
+        } else if constexpr (VW == 4) {
+          cp_async8(smem_u32(dst), src, ok && w < p.W);
+          cp_async8(smem_u32(dst + 4), ok && w + 4 < p.W ? src + 4 : src, ok && w + 4 < p.W);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            reinterpret_cast<unsigned short*>(dst)[e] =
+                ok && w + e < p.W ? (unsigned short)ld_u16(src + e) : (unsigned short)0;
+        }
+      }
+    }
+  }
+};
+
+// The products of one staged brick of a weight gradient (KB1, KB2): 27 (or
+// 1) GEMMs D_t[c, a] += sum_p X[c, p + s_t] * G[a, p] with X the
+// channels-last halo rows at sx and G the tile [ATILE][GS] at sg.
+// Warp (td, th, jw) takes k16 steps jw, jw + J, ... and, per step, taps
+// (td, th, 0 .. K-1); td and th arrive as the row offsets of their taps in
+// the halo (the tap index itself for KB1's brick, its parity-split shift
+// for KB2's box), and Cf::kwoff(tw) gives the offset of kw tap tw. A step's
+// fragments are all loaded before its products, so one ldmatrix latency
+// covers them.
+template <class Cf, int K>
+__device__ __forceinline__ void mma_brick(float (&acc)[K][Cf::MT][Cf::NT][4], uint32_t sx,
+                                          uint32_t sg, uint32_t a_lane, uint32_t b_lane,
+                                          uint32_t b_lane2, int td, int th, int jw) {
+#pragma unroll 2
+  for (int q = jw; q < Cf::STEPS; q += Cf::J) {
+    const int dd = q / Cf::BHGT, hh = q % Cf::BHGT;
+    uint32_t bfr[Cf::NT][2];
+#pragma unroll
+    for (int n = 0; n + 1 < Cf::NT; n += 2)
+      ldsm_x4(bfr[n][0], bfr[n][1], bfr[n + 1][0], bfr[n + 1][1],
+              sg + b_lane + (n * 8 * Cf::GS + q * Cf::BWID) * 2);
+    if constexpr (Cf::NT % 2 == 1)
+      ldsm_x2(bfr[Cf::NT - 1][0], bfr[Cf::NT - 1][1],
+              sg + b_lane2 + ((Cf::NT - 1) * 8 * Cf::GS + q * Cf::BWID) * 2);
+    const int row0 = ((dd + td) * Cf::HH + hh + th) * Cf::HW;
+    uint32_t afr[K][Cf::MT][4];
+#pragma unroll
+    for (int tw = 0; tw < K; ++tw)
+#pragma unroll
+      for (int mt = 0; mt < Cf::MT; ++mt)
+        ldsm_x4_trans(afr[tw][mt],
+                      sx + a_lane + ((row0 + Cf::kwoff(tw)) * Cf::XS + mt * 16) * 2);
+#pragma unroll
+    for (int tw = 0; tw < K; ++tw)
+#pragma unroll
+      for (int mt = 0; mt < Cf::MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < Cf::NT; ++n)
+          mma_bf16(acc[tw][mt][n], afr[tw][mt], bfr[n][0], bfr[n][1]);
+  }
+}
+
+// The same with the G tile right behind the halo rows (KB1's stages).
+template <class Cf, int K>
+__device__ __forceinline__ void mma_brick(float (&acc)[K][Cf::MT][Cf::NT][4], uint32_t sx,
+                                          uint32_t a_lane, uint32_t b_lane, uint32_t b_lane2,
+                                          int td, int th, int jw) {
+  mma_brick<Cf, K>(acc, sx, sx + Cf::XELEMS * 2, a_lane, b_lane, b_lane2, td, th, jw);
+}
+
+// The stride-2 halo box of a brick of BD x BH x BW (BW = 16) positions of a
+// stride-2 grid (K2's outputs, KB2's half-resolution positions): the
+// (2BD+1)(2BH+1)(2BW+1) input positions 2q + s - 1 (s in {0, 1, 2}) that its
+// 27 taps read, x 16 channels, channels-last, zero outside the volume. Each
+// axis is stored split by parity (its n + 1 even positions, then its n odd
+// ones), so tap offset s along an axis reads position q + shift(s, n) for
+// brick position q: unit stride, and a tap moves a lane's ldmatrix row by
+// an immediate. Rows are padded to 3 16-byte units, so the 8 rows of one
+// ldmatrix phase fall in distinct banks (an unsplit box read at stride 2
+// would be a 2-way conflict at any padding). Staged by THREADS threads: a
+// thread holds channel pair t % 8 of row piece t / 8 % 4 (input w 8 v ..
+// 8 v + 7 of the box's W extent after its first position) of box rows
+// t / 32 + i * HRSTEP; the pieces' first thread also holds the box's first
+// position.
+//
+// Where box position j (0 <= j <= 2n) along an axis of n outputs is stored.
+__host__ __device__ constexpr int split(int j, int n) { return j % 2 == 0 ? j / 2 : n + 1 + j / 2; }
+// Tap offset s (0, 1, 2) of output q reads box position 2q + s: stored at q + shift(s, n).
+__host__ __device__ constexpr int shift(int s, int n) { return s == 0 ? 0 : s == 1 ? n + 1 : 1; }
+
+template <int BD_, int BH_, int THREADS_>
+struct Box2 {
+  static constexpr int BD = BD_, BH = BH_, BW = 16, CT = 16, THREADS = THREADS_;
+  static constexpr int HD = 2 * BD + 1, HH = 2 * BH + 1, HW = 2 * BW + 1;
+  static constexpr int HROWS = HD * HH, XROWS = HROWS * HW;  // box (d, h) rows, positions
+  static constexpr int XS = padded(CT), XELEMS = XROWS * XS;  // row: 16 channels in 3 units
+  static constexpr int PIECES = 2 * BW / 8;
+  static constexpr int HRSTEP = THREADS / (CT / 2 * PIECES), NX = (HROWS + HRSTEP - 1) / HRSTEP;
+};
+
+// One box in registers between its loads and its stores.
+template <class Box>
+struct BoxRegs {
+  uint4 v[Box::NX][2];  // the 8-wide row piece of channels (c, c + 1)
+  uint32_t e[Box::NX];  // the box's first position along W, channels (c, c + 1)
+};
+
+// The share of one 16-channel chunk's box that a thread stages (see Box2);
+// Args gives the input's sizes (C, D, H, W, plane).
+template <class Box>
+struct BoxStager {
+  const bf16* xc;   // channel c = c0 + 2 cp of this sample (clamped to a valid one)
+  bool c0ok, c1ok;  // c < C, c + 1 < C
+  int cp, v, hr0;
+
+  template <class Args>
+  __device__ __forceinline__ BoxStager(const Args& p, const bf16* xb, int c0, int tid) {
+    cp = tid % (Box::CT / 2);
+    v = tid / (Box::CT / 2) % Box::PIECES;
+    hr0 = tid / (Box::CT / 2 * Box::PIECES);
+    const int c = c0 + 2 * cp;
+    c0ok = c < p.C;
+    c1ok = c + 1 < p.C;
+    xc = xb + (c0ok ? c : 0) * p.plane;
+  }
+
+  // The box whose first input position is (d0, h0, w0) = 2 x the brick's
+  // origin - 1, into registers; w0 + 1 is a multiple of 32.
+  template <int VX, class Args>
+  __device__ __forceinline__ void load_x(BoxRegs<Box>& r, const Args& p, int d0, int h0,
+                                         int w0) const {
+#pragma unroll
+    for (int i = 0; i < Box::NX; ++i) {
+      r.v[i][0] = r.v[i][1] = make_uint4(0u, 0u, 0u, 0u);
+      r.e[i] = 0u;
+      const int hr = hr0 + i * Box::HRSTEP;
+      const int d = d0 + hr / Box::HH, h = h0 + hr % Box::HH;
+      if (hr < Box::HROWS && (unsigned)d < (unsigned)p.D && (unsigned)h < (unsigned)p.H) {
+        const bf16* row = xc + (d * p.H + h) * p.W;
+        const int w = w0 + 1 + 8 * v;
+        const bool eok = v == 0 && w0 >= 0;
+        if (c0ok) {
+          r.v[i][0] = ld_row8<VX>(row, w, p.W);
+          if (eok) r.e[i] = ld_u16(row + w0);
+        }
+        if (c1ok) {
+          r.v[i][1] = ld_row8<VX>(row + p.plane, w, p.W);
+          if (eok) r.e[i] |= ld_u16(row + p.plane + w0) << 16;
+        }
+      }
+    }
+  }
+
+  // Box row hr of the thread's channel pair -> the parity-split box sx
+  // [XROWS][XS]: element e of the row piece (a: channel 2 cp, b: 2 cp + 1)
+  // is box position j = 1 + 8 v + e along W; e0 holds position 0 of both.
+  __device__ __forceinline__ void store_row(int hr, const uint4& a, const uint4& b, uint32_t e0,
+                                            bf16* sx) const {
+    const int srow =
+        (split(hr / Box::HH, Box::BD) * Box::HH + split(hr % Box::HH, Box::BH)) * Box::HW;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sx + srow * Box::XS) + cp;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // split(1 + 8 v + e, BW): odd positions for even e
+      const int s = e % 2 == 0 ? Box::BW + 1 + 4 * v + e / 2 : 4 * v + (e + 1) / 2;
+      dst[s * (Box::XS / 2)] =
+          __byte_perm(word(a, e / 2), word(b, e / 2), (e & 1) ? 0x7632 : 0x5410);
+    }
+    if (v == 0) dst[0] = e0;  // position 0 is stored first
+  }
+
+  // Registers -> the parity-split box sx [XROWS][XS].
+  __device__ __forceinline__ void store_x(const BoxRegs<Box>& r, bf16* sx) const {
+#pragma unroll
+    for (int i = 0; i < Box::NX; ++i) {
+      const int hr = hr0 + i * Box::HRSTEP;
+      if (hr < Box::HROWS) store_row(hr, r.v[i][0], r.v[i][1], r.e[i], sx);
     }
   }
 };

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "coma_conv3d_t2": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "coma_norm_act": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "coma_conv3d_s1_dw": [_P] * 4 + [_I] * 14 + [_P],
-    "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 8 + [_P],
+    "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 13 + [_P],
     "coma_norm_act_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
 }

@@ -206,13 +206,14 @@ DW_MAX_BRICKS = 80      # and at most: the error of the tensor cores' f32 sums
 
 
 class DwPlan(NamedTuple):
-    """How one KB1 call is cut. The bricks of each sample (`bricks` of
-    `brick` positions, in order w fastest) are split into
+    """How one KB1 or KB2 call is cut. The bricks of each sample (`bricks`
+    of `brick` positions, in order w fastest) are split into
     `splits_per_sample` runs of `bps` bricks (`positions` positions), so
     no split straddles two samples. Each split writes its partial dW to
     `workspace` floats of f32 scratch, and a second launch sums the
-    partials in split order. `grid` is the launch grid: input-channel tiles
-    of `ct`, output-channel tiles of `at`, splits."""
+    partials in split order. `grid` is the launch grid: channel tiles of
+    `ct` along mma's M (KB1's input channels, KB2's `full`), of `at` along
+    its N (KB1's output channels, KB2's `half`), splits."""
     brick: Tuple[int, int, int]
     ct: int
     at: int
@@ -233,18 +234,31 @@ def dw_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
     smallest that holds the layer, up to 32; narrower layers pad with
     zeros), and runs of DW_MIN_BRICKS to DW_MAX_BRICKS bricks, so that the
     launch has about DW_TC_BLOCKS blocks and at most GRID_MAX splits."""
-    bd, bh, bw = DW_BRICK
     ct = 16 if cin <= 16 or k == 3 else 32
     at = 8 if cout <= 8 else 16 if cout <= 16 else 32
-    bricks = _cdiv(d, bd) * _cdiv(h, bh) * _cdiv(w, bw)
-    tiles = _cdiv(cin, ct) * _cdiv(cout, at)
-    want = _cdiv(max(1, DW_TC_BLOCKS // tiles), b)  # splits per sample
-    bps = min(max(DW_MIN_BRICKS, _cdiv(bricks, want)), DW_MAX_BRICKS)
+    return split_plan(b, cin, cout, (d, h, w), k ** 3, DW_BRICK, ct, at,
+                      DW_TC_BLOCKS, DW_MIN_BRICKS, DW_MAX_BRICKS)
+
+
+def split_plan(b: int, c: int, a: int, size: Tuple[int, int, int], taps: int,
+               brick: Tuple[int, int, int], ct: int, at: int, blocks: int,
+               lo: int, hi: int) -> DwPlan:
+    """The split-K cut of a weight gradient (KB1, KB2) over the positions
+    `size` of b samples, in bricks of `brick` positions, for tiles of `ct`
+    of the c channels along mma's M and `at` of the a channels along its N,
+    with taps per channel pair: runs of `lo` to `hi` bricks, so that the
+    launch has about `blocks` blocks and at most GRID_MAX splits."""
+    bricks = 1
+    for n, m in zip(size, brick):
+        bricks *= _cdiv(n, m)
+    tiles = _cdiv(c, ct) * _cdiv(a, at)
+    want = _cdiv(max(1, blocks // tiles), b)  # splits per sample
+    bps = min(max(lo, _cdiv(bricks, want)), hi)
     bps = max(bps, _cdiv(bricks * b, GRID_MAX))
     sps = _cdiv(bricks, bps)
-    return DwPlan(DW_BRICK, ct, at, bricks, bps, bps * bd * bh * bw, sps,
-                  b * sps, b * sps * cout * cin * k ** 3,
-                  (_cdiv(cin, ct), _cdiv(cout, at), b * sps))
+    positions = bps * brick[0] * brick[1] * brick[2]
+    return DwPlan(brick, ct, at, bricks, bps, positions, sps, b * sps,
+                  b * sps * a * c * taps, (_cdiv(c, ct), _cdiv(a, at), b * sps))
 
 
 def conv3d_s1_dw(x: torch.Tensor, g: torch.Tensor, k: int,

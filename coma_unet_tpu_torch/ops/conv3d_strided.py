@@ -15,8 +15,11 @@ implicit GEMM (`mma.sync` per tap, 16-channel chunks of Cin, W packed by
 K1's packing) over bricks of 2 x 4 x 16 output positions whose stride-2
 halo box is staged split by parity, cut as `s2_plan` says. As the
 transposed conv's input gradient (`conv3d_s2_dx`) it reads `flip_t(w)`
-from w in place. K3 is in `csrc/conv3d_strided.cu`, KB2 in
-`csrc/conv3d_dw.cu`.
+from w in place. K3 is in `csrc/conv3d_strided.cu`.
+KB2 (`csrc/conv3d_dw_s2_tc.cu`) is one tensor-core kernel for every call:
+KB1's per-tap GEMM over positions (`mma.sync`, split-K summed in a fixed
+order) on K2's parity-split halo box, over bricks of 2 x 4 x 16
+half-resolution positions, cut as `sdw_plan` says.
 
 `conv3d_s2` and `conv3d_t2` are `torch.autograd.Function`s, closed under
 AD as in the JAX package (`conv3d_strided.py:961-1079`): the input gradient
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 
 from coma_unet_tpu_torch.ops import _build
 from coma_unet_tpu_torch.ops.conv3d import (
+    DwPlan,
     _cdiv,
     bias_grad,
     channel_tile,
@@ -42,6 +46,7 @@ from coma_unet_tpu_torch.ops.conv3d import (
     conv3d_weight_ref,
     device_check,
     flip_t,
+    split_plan,
 )
 
 
@@ -91,22 +96,34 @@ def conv3d_strided_dw_plain(full: torch.Tensor, half: torch.Tensor,
                              stride=2)
 
 
-DW_KT = 32              # positions per shared-memory step of KB2 (csrc/conv3d_dw.cu)
-DW_TARGET_BLOCKS = 2048  # blocks a KB2 launch aims for
-
-
-def dw_split(b: int, positions: int, a: int, n: int) -> int:
-    """Positions per block of KB2 (a multiple of DW_KT): the reduction over
-    b * positions is split so that the launch has about DW_TARGET_BLOCKS
-    blocks of (a, n) output tiles, and no fewer than 16 steps per block."""
-    tiles = -(-a // 32) * -(-n // 128)
-    splits = max(1, DW_TARGET_BLOCKS // tiles)
-    kc = max(-(-b * positions // splits), 16 * DW_KT)
-    return -(-kc // DW_KT) * DW_KT
-
-
 def _half(n: int) -> int:
     return (n - 1) // 2 + 1
+
+
+# KB2 (csrc/conv3d_dw_s2_tc.cu): a block owns SDW_CT channels of `full` x
+# SDW_AT channels of `half` x 27 taps in registers and walks a run of bricks
+# of half-resolution positions of one sample (221 KB of shared memory: one
+# block an SM).
+SDW_BRICK = (2, 4, 16)  # (bd, bh, bw) half positions; bw is one k16 mma step
+SDW_CT = 16             # channels of `full` per block: one m16 tile
+SDW_AT = 64             # channels of `half` per block (narrower ones pad with zeros)
+SDW_BLOCKS = 132        # blocks a launch aims for: one wave of one block an SM
+                        # (long runs: a run's first brick fills the pipeline,
+                        # and only it copies its first positions along W)
+SDW_MIN_BRICKS = 4      # bricks per split at least, for the partials' writes
+SDW_MAX_BRICKS = 160    # and at most: KB1's cap in positions (DW_MAX_BRICKS
+                        # bricks of 256), for the error of the f32 sums
+
+
+def sdw_plan(b: int, cf: int, cp: int, d: int, h: int, w: int) -> DwPlan:
+    """The cut of KB2 for full [b, cf, d, h, w] and half [b, cp,
+    (d-1)//2+1, ...]: tiles of SDW_CT channels of `full` and SDW_AT of
+    `half`, bricks of SDW_BRICK half positions, runs of SDW_MIN_BRICKS to
+    SDW_MAX_BRICKS bricks, so that the launch has about SDW_BLOCKS blocks
+    and at most GRID_MAX splits."""
+    return split_plan(b, cf, cp, (_half(d), _half(h), _half(w)), 27,
+                      SDW_BRICK, SDW_CT, SDW_AT, SDW_BLOCKS, SDW_MIN_BRICKS,
+                      SDW_MAX_BRICKS)
 
 
 def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
@@ -115,27 +132,25 @@ def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
     3^3, zero outside `full`), f32 [Cp, Cf, 3, 3, 3], or [B, Cp, Cf, 3, 3,
     3] per sample: full [B, Cf, D, H, W], half [B, Cp, (D-1)//2+1, ...].
     For the stride-2 conv (full = x, half = g) M is dW; the transposed conv
-    takes full = g, half = x. A CUDA tensor launches KB2 (bf16 only) or
-    raises; a CPU tensor takes the plain version."""
+    takes full = g, half = x. A CUDA tensor launches KB2 (bf16 only), cut
+    as `sdw_plan` says, or raises; a CPU tensor takes the plain version."""
     if not device_check("conv3d_strided_dw", full):
         return conv3d_strided_dw_plain(full, half, per_sample)
     _build.check_cuda_input("full", full, 5, full.device)
     _build.check_cuda_input("half", half, 5, full.device)
     b, cf, d, h, wd = full.shape
     cp = half.shape[1]
-    pshape = (_half(d), _half(h), _half(wd))
-    if half.shape[0] != b or tuple(half.shape[2:]) != pshape:
+    if half.shape[0] != b or tuple(half.shape[2:]) != (_half(d), _half(h), _half(wd)):
         raise ValueError(f"conv3d_strided_dw: half {tuple(half.shape)} is not "
                          f"the stride-2 grid of full {tuple(full.shape)}")
-    positions, n = pshape[0] * pshape[1] * pshape[2], cf * 27
-    kc = dw_split(b, positions, cp, n)
-    splits = b * -(-positions // kc)
-    ws = torch.empty(splits * cp * n, dtype=torch.float32, device=full.device)
+    plan = sdw_plan(b, cf, cp, d, h, wd)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=full.device)
     out = torch.empty(((b,) if per_sample else ()) + (cp, cf, 3, 3, 3),
                       dtype=torch.float32, device=full.device)
     _build.launch("strided_dw", "coma_conv3d_strided_dw", full.device,
                   full.data_ptr(), half.data_ptr(), ws.data_ptr(),
-                  out.data_ptr(), b, cf, cp, d, h, wd, int(per_sample), kc)
+                  out.data_ptr(), b, cf, cp, d, h, wd, int(per_sample),
+                  plan.ct, plan.at, *plan.brick, plan.bps)
     return out
 
 
