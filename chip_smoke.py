@@ -12,7 +12,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's, K2's, KB1's and KB2's, in
+              tensor-core kernels, K1's, K2's, K3's, KB1's and KB2's, in
               `cuobjdump -sass` of the library: each must have some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
@@ -32,11 +32,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               library: cuDNN's dgrad), K2 at up0's input-gradient shapes
               (`conv3d_s2_dx`: the cotangent through flip_t(w); library:
               PyTorch's stride-2 conv on flip_t(w)) and at odd sizes off the
-              path, KB2 also at odd sizes and channel counts off the path
-              (shared weights). K1, K2, KB1 and KB2 cases run twice and
-              must be bit-identical; each prints the cut `s1_plan`,
-              `s2_plan`, `dw_plan` or `sdw_plan` chose, and each KB2 case
-              its TFLOP/s and the share of its byte bound.
+              path, K3 at up0 (also at the 216^3 eval's b=2), at
+              down0.conv0's input-gradient shapes (`conv3d_t2_dx`: the
+              cotangent through flip_t(w); library: cuDNN's dgrad of the
+              stride-2 conv) and at odd sizes off the path, KB2 also at odd
+              sizes and channel counts off the path (shared weights). K1,
+              K2, K3, KB1 and KB2 cases run twice and must be bit-identical;
+              each prints the cut `s1_plan`, `s2_plan`, `t2_plan`,
+              `dw_plan` or `sdw_plan` chose, and each K3 and KB2 case its
+              TFLOP/s and the share of its byte bound.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -114,9 +118,10 @@ PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
 # the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu),
-# KB1 (csrc/conv3d_dw_tc.cu) and KB2 (csrc/conv3d_dw_s2_tc.cu)
-TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_dw_tc_kernel",
-              "conv3d_dw_s2_tc_kernel")
+# K3 (csrc/conv3d_t2_tc.cu), KB1 (csrc/conv3d_dw_tc.cu) and KB2
+# (csrc/conv3d_dw_s2_tc.cu)
+TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel",
+              "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -126,7 +131,7 @@ SOURCES = {
     "s2": ("conv3d_s2", "coma_unet_tpu_torch/csrc/conv3d_s2_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_strided.py:299 _s2_fwd_v2; "
            ":136 _s2_fwd_v1; phase_split.py:86 pallas_hwsplit"),
-    "t2": ("conv3d_t2", "coma_unet_tpu_torch/csrc/conv3d_strided.cu",
+    "t2": ("conv3d_t2", "coma_unet_tpu_torch/csrc/conv3d_t2_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_strided.py:444 _t2_fwd_v1; "
            ":730 _t2_fwd_v2"),
     "norm_act": ("norm_act", "coma_unet_tpu_torch/csrc/norm_act.cu",
@@ -145,9 +150,10 @@ SOURCES = {
                     "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
 }
 # kernels whose device time the profile prints by name, in or below its top
-# 8: K2, KB2, K1's (and K2's) weight packing and KB1/KB2's split-K sum
-SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_dw_s2_tc_kernel", "s1_pack_weights",
-                 "dw_reduce_kernel")
+# 8: K2, K3, KB2, K1's (and K2's and K3's) weight packing and KB1/KB2's
+# split-K sum
+SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel", "conv3d_dw_s2_tc_kernel",
+                 "s1_pack_weights", "dw_reduce_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -243,9 +249,9 @@ def _kernel_cases():
     """(family, site, input shape, weight shape or None, extra, entry) at
     the shapes of the 128^3 b=2 serving forward and train step and of the
     216^3 b=1 template-space path; `entry` names a standalone entry point
-    (`instance_norm`, `conv3d_w64`, `hsplit`), is "dx" for K1 or K2 as an
-    input gradient (input: the cotangent; weights: the forward layer's), or
-    is None for the family's own wrapper."""
+    (`instance_norm`, `conv3d_w64`, `hsplit`), is "dx" for K1, K2 or K3 as
+    an input gradient (input: the cotangent; weights: the forward layer's),
+    or is None for the family's own wrapper."""
     v0, v1 = (128,) * 3, (64,) * 3
     t0, t1 = (216,) * 3, (108,) * 3
     s1 = [  # (site, batch, Cin, Cout, k, per_sample, spatial)
@@ -295,6 +301,18 @@ def _kernel_cases():
                   None))
     cases.append(("t2", "up0", (2, 64) + v1, (32, 64, 3, 3, 3), True, None))
     cases.append(("t2", "216 up0", (1, 64) + t1, (32, 64, 3, 3, 3), True, None))
+    cases.append(("t2", "216 b=2 up0 (eval)", (2, 64) + t1, (32, 64, 3, 3, 3), True, None))
+    # K3 as down0.conv0's input gradient (Conv3dS2.backward: the cotangent
+    # [B, 64, ...] through flip_t of down0.conv0's per-sample [B, 64, 32,
+    # 3^3], 64 -> 32), and odd sizes off the path, whose masks, scalar loads,
+    # 4-byte stores, zero-padded chunk and ragged second output-channel tile
+    # it exercises
+    cases.append(("t2", "down0.conv0 dx 64->32", (2, 64) + v1, (64, 32, 3, 3, 3), True,
+                  "dx"))
+    cases.append(("t2", "216 down0.conv0 dx 64->32", (1, 64) + t1, (64, 32, 3, 3, 3), True,
+                  "dx"))
+    cases.append(("t2", "odd sizes 24->40", (2, 24, 13, 9, 23), (40, 24, 3, 3, 3), True,
+                  None))
     # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]; the path's
     # sites, and two off the path whose odd W takes the scalar loads and
     # whose channel counts pad both channel tiles
@@ -361,7 +379,12 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         flip_t,
         s1_plan,
     )
-    from coma_unet_tpu_torch.ops.conv3d_strided import conv3d_s2_dx, s2_plan
+    from coma_unet_tpu_torch.ops.conv3d_strided import (
+        conv3d_s2_dx,
+        conv3d_t2_dx,
+        s2_plan,
+        t2_plan,
+    )
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -436,6 +459,10 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     elif entry == "dx" and family == "s2":  # the stride-2 conv of g on flip_t(wf)
         wf, w, bias = w, flip_t(w), None
         call = lambda: conv3d_s2_dx(x, wf)  # noqa: E731
+    elif entry == "dx" and family == "t2":  # the transposed conv of g on flip_t(wf)
+        wf, w, bias = w, flip_t(w), None
+        call = lambda: conv3d_t2_dx(x, wf)  # noqa: E731
+        library = lambda: _conv3d_input_ref(wf, x, stride=2)  # noqa: E731  (cuDNN's dgrad)
     elif entry == "dx":  # x is the cotangent, wf the forward weights
         wf, w, bias = w, flip_t(w), None
         call = lambda: conv3d_s1_dx(x, wf)  # noqa: E731
@@ -456,21 +483,24 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                                bool(extra))
     elif family == "s2":
         case["plan"] = s2_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], bool(extra))
+    else:
+        case["plan"] = t2_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], bool(extra))
     return case
 
 
-def _conv3d_input_ref(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The input gradient of the stride-1 SAME conv with weights w (shared
-    or per sample) for the output cotangent g, through PyTorch's built-in
-    (cuDNN's dgrad)."""
+def _conv3d_input_ref(w: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The input gradient of the SAME conv of stride 1 or 2 with weights w
+    (shared or per sample) for the output cotangent g, to an input of
+    stride x g's size, through PyTorch's built-in (cuDNN's dgrad)."""
     k = w.shape[-1]
+    size = tuple(stride * n for n in g.shape[2:])
     if w.dim() == 6:
         b, co, ci = w.shape[:3]
         dx = torch.nn.grad.conv3d_input(
-            (1, b * ci) + tuple(g.shape[2:]), w.reshape((b * co, ci) + w.shape[3:]),
-            g.reshape((1, b * co) + g.shape[2:]), padding=k // 2, groups=b)
-        return dx.reshape((b, ci) + g.shape[2:])
-    return torch.nn.grad.conv3d_input((g.shape[0], w.shape[1]) + tuple(g.shape[2:]), w, g,
+            (1, b * ci) + size, w.reshape((b * co, ci) + w.shape[3:]),
+            g.reshape((1, b * co) + g.shape[2:]), stride=stride, padding=k // 2, groups=b)
+        return dx.reshape((b, ci) + size)
+    return torch.nn.grad.conv3d_input((g.shape[0], w.shape[1]) + size, w, g, stride=stride,
                                       padding=k // 2)
 
 
@@ -486,8 +516,9 @@ def bound_ms(ops_count: float, rate: float, nbytes: int):
 
 
 def _conv_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
-    """K1 or K2 at one site: a second call must be bit-identical to the
-    first. Returns a line with the cut `s1_plan` or `s2_plan` chose."""
+    """K1, K2 or K3 at one site: a second call must be bit-identical to the
+    first. Returns a line with the cut `s1_plan`, `s2_plan` or `t2_plan`
+    chose."""
     again = case["kernel"]()
     check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
@@ -542,8 +573,9 @@ def phase_kernels(summary: dict) -> None:
             if family in ("s1_dw", "strided_dw"):
                 note = _dw_checks(case, got[0], {"s1_dw": "KB1", "strided_dw": "KB2"}[family],
                                   site)
-            elif family in ("s1", "s2"):
-                note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2"}[family], site)
+            elif family in ("s1", "s2", "t2"):
+                note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2", "t2": "K3"}[family],
+                                    site)
             ms = median_ms(case["kernel"])
             plain_ms = median_ms(case["plain"])
             library = case["library"]
@@ -551,7 +583,7 @@ def phase_kernels(summary: dict) -> None:
                       else median_ms(library) if library else None)
         nbytes = _nbytes(case["inputs"]) + _nbytes(got)
         b_ms, b_by = bound_ms(case["ops"], case["rate"], nbytes)
-        if family == "strided_dw":
+        if family in ("t2", "strided_dw"):
             note += (f"; {case['ops'] / ms / 1e9:.1f} TFLOP/s, "
                      f"{1e3 * nbytes / HBM_BYTES / ms:.1%} of its byte bound")
         del got, ref, case

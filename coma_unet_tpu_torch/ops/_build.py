@@ -52,7 +52,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "coma_conv3d_s1_tc": [_P] * 5 + [_I] * 15 + [_P],
     "coma_conv3d_s2_tc": [_P] * 5 + [_I] * 14 + [_P],
-    "coma_conv3d_t2": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "coma_conv3d_t2": [_P] * 5 + [_I] * 14 + [_P],
     "coma_norm_act": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "coma_conv3d_s1_dw": [_P] * 4 + [_I] * 14 + [_P],
     "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 13 + [_P],

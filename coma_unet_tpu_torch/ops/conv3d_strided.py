@@ -1,7 +1,7 @@
 """Stride-2 3-D convolutions between the 128^3 and 64^3 levels: kernels K2
 (stride-2 SAME conv, and the transposed conv's input gradient) and K3 (the
-transposed conv), KB2 (the weight gradient of both), with their plain
-versions.
+transposed conv, and the stride-2 conv's input gradient), KB2 (the weight
+gradient of both), with their plain versions.
 
 Counterpart of `coma_unet_tpu/ops/pallas/conv3d_strided.py` (`_s2_fwd`,
 `_t2_fwd`) and `phase_split.py` (`pallas_hwsplit`, the parity prepass that
@@ -15,7 +15,12 @@ implicit GEMM (`mma.sync` per tap, 16-channel chunks of Cin, W packed by
 K1's packing) over bricks of 2 x 4 x 16 output positions whose stride-2
 halo box is staged split by parity, cut as `s2_plan` says. As the
 transposed conv's input gradient (`conv3d_s2_dx`) it reads `flip_t(w)`
-from w in place. K3 is in `csrc/conv3d_strided.cu`.
+from w in place. K3 (`csrc/conv3d_t2_tc.cu`) is one tensor-core kernel for
+every call: K1's implicit GEMM over bricks of 2 x 4 x 16 input positions,
+each owning its 2 x 2 x 2 output cube, whose 8 parity classes take the 27
+taps from 8 input offsets of a high-side halo box, cut as `t2_plan` says.
+As the stride-2 conv's input gradient (`conv3d_t2_dx`) it reads `flip_t(w)`
+from w in place.
 KB2 (`csrc/conv3d_dw_s2_tc.cu`) is one tensor-core kernel for every call:
 KB1's per-tap GEMM over positions (`mma.sync`, split-K summed in a fixed
 order) on K2's parity-split halo box, over bricks of 2 x 4 x 16
@@ -165,12 +170,13 @@ S2_BLOCKS = 132         # blocks a launch aims for: one a streaming multiprocess
 
 
 class S2Plan(NamedTuple):
-    """How one K2 call is cut. A block owns `at` output channels of one
-    sample and walks bricks of `brick` output positions (d, h, w), staging
-    Cin `ct` channels at a time. `grid` is the launch grid: blocks along the
-    `bricks` bricks of a sample (block x walks bricks x, x + grid[0], ...),
-    output-channel tiles, samples. `wpack` is the bf16 length of the packed
-    weights."""
+    """How one K2 or K3 call is cut. A block owns `at` output channels of
+    one sample and walks bricks of `brick` positions (d, h, w) -- K2's
+    output positions, K3's input positions, each with its 2 x 2 x 2 output
+    cube -- staging Cin `ct` channels at a time. `grid` is the launch grid:
+    blocks along the `bricks` bricks of a sample (block x walks bricks x,
+    x + grid[0], ...), output-channel tiles, samples. `wpack` is the bf16
+    length of the packed weights."""
     brick: Tuple[int, int, int]
     ct: int
     at: int
@@ -218,20 +224,63 @@ def _k2(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     return y
 
 
-def _k3(x: torch.Tensor, w: torch.Tensor,
-        bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """K3 on a CUDA tensor, the plain version on a CPU tensor."""
+# K3 (csrc/conv3d_t2_tc.cu): a block owns T2_AT output channels of one
+# sample and walks bricks of T2_BRICK input positions, each in chunks of
+# T2_CT input channels, with the f32 sums of the brick's 8 parity classes in
+# registers (128 a thread).
+T2_BRICK = (2, 4, 16)   # (bd, bh, bw) input positions; bw is one m16 tile of mma
+T2_CT = 16              # input channels per chunk: one k16 step
+T2_AT = 32              # output channels per block (narrower layers pad with
+                        # zeros, wider ones take tiles)
+T2_BLOCKS = 132         # blocks a launch aims for: one a streaming multiprocessor
+                        # of the H100 (202,560 bytes of shared memory each)
+
+
+def t2_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
+            per_sample: bool = False) -> S2Plan:
+    """The cut of K3 for x [b, cin, d, h, w] (any sizes; the output is
+    [b, cout, 2d, 2h, 2w]) and 3^3 weights to `cout` channels (per sample or
+    shared): chunks of T2_CT input channels, tiles of T2_AT output
+    channels, bricks of T2_BRICK input positions, and about T2_BLOCKS blocks
+    in all, at least one per sample and output-channel tile and at most one
+    per brick."""
+    at = T2_AT
+    bd, bh, bw = T2_BRICK
+    bricks = _cdiv(d, bd) * _cdiv(h, bh) * _cdiv(w, bw)
+    tiles = _cdiv(cout, at)
+    gx = min(bricks, _cdiv(T2_BLOCKS, tiles * b))
+    wpack = (b if per_sample else 1) * tiles * _cdiv(cin, T2_CT) * 27 * at * T2_CT
+    return S2Plan(T2_BRICK, T2_CT, at, bricks, (gx, tiles, b), wpack)
+
+
+def _k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+        flip: bool = False) -> torch.Tensor:
+    """K3 on a CUDA tensor, cut as `t2_plan` says; the plain version on a
+    CPU tensor. `flip` convolves with `flip_t(w)` (the stride-2 conv's
+    input gradient), which the kernel's weight packing reads from w in
+    place."""
     if not device_check("conv3d_t2", x):
-        return conv3d_t2_plain(x, w, bias)
-    _, per_sample, bias32 = check_conv_args(x, w, bias, (3,))
+        return conv3d_t2_plain(x, flip_t(w) if flip else w, bias)
+    _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
-    cout = w.shape[-5]
+    cout = w.shape[-4] if flip else w.shape[-5]
+    plan = t2_plan(b, cin, cout, d, h, wd, per_sample)
     y = torch.empty((b, cout, 2 * d, 2 * h, 2 * wd), dtype=x.dtype,
                     device=x.device)
+    wpack = torch.empty(plan.wpack, dtype=x.dtype, device=x.device)
     _build.launch("t2", "coma_conv3d_t2", x.device, x.data_ptr(),
-                  w.data_ptr(), _build.ptr(bias32), y.data_ptr(),
-                  b, cin, cout, d, h, wd, int(per_sample))
+                  w.data_ptr(), wpack.data_ptr(), _build.ptr(bias32),
+                  y.data_ptr(), b, cin, cout, d, h, wd, int(per_sample),
+                  int(flip), *plan.brick, plan.ct, plan.at, plan.grid[0])
     return y
+
+
+def conv3d_t2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the stride-2 conv with weights w (shared or per
+    sample) for the output cotangent g: the transposed conv of g with
+    `flip_t(w)`, K3 on a CUDA tensor (its weight packing reads w flipped in
+    place) or the plain version on a CPU tensor."""
+    return _k3(g, w, None, flip=True)
 
 
 def conv3d_s2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -252,7 +301,8 @@ def _input_grad(dx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 class Conv3dS2(torch.autograd.Function):
     """Stride-2 conv; backward as `conv3d_strided.py:_s2_vjp_bwd`: dx is K3
-    on g with `flip_t(w)`, dW is KB2 (full = x, half = g)."""
+    on g with `flip_t(w)` (`conv3d_t2_dx`), dW is KB2 (full = x, half =
+    g)."""
 
     @staticmethod
     def forward(ctx, x, w, bias):
@@ -265,7 +315,7 @@ class Conv3dS2(torch.autograd.Function):
         gx = g.to(x.dtype).contiguous()
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
-            dx = _input_grad(_k3(gx, flip_t(w), None), x)
+            dx = _input_grad(conv3d_t2_dx(gx, w), x)
         if ctx.needs_input_grad[1]:
             dw = conv3d_strided_dw(x, gx, w.dim() == 6).to(w.dtype)
         if ctx.needs_input_grad[2]:
@@ -303,8 +353,8 @@ def conv3d_s2(x: torch.Tensor, w: torch.Tensor,
     """Stride-2 SAME k=3 conv (padding 1/1): [B, Cin, D, H, W] ->
     [B, Cout, (D-1)//2+1, (H-1)//2+1, (W-1)//2+1], differentiable in x, w
     and bias. A CUDA tensor launches K2 (bf16 only, cut as `s2_plan` says;
-    K3 and KB2 in the backward) or raises; a CPU tensor takes the plain
-    versions."""
+    K3 as `conv3d_t2_dx` and KB2 in the backward) or raises; a CPU tensor
+    takes the plain versions."""
     device_check("conv3d_s2", x)
     return Conv3dS2.apply(x, w, bias)
 
@@ -314,7 +364,7 @@ def conv3d_t2(x: torch.Tensor, w: torch.Tensor,
     """Transposed stride-2 k=3 conv, [B, Cin, D, H, W] -> [B, Cout, 2D, 2H,
     2W] (= ConvTranspose3d(padding=1, output_padding=1) with flipped,
     io-swapped weights), differentiable in x, w and bias. A CUDA tensor
-    launches K3 (bf16 only; K2 as `conv3d_s2_dx` and KB2 in the backward)
-    or raises; a CPU tensor takes the plain versions."""
+    launches K3 (bf16 only, cut as `t2_plan` says; K2 as `conv3d_s2_dx` and
+    KB2 in the backward) or raises; a CPU tensor takes the plain versions."""
     device_check("conv3d_t2", x)
     return Conv3dT2.apply(x, w, bias)
