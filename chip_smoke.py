@@ -36,11 +36,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               down0.conv0's input-gradient shapes (`conv3d_t2_dx`: the
               cotangent through flip_t(w); library: cuDNN's dgrad of the
               stride-2 conv) and at odd sizes off the path, KB2 also at odd
-              sizes and channel counts off the path (shared weights). K1,
-              K2, K3, KB1 and KB2 cases run twice and must be bit-identical;
-              each prints the cut `s1_plan`, `s2_plan`, `t2_plan`,
-              `dw_plan` or `sdw_plan` chose, and each K3 and KB2 case its
-              TFLOP/s and the share of its byte bound.
+              sizes and channel counts off the path (shared weights), K4 also
+              at the 216^3 eval's b=2 and K4 and KB3 at odd sizes off the
+              path (N % 8 = 6), also with x 2 bytes off 16 (the kernels'
+              2-byte loads). K1, K2, K3, KB1, KB2, K4 and KB3 cases run
+              twice and must be bit-identical; each prints the cut
+              `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
+              `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
+              share of its byte bound.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
@@ -150,10 +153,11 @@ SOURCES = {
                     "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
 }
 # kernels whose device time the profile prints by name, in or below its top
-# 8: K2, K3, KB2, K1's (and K2's and K3's) weight packing and KB1/KB2's
-# split-K sum
+# 8: K2, K3, KB2, K1's (and K2's and K3's) weight packing, KB1/KB2's
+# split-K sum, K4 and KB3
 SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel", "conv3d_dw_s2_tc_kernel",
-                 "s1_pack_weights", "dw_reduce_kernel")
+                 "s1_pack_weights", "dw_reduce_kernel", "norm_act_kernel",
+                 "norm_act_bwd_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -337,20 +341,28 @@ def _kernel_cases():
              ("gate0.psi", 2, 1, "none", False, v0),
              ("final_pred_head", 2, 1, "prelu", False, v0),
              ("down0.conv1", 2, 64, "relu", True, v1),
-             ("216 head.conv1", 1, 32, "relu", True, t0)]
-    for family in ("norm_act", "norm_act_bwd"):
-        cases += [(family, site, (b, c) + sp, None, (act, film), None)
-                  for site, b, c, act, film, sp in norms]
+             ("216 head.conv1", 1, 32, "relu", True, t0),
+             # off the path: N % 8 = 6, so rows start off 16 bytes; then x
+             # itself 2 bytes off 16, which takes the 2-byte loads everywhere
+             ("odd sizes", 2, 24, "prelu", True, (27, 18, 45)),
+             ("odd sizes, x 2 bytes off 16", 2, 24, "prelu", True, (27, 18, 45))]
+    eval_norm = [("216 b=2 head.conv1 (eval)", 2, 32, "relu", True, t0)]
+    for family, sites in (("norm_act", norms + eval_norm), ("norm_act_bwd", norms)):
+        cases += [(family, site, (b, c) + sp, None, (act, film, int("off 16" in site)), None)
+                  for site, b, c, act, film, sp in sites]
     cases += [("norm_act", f"instance_norm {act} 216", (1, 32) + t0, None,
-               (act, False), "instance_norm")
+               (act, False, 0), "instance_norm")
               for act in ("none", "relu", "leakyrelu")]
     cases.append(("phase_split", "hsplit 216", (1, 32) + t0, None, None, "hsplit"))
     return cases
 
 
-def _norm_inputs(xshape, act, film, gen, dev):
-    # a mean large against the spread exercises the shifted stats
-    x = (3.0 + torch.randn(xshape, generator=gen, device=dev)).bfloat16()
+def _norm_inputs(xshape, act, film, offset, gen, dev):
+    # a mean large against the spread exercises the shifted stats; x starts
+    # `offset` elements into its allocation
+    size = int(np.prod(xshape))
+    x = (3.0 + torch.randn(size + offset, generator=gen, device=dev)).bfloat16()
+    x = x[offset:].view(xshape)
     b, c = xshape[:2]
     alpha = torch.full((1,), 0.25, device=dev)
     scale = shift = None
@@ -394,10 +406,16 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         return dict(kernel=lambda: ops.hsplit(x), ref=lambda: ops.hsplit_plain(x),
                     plain=lambda: ops.hsplit_plain(x), library=None, inputs=(x,),
                     ops=0, rate=PEAK_F32)
+    if family in ("norm_act", "norm_act_bwd"):
+        from coma_unet_tpu_torch.ops.norm_act import na_plan
+
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = na_plan(xshape[0] * xshape[1], _voxels(xshape),
+                       2 if family == "norm_act" else 4, sms)
     if family == "norm_act":
         x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
         act = extra[0]
-        common = dict(inputs=(x,), ops=8 * x.numel(), rate=PEAK_F32)
+        common = dict(inputs=(x,), ops=8 * x.numel(), rate=PEAK_F32, plan=plan)
         if entry == "instance_norm":
             return dict(kernel=lambda: ops.instance_norm(x, act=act),
                         ref=lambda: ops.norm_act_plain(x.float(), None, act),
@@ -417,7 +435,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                     ref=lambda: ops.norm_act_bwd_plain(x.float(), g.float(), alpha, act,
                                                        scale, shift),
                     plain=lambda: ops.norm_act_bwd_plain(x, g, alpha, act, scale, shift),
-                    library=None, inputs=(x, g), ops=14 * x.numel(), rate=PEAK_F32)
+                    library=None, inputs=(x, g), ops=14 * x.numel(), rate=PEAK_F32,
+                    plan=plan)
     if family == "s1_dw":
         from coma_unet_tpu_torch.ops.conv3d import dw_plan
 
@@ -536,6 +555,19 @@ def _dw_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
             f"bricks/split={plan.bps} splits={plan.splits}; two calls bit-identical")
 
 
+def _norm_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
+    """K4 or KB3 at one site: a second call must be bit-identical to the
+    first in every output. Returns a line with the cut `na_plan` chose."""
+    again = case["kernel"]()
+    again = again if isinstance(again, tuple) else (again,)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(again, got)),
+          f"{kernel} {site}: two calls differ")
+    plan = case["plan"]
+    return (f"  {kernel} {site}: segs={plan.segs} rows/round={plan.rows_per_round} "
+            f"rounds={plan.rounds} seg={plan.seg} keep={plan.keep} grid={plan.grid} "
+            f"bulk={plan.bulk}; two calls bit-identical")
+
+
 def phase_kernels(summary: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -573,6 +605,9 @@ def phase_kernels(summary: dict) -> None:
             if family in ("s1_dw", "strided_dw"):
                 note = _dw_checks(case, got[0], {"s1_dw": "KB1", "strided_dw": "KB2"}[family],
                                   site)
+            elif family in ("norm_act", "norm_act_bwd"):
+                note = _norm_checks(case, got, {"norm_act": "K4", "norm_act_bwd": "KB3"}[family],
+                                    site)
             elif family in ("s1", "s2", "t2"):
                 note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2", "t2": "K3"}[family],
                                     site)

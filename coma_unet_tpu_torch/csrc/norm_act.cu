@@ -1,51 +1,65 @@
-// K4: instance norm + FiLM + activation, forward.
+// K4: instance norm + FiLM + activation, forward; KB3: its backward. Each
+// is one persistent kernel launch that reads every byte of x (and g) from
+// device memory once.
 //
 // x [B, C, D, H, W] bf16 is taken as B*C rows of N = D*H*W voxels. Per row
-// (b, c): mean and variance in f32 (eps inside the rsqrt), then
+// (b, c) the forward takes mean and variance in f32 (eps inside the rsqrt),
+// then
 //   u = scale[b, c] * (x - mean) * rsqrt(var + eps) + shift[b, c]
 //   y = act(u)   act: 0 none, 1 relu, 2 leakyrelu (slope 0.01), 3 prelu (alpha[0])
-// computed in f32 and stored as bf16. scale, shift and alpha are device
-// pointers and may be null (identity FiLM; alpha is read only for prelu).
+// in f32, stored as bf16, and keeps the row's (mean, rstd) in `stats` for
+// the backward. scale, shift and alpha are device pointers and may be null
+// (identity FiLM; alpha is read only for prelu). Replaces row #18 of the
+// kernel table in PERF.md (its forward half) and row #20:
+// coma_unet_tpu/ops/pallas/norm_act.py `_norm_act_fwd_impl` (`_stats_kernel`
+// then `_apply_kernel`) and instance_norm.py `pallas_instance_norm`.
 //
-// Replaces row #18 of the kernel table in PERF.md (its forward half):
-// coma_unet_tpu/ops/pallas/norm_act.py `_norm_act_fwd_impl`
-// (`_stats_kernel` then `_apply_kernel`). The TPU kernel carries one running
-// sum per (b, c) across its sequential grid and takes var = E[x^2] - mean^2,
-// which cancels badly in f32 over a 2M-voxel row whose mean is large against
-// its spread. Here blocks run in parallel, so the reduction is split:
-//   1. stats:    one block per (row, chunk of CHUNK voxels) sums x - s and
-//                (x - s)^2 with s the row's first voxel (a shift that keeps
-//                the sums small) and stores the chunk's (count, mean, M2);
-//   2. finalize: one thread per row merges its chunks with Chan's pairwise
-//                formula in f64 and stores (mean, rstd);
-//   3. apply:    one block per (row, chunk) normalizes, applies FiLM and the
-//                activation, and stores bf16.
-//
-// The forward leaves its per-row (mean, rstd) in `stats` for the backward.
-//
-// KB3: the backward of the same function, with the stats of the forward.
-// With yhat = (x - mean) * rstd, u = scale * yhat + shift, gt = g * act'(u)
-// and gy = gt * scale, per row:
+// The backward, with yhat = (x - mean) * rstd, u = scale * yhat + shift,
+// gt = g * act'(u) and gy = gt * scale, per row:
 //   dx     = rstd * (gy - sum(gy) / N - yhat * sum(gy * yhat) / N)
 //   dscale = sum(gt * yhat),  dshift = sum(gt),
 //   dalpha = sum over all rows of sum(g * min(u, 0))   (prelu's one slope)
 // act' is 1[u > 0] for relu, but 1 or 0.01 / alpha split at u >= 0 for
-// leakyrelu / prelu, as in the JAX package. Replaces row #19:
-// norm_act.py `_norm_act_bwd_impl` (`_bwd_reduce_kernel` then
-// `_bwd_apply_kernel`). Passes:
-//   1. bwd reduce:   one block per (row, chunk) stores the chunk's five f32
-//                    sums (sum gy, gy*yhat, g*min(u,0), gt*yhat, gt);
-//   2. bwd finalize: one thread per row adds its chunks in order in f64;
-//                    then one thread adds the rows' prelu sums in order;
-//   3. bwd apply:    one block per (row, chunk) stores dx in x's dtype.
-// Fixed orders throughout: the result is the same from run to run.
+// leakyrelu / prelu, as in the JAX package. Replaces row #19: norm_act.py
+// `_norm_act_bwd_impl` (`_bwd_reduce_kernel` then `_bwd_apply_kernel`).
 //
-// What bounds them on the H100: memory. The forward reads x twice and writes
-// y once (6 bytes per voxel), the backward reads x and g twice and writes dx
-// once (10 bytes per voxel), with a few flops per voxel; rows of 2M voxels
-// give thousands of blocks. Threads move 8 bf16 (16 bytes) per load and
-// store when N % 8 == 0, else one voxel at a time. Element offsets are
-// 64-bit.
+// What bounds them on the H100: memory. The forward must read x and write
+// y (4 bytes a voxel), the backward read x and g and write dx (6 bytes),
+// with a few flops a voxel. Both need a whole row's sums before they can
+// write a voxel, and a row of the 216^3 path is 20 MB. So the grid is
+// persistent and co-resident (cudaLaunchCooperativeKernel), about one CTA
+// an SM, cut by ops/norm_act.py:na_plan: each row is split into `segs`
+// segments on distinct CTAs, `per_round` rows a round. Per round a CTA
+//   1. has its segment copied into shared memory, in chunks of CHUNK
+//      16-byte groups, each completing on its own mbarrier (the bulk copy
+//      engine, cp.async.bulk, when every segment starts and ends on 16
+//      bytes; otherwise 16-byte loads, and 2-byte loads at a ragged edge);
+//   2. computes its partial as the chunks land: for K4 (count, mean, M2) of
+//      x - s, s the row's first voxel (a shift that keeps the f32 sums
+//      small when the mean is large against the spread); for KB3 the five
+//      sums (gy, gy * yhat, g * min(u, 0), gt * yhat, gt);
+//   3. publishes it (an add with release order on the row's counter) and
+//      waits, with acquire order, until all the row's segments have;
+//   4. merges the row's partials in f64 in a fixed order (Chan's formula in
+//      closed form for K4: mean = sum n_i m_i / N, M2 = sum M2_i + n_i
+//      (m_i - mean)^2; plain sums for KB3): every CTA of the row does it
+//      itself (the partials read by as many threads, then added by one
+//      warp) and gets the same bits, and segment 0 stores the row's (mean,
+//      rstd), for KB3 its five sums;
+//   5. applies from shared memory and stores bf16 in 16-byte vectors;
+//   6. issues the next round's copy of each chunk as soon as this round has
+//      consumed it, so that one round's stores overlap the next one's loads.
+// What does not fit is read from device memory where it is needed: KB3
+// keeps g's segment first and as much of x's as fits, and reads the rest of
+// x again in step 5, just after step 2 read it (most of it from the 50 MB
+// L2). One code path, with no limit on N or the rows. dalpha: the last CTA
+// to store its row's sums (one more counter) adds the rows' third sums in
+// row order in f64. No float atomics: two calls give the same bits. The C
+// entry zeroes the counters before the launch. Element offsets are 64-bit.
+//
+// Measured on the H100 (PERF.md): a round costs the row's bytes at
+// about 2.2-2.8 TB/s plus 4-6 us of meeting, in which the device's memory
+// idles; at 216^3 a row fills the grid, so every round pays it.
 #include "common.cuh"
 
 namespace {
@@ -53,334 +67,539 @@ namespace {
 using coma::bf16;
 using coma::cdiv;
 
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[THREADS / 32], sb[THREADS / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < THREADS / 32 ? sa[lane] : 0.f;
-    b = lane < THREADS / 32 ? sb[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-norm_stats_kernel(const bf16* __restrict__ x, float* __restrict__ part, int64_t N,
-                  int64_t chunk, int vec) {
-  const int64_t row = blockIdx.y, nchunk = gridDim.x;
-  const bf16* xr = x + row * N;
-  const float s = __bfloat162float(xr[0]);
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  float s1 = 0.f, s2 = 0.f;
-  if (vec) {
-    for (int64_t i = start + 8 * threadIdx.x; i < end; i += 8 * THREADS) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float t = __bfloat162float(v[j]) - s;
-        s1 += t;
-        s2 = fmaf(t, t, s2);
-      }
-    }
-  } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += THREADS) {
-      const float t = __bfloat162float(xr[i]) - s;
-      s1 += t;
-      s2 = fmaf(t, t, s2);
-    }
-  }
-  block_sum2(s1, s2);
-  if (threadIdx.x == 0) {
-    const float n = (float)(end - start);
-    float* p = part + (row * nchunk + blockIdx.x) * 3;
-    p[0] = n;
-    p[1] = s + s1 / n;
-    p[2] = fmaxf(s2 - s1 * (s1 / n), 0.f);
-  }
-}
-
-__global__ void norm_finalize_kernel(const float* __restrict__ part, float* __restrict__ stats,
-                                     int64_t rows, int64_t nchunk, float eps) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  double n = 0.0, mean = 0.0, m2 = 0.0;
-  for (int64_t c = 0; c < nchunk; ++c) {
-    const float* p = part + (row * nchunk + c) * 3;
-    const double nb = p[0], mb = p[1], m2b = p[2];
-    const double nn = n + nb, delta = mb - mean;
-    mean += delta * nb / nn;
-    m2 += m2b + delta * delta * n * nb / nn;
-    n = nn;
-  }
-  stats[2 * row] = (float)mean;
-  stats[2 * row + 1] = rsqrtf((float)(m2 / n) + eps);
-}
-
-__device__ __forceinline__ float activate(float u, int act, float alpha) {
-  switch (act) {
-    case 1: return fmaxf(u, 0.f);
-    case 2: return u >= 0.f ? u : 0.01f * u;
-    case 3: return u >= 0.f ? u : alpha * u;
-    default: return u;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-norm_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ stats,
-                  const float* __restrict__ scale, const float* __restrict__ shift,
-                  const float* __restrict__ alpha, bf16* __restrict__ y, int64_t N,
-                  int64_t chunk, int act, int vec) {
-  const int64_t row = blockIdx.y;
-  const float mean = stats[2 * row], rstd = stats[2 * row + 1];
-  const float sc = scale ? scale[row] : 1.f;
-  const float sh = shift ? shift[row] : 0.f;
-  const float a = (act == 3 && alpha) ? alpha[0] : 0.f;
-  const bf16* xr = x + row * N;
-  bf16* yr = y + row * N;
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  if (vec) {
-    for (int64_t i = start + 8 * threadIdx.x; i < end; i += 8 * THREADS) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
-      uint4 out;
-      bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float u = sc * ((__bfloat162float(v[j]) - mean) * rstd) + sh;
-        o[j] = __float2bfloat16(activate(u, act, a));
-      }
-      *reinterpret_cast<uint4*>(yr + i) = out;
-    }
-  } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += THREADS) {
-      const float u = sc * ((__bfloat162float(xr[i]) - mean) * rstd) + sh;
-      yr[i] = __float2bfloat16(activate(u, act, a));
-    }
-  }
-}
-
-// ------------------------------------------------------------------ KB3
-__device__ __forceinline__ float act_deriv(float u, int act, float alpha) {
-  switch (act) {
-    case 1: return u > 0.f ? 1.f : 0.f;
-    case 2: return u >= 0.f ? 1.f : 0.01f;
-    case 3: return u >= 0.f ? 1.f : alpha;
-    default: return 1.f;
-  }
-}
-
-struct RowParams {
-  float mean, rstd, sc, sh, a;
-};
-
-__device__ __forceinline__ RowParams row_params(const float* stats, const float* scale,
-                                                const float* shift, const float* alpha,
-                                                int64_t row, int act) {
-  return {stats[2 * row], stats[2 * row + 1], scale ? scale[row] : 1.f,
-          shift ? shift[row] : 0.f, (act == 3 && alpha) ? alpha[0] : 0.f};
-}
-
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 2048;              // 16-byte groups a chunk of one tensor (32 KB)
+constexpr int PER = CHUNK / THREADS;     // groups of a chunk a thread takes
+constexpr int MAX_SMEM = 223 * 1024;     // dynamic shared memory a CTA may keep
+constexpr int MAX_CHUNKS = (MAX_SMEM / 16 + CHUNK - 1) / CHUNK;
+constexpr int MAX_SEGS = 160;            // segments a row (at most one a CTA)
 constexpr int NSUM = 5;
 
-__device__ __forceinline__ void bwd_accumulate(float xv, float gv, const RowParams& rp, int act,
-                                               float* s) {
-  const float yhat = (xv - rp.mean) * rp.rstd;
-  const float u = rp.sc * yhat + rp.sh;
-  const float gt = gv * act_deriv(u, act, rp.a);
-  const float gy = gt * rp.sc;
-  s[0] += gy;
-  s[1] = fmaf(gy, yhat, s[1]);
-  s[2] = fmaf(gv, fminf(u, 0.f), s[2]);
-  s[3] = fmaf(gt, yhat, s[3]);
-  s[4] += gt;
+struct NaArgs {
+  const bf16* x;
+  const bf16* g;        // KB3: the cotangent of y
+  const float* scale;   // [rows] or null
+  const float* shift;   // [rows] or null
+  const float* alpha;   // [1], read for prelu
+  bf16* out;            // y (K4) or dx (KB3)
+  float* stats;         // [rows, 2] (mean, rstd): K4 writes them, KB3 reads them
+  float* sums;          // KB3: [rows, 5]
+  float* dalpha;        // KB3: [1]
+  float* part;          // [rows, segs, 3 (K4) or 5 (KB3)] partials
+  unsigned* count;      // [rows + 1] arrivals, zero at launch
+  int64_t rows, n, seg;
+  int segs, per_round, keep_groups, bulk, vec;
+  float eps;
+};
+
+// One CTA's segment of one row, in the row's aligned coordinates (element
+// e of the row is element o + e there; o = (row * N) % 8 when the pointers
+// are 16-byte aligned, so groups of 8 are 16-byte vectors).
+struct Seg {
+  int64_t base;   // offset of the aligned row: row * N - o
+  int64_t lo, hi; // the segment: [o + e0, o + e1)
+  int64_t g0;     // its first 16-byte group
+  int groups;     // groups it touches
+  int kg, kx;     // groups of g and of x kept in shared memory
+};
+
+__device__ __forceinline__ Seg segment(const NaArgs& a, int64_t row, int sidx, bool two) {
+  const int64_t o = a.vec ? (row * a.n) & 7 : 0;
+  const int64_t e0 = sidx * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
+  Seg s;
+  s.base = row * a.n - o;
+  s.lo = o + e0;
+  s.hi = o + e1;
+  s.g0 = s.lo >> 3;
+  s.groups = (int)(((s.hi + 7) >> 3) - s.g0);
+  s.kg = two ? min(s.groups, a.keep_groups) : 0;
+  s.kx = min(s.groups, a.keep_groups - s.kg);
+  return s;
 }
 
-__global__ void __launch_bounds__(THREADS)
-norm_bwd_reduce_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                       const float* __restrict__ stats, const float* __restrict__ scale,
-                       const float* __restrict__ shift, const float* __restrict__ alpha,
-                       float* __restrict__ part, int64_t N, int64_t chunk, int act, int vec) {
-  __shared__ float red[NSUM][THREADS / 32];
-  const int64_t row = blockIdx.y, nchunk = gridDim.x;
-  const RowParams rp = row_params(stats, scale, shift, alpha, row, act);
-  const bf16* xr = x + row * N;
-  const bf16* gr = g + row * N;
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  float s[NSUM] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (vec) {
-    for (int64_t i = start + 8 * threadIdx.x; i < end; i += 8 * THREADS) {
-      const uint4 xraw = *reinterpret_cast<const uint4*>(xr + i);
-      const uint4 graw = *reinterpret_cast<const uint4*>(gr + i);
-      const bf16* xv = reinterpret_cast<const bf16*>(&xraw);
-      const bf16* gv = reinterpret_cast<const bf16*>(&graw);
+__device__ __forceinline__ bool whole(int64_t e, const Seg& s) {
+  return e >= s.lo && e + 8 <= s.hi;
+}
+
+// Group k of an aligned row: one 16-byte load when it lies inside the
+// segment (and the pointers allow it), else the elements inside, one at a
+// time, the rest 0.
+__device__ __forceinline__ uint4 load_group(const bf16* row, int64_t k, const Seg& s, int vec) {
+  const int64_t e = 8 * k;
+  if (vec && whole(e, s)) return *reinterpret_cast<const uint4*>(row + e);
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  bf16* pv = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        bwd_accumulate(__bfloat162float(xv[j]), __bfloat162float(gv[j]), rp, act, s);
-    }
-  } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += THREADS)
-      bwd_accumulate(__bfloat162float(xr[i]), __bfloat162float(gr[i]), rp, act, s);
+  for (int j = 0; j < 8; ++j)
+    if (e + j >= s.lo && e + j < s.hi) pv[j] = row[e + j];
+  return v;
+}
+
+__device__ __forceinline__ void store_group(bf16* row, int64_t k, const Seg& s, int vec,
+                                            const uint4& v) {
+  const int64_t e = 8 * k;
+  if (vec && whole(e, s)) {
+    *reinterpret_cast<uint4*>(row + e) = v;
+    return;
   }
+  const bf16* pv = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (e + j >= s.lo && e + j < s.hi) row[e + j] = pv[j];
+}
+
+__device__ __forceinline__ float bf(const uint4& v, int j) {
+  return __bfloat162float(reinterpret_cast<const bf16*>(&v)[j]);
+}
+
+// Calls f(j) for each element j of group k that lies in the segment.
+template <class F>
+__device__ __forceinline__ void for_each(int64_t k, const Seg& s, F&& f) {
+  const int64_t e = 8 * k;
+  if (whole(e, s)) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f(j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (e + j >= s.lo && e + j < s.hi) f(j);
+  }
+}
+
+// ----------------------------------------------------- copies and barriers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Chunk c of the segment (its kept groups of g and of x) into shared
+// memory, completing on bar. Issued by one thread.
+__device__ __forceinline__ void issue_chunk(uint32_t bar, const uint4* sg, const uint4* sx,
+                                            const bf16* gr, const bf16* xr, const Seg& s,
+                                            int c) {
+  const int k = c * CHUNK;
+  const int ng = max(0, min(CHUNK, s.kg - k)), nx = max(0, min(CHUNK, s.kx - k));
+  // the async proxy next writes what the generic proxy read
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(16 * (ng + nx))
+               : "memory");
+  if (ng > 0) bulk_copy(smem_u32(sg + k), gr + 8 * (s.g0 + k), 16 * ng, bar);
+  if (nx > 0) bulk_copy(smem_u32(sx + k), xr + 8 * (s.g0 + k), 16 * nx, bar);
+}
+
+// Thread 0: publish this CTA's partial (stored before) with release order
+// and wait, with acquire order, until the row's `target` segments have
+// published theirs.
+__device__ __forceinline__ void arrive_and_wait(unsigned* counter, unsigned target) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
+  unsigned seen;
+  while (true) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+    if (seen >= target) break;
+    __nanosleep(20);
+  }
+}
+
+// Sums v over the CTA in a fixed order; the totals land in thread 0.
+template <int K>
+__device__ __forceinline__ void block_total(float (&v)[K], float (*red)[WARPS]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
-  for (int j = 0; j < NSUM; ++j) {
+  for (int j = 0; j < K; ++j) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
-    if (lane == 0) red[j][warp] = s[j];
+    for (int o = 16; o > 0; o >>= 1) v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
+    if (lane == 0) red[j][warp] = v[j];
   }
   __syncthreads();
-  if (threadIdx.x < NSUM) {
-    float t = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) t += red[threadIdx.x][w];
-    part[(row * nchunk + blockIdx.x) * NSUM + threadIdx.x] = t;
-  }
-}
-
-__global__ void norm_bwd_finalize_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                                         int64_t rows, int64_t nchunk) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  double s[NSUM] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int64_t c = 0; c < nchunk; ++c)
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int j = 0; j < NSUM; ++j) s[j] += part[(row * nchunk + c) * NSUM + j];
-#pragma unroll
-  for (int j = 0; j < NSUM; ++j) sums[row * NSUM + j] = (float)s[j];
-}
-
-__global__ void norm_bwd_alpha_kernel(const float* __restrict__ sums, float* __restrict__ dalpha,
-                                      int64_t rows) {
-  double s = 0.0;
-  for (int64_t r = 0; r < rows; ++r) s += sums[r * NSUM + 2];
-  dalpha[0] = (float)s;
-}
-
-__device__ __forceinline__ float bwd_dx(float xv, float gv, const RowParams& rp, int act,
-                                        float m0, float m1) {
-  const float yhat = (xv - rp.mean) * rp.rstd;
-  const float u = rp.sc * yhat + rp.sh;
-  const float gy = gv * act_deriv(u, act, rp.a) * rp.sc;
-  return rp.rstd * (gy - m0 - yhat * m1);
-}
-
-__global__ void __launch_bounds__(THREADS)
-norm_bwd_apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                      const float* __restrict__ stats, const float* __restrict__ scale,
-                      const float* __restrict__ shift, const float* __restrict__ alpha,
-                      const float* __restrict__ sums, bf16* __restrict__ dx, int64_t N,
-                      int64_t chunk, int act, int vec) {
-  const int64_t row = blockIdx.y;
-  const RowParams rp = row_params(stats, scale, shift, alpha, row, act);
-  const float m0 = sums[row * NSUM] / (float)N, m1 = sums[row * NSUM + 1] / (float)N;
-  const bf16* xr = x + row * N;
-  const bf16* gr = g + row * N;
-  bf16* dr = dx + row * N;
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  if (vec) {
-    for (int64_t i = start + 8 * threadIdx.x; i < end; i += 8 * THREADS) {
-      const uint4 xraw = *reinterpret_cast<const uint4*>(xr + i);
-      const uint4 graw = *reinterpret_cast<const uint4*>(gr + i);
-      const bf16* xv = reinterpret_cast<const bf16*>(&xraw);
-      const bf16* gv = reinterpret_cast<const bf16*>(&graw);
-      uint4 out;
-      bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        o[j] = __float2bfloat16(
-            bwd_dx(__bfloat162float(xv[j]), __bfloat162float(gv[j]), rp, act, m0, m1));
-      *reinterpret_cast<uint4*>(dr + i) = out;
+    for (int j = 0; j < K; ++j) {
+      float t = 0.f;
+      for (int w = 0; w < WARPS; ++w) t += red[j][w];
+      v[j] = t;
     }
-  } else {
-    for (int64_t i = start + threadIdx.x; i < end; i += THREADS)
-      dr[i] = __float2bfloat16(
-          bwd_dx(__bfloat162float(xr[i]), __bfloat162float(gr[i]), rp, act, m0, m1));
   }
 }
+
+// The sum of v over a warp in a fixed order, in every lane.
+__device__ __forceinline__ double warp_total(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// ----------------------------------------------------------- arithmetic
+template <int ACT>
+__device__ __forceinline__ float activate(float u, float alpha) {
+  if constexpr (ACT == 1) return fmaxf(u, 0.f);
+  if constexpr (ACT == 2) return u >= 0.f ? u : 0.01f * u;
+  if constexpr (ACT == 3) return u >= 0.f ? u : alpha * u;
+  return u;
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_deriv(float u, float alpha) {
+  if constexpr (ACT == 1) return u > 0.f ? 1.f : 0.f;
+  if constexpr (ACT == 2) return u >= 0.f ? 1.f : 0.01f;
+  if constexpr (ACT == 3) return u >= 0.f ? 1.f : alpha;
+  return 1.f;
+}
+
+// ---------------------------------------------------------------- kernel
+// BWD false: K4; true: KB3.
+template <bool BWD, int ACT>
+__device__ __forceinline__ void run(const NaArgs& a) {
+  constexpr int NA = BWD ? NSUM : 2;  // f32 sums a thread carries
+  constexpr int NP = BWD ? NSUM : 3;  // floats a partial
+  extern __shared__ __align__(128) uint4 buf[];
+  __shared__ __align__(8) uint64_t bars[MAX_CHUNKS];
+  __shared__ float red[NA][WARPS];
+  __shared__ float rowp[2];  // K4: (mean, rstd); KB3: (sum gy / N, sum gy * yhat / N)
+  __shared__ float parts[MAX_SEGS * NP];  // the row's partials
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int slot = blockIdx.x / a.segs, sidx = blockIdx.x % a.segs;
+  int64_t row = slot;
+  if (row >= a.rows) return;
+
+  const auto bar = [&](int c) { return smem_u32(&bars[c]); };
+  Seg s = segment(a, row, sidx, BWD);
+  // with bulk copies every segment is whole groups from 0: the same layout
+  // every round
+  const int kept_chunks = cdiv(max(s.kg, s.kx), CHUNK);
+  if (a.bulk) {
+    if (tid == 0) {
+      for (int c = 0; c < kept_chunks; ++c) mbar_init(bar(c));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int c = 0; c < kept_chunks; ++c)
+        issue_chunk(bar(c), buf, buf + s.kg, a.g + s.base, a.x + s.base, s, c);
+    }
+    __syncthreads();
+  }
+  const float alpha = ACT == 3 ? a.alpha[0] : 0.f;
+  for (int r = 0; row < a.rows; ++r, row += a.per_round) {
+    s = segment(a, row, sidx, BWD);
+    if (!a.bulk) {  // stage this round's kept groups by loads
+      __syncthreads();  // the last round's reads of buf are done
+      for (int k = tid; k < s.kg; k += THREADS)
+        buf[k] = load_group(a.g + s.base, s.g0 + k, s, a.vec);
+      for (int k = tid; k < s.kx; k += THREADS)
+        buf[s.kg + k] = load_group(a.x + s.base, s.g0 + k, s, a.vec);
+      __syncthreads();
+    }
+    const uint4* const sg = buf;
+    const uint4* const sx = buf + s.kg;
+    const bf16* const xr = a.x + s.base;
+    const bf16* const gr = a.g + s.base;
+    bf16* const outr = a.out + s.base;
+    const float sc = a.scale ? a.scale[row] : 1.f, sh = a.shift ? a.shift[row] : 0.f;
+    float mean = 0.f, rstd = 0.f, shift0 = 0.f;
+    if constexpr (BWD) {
+      mean = a.stats[2 * row];
+      rstd = a.stats[2 * row + 1];
+    } else {
+      shift0 = __bfloat162float(a.x[row * a.n]);
+    }
+    const int chunks = cdiv(s.groups, CHUNK);
+    // a chunk's x for this thread, all loads first; g is read where it is used
+    const auto fetch = [&](int c, uint4 (&xv)[PER]) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int kl = c * CHUNK + i * THREADS + tid;
+        if (kl < s.groups) xv[i] = kl < s.kx ? sx[kl] : load_group(xr, s.g0 + kl, s, a.vec);
+      }
+    };
+    const auto gval = [&](int kl) {
+      return kl < s.kg ? sg[kl] : load_group(gr, s.g0 + kl, s, a.vec);
+    };
+
+    // 1. the segment's partial, chunk by chunk as the copies land
+    float acc[NA];
+#pragma unroll
+    for (int j = 0; j < NA; ++j) acc[j] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      if (a.bulk && c < kept_chunks)
+        while (!mbar_try_wait(bar(c), r & 1)) {
+        }
+      uint4 xv[PER];
+      fetch(c, xv);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int kl = c * CHUNK + i * THREADS + tid;
+        if (kl >= s.groups) continue;
+        if constexpr (BWD) {
+          const uint4 gv = gval(kl);
+          for_each(s.g0 + kl, s, [&](int j) {
+            const float yhat = (bf(xv[i], j) - mean) * rstd;
+            const float u = sc * yhat + sh;
+            const float gj = bf(gv, j);
+            const float gt = gj * act_deriv<ACT>(u, alpha);
+            const float gy = gt * sc;
+            acc[0] += gy;
+            acc[1] = fmaf(gy, yhat, acc[1]);
+            acc[2] = fmaf(gj, fminf(u, 0.f), acc[2]);
+            acc[3] = fmaf(gt, yhat, acc[3]);
+            acc[4] += gt;
+          });
+        } else {
+          for_each(s.g0 + kl, s, [&](int j) {
+            const float t = bf(xv[i], j) - shift0;
+            acc[0] += t;
+            acc[1] = fmaf(t, t, acc[1]);
+          });
+        }
+      }
+    }
+    block_total(acc, red);
+    float* const part = a.part + row * a.segs * NP;
+    if (tid == 0) {
+      float* p = part + sidx * NP;
+      if constexpr (BWD) {
+#pragma unroll
+        for (int j = 0; j < NSUM; ++j) p[j] = acc[j];
+      } else {
+        const float cnt = (float)(s.hi - s.lo), m = acc[0] / cnt;
+        p[0] = cnt;
+        p[1] = m;
+        p[2] = fmaxf(acc[1] - acc[0] * m, 0.f);
+      }
+      // 2. meet the row's other segments
+      if (a.segs > 1) arrive_and_wait(a.count + row, (unsigned)a.segs);
+    }
+    __syncthreads();
+
+    // 3. merge the row's partials in f64, the same way in every CTA of the
+    // row: one load each, by as many threads, then one warp adds them
+    if (tid < a.segs)
+#pragma unroll
+      for (int j = 0; j < NP; ++j) parts[tid * NP + j] = __ldcg(part + tid * NP + j);
+    __syncthreads();
+    if (warp == 0) {
+      const double nd = (double)a.n;
+      if constexpr (BWD) {
+        double t[NSUM];
+#pragma unroll
+        for (int j = 0; j < NSUM; ++j) t[j] = 0.0;
+        for (int i = lane; i < a.segs; i += 32)
+#pragma unroll
+          for (int j = 0; j < NSUM; ++j) t[j] += (double)parts[i * NP + j];
+#pragma unroll
+        for (int j = 0; j < NSUM; ++j) t[j] = warp_total(t[j]);
+        if (lane == 0) {
+          rowp[0] = (float)(t[0] / nd);
+          rowp[1] = (float)(t[1] / nd);
+          if (sidx == 0) {
+#pragma unroll
+            for (int j = 0; j < NSUM; ++j) a.sums[row * NSUM + j] = (float)t[j];
+            // the last row to finish adds the rows' prelu sums in row order
+            __threadfence();
+            if (atomicAdd(a.count + a.rows, 1u) == (unsigned)a.rows - 1u) {
+              __threadfence();
+              double da = 0.0;
+              for (int64_t q = 0; q < a.rows; ++q) da += (double)__ldcg(a.sums + q * NSUM + 2);
+              a.dalpha[0] = ACT == 3 ? (float)da : 0.f;
+            }
+          }
+        }
+      } else {
+        double sn = 0.0;
+        for (int i = lane; i < a.segs; i += 32)
+          sn += (double)parts[i * NP] * (double)parts[i * NP + 1];
+        const double mt = warp_total(sn) / nd;
+        double m2 = 0.0;
+        for (int i = lane; i < a.segs; i += 32) {
+          const double d = (double)parts[i * NP + 1] - mt;
+          m2 += (double)parts[i * NP + 2] + (double)parts[i * NP] * d * d;
+        }
+        m2 = warp_total(m2);
+        if (lane == 0) {
+          const float mu = (float)((double)shift0 + mt);
+          const float rs = rsqrtf((float)(m2 / nd) + a.eps);
+          rowp[0] = mu;
+          rowp[1] = rs;
+          if (sidx == 0) {
+            a.stats[2 * row] = mu;
+            a.stats[2 * row + 1] = rs;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const float p0 = rowp[0], p1 = rowp[1];
+
+    // 4. apply, handing each chunk to the next round's copy once consumed
+    const bool more = row + a.per_round < a.rows;
+    const int64_t next = (row + a.per_round) * a.n;  // bulk: o = 0
+    for (int c = 0; c < chunks; ++c) {
+      uint4 xv[PER];
+      fetch(c, xv);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int kl = c * CHUNK + i * THREADS + tid;
+        if (kl >= s.groups) continue;
+        uint4 ov = make_uint4(0u, 0u, 0u, 0u);
+        bf16* const o = reinterpret_cast<bf16*>(&ov);
+        if constexpr (BWD) {
+          const uint4 gv = gval(kl);
+          for_each(s.g0 + kl, s, [&](int j) {
+            const float yhat = (bf(xv[i], j) - mean) * rstd;
+            const float u = sc * yhat + sh;
+            const float gy = bf(gv, j) * act_deriv<ACT>(u, alpha) * sc;
+            o[j] = __float2bfloat16(rstd * (gy - p0 - yhat * p1));
+          });
+        } else {
+          for_each(s.g0 + kl, s, [&](int j) {
+            const float u = sc * ((bf(xv[i], j) - p0) * p1) + sh;
+            o[j] = __float2bfloat16(activate<ACT>(u, alpha));
+          });
+        }
+        store_group(outr, s.g0 + kl, s, a.vec, ov);
+      }
+      if (a.bulk && more && c < kept_chunks) {
+        __syncthreads();
+        if (tid == 0) issue_chunk(bar(c), buf, buf + s.kg, a.g + next, a.x + next, s, c);
+      }
+    }
+  }
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(THREADS, 1) norm_act_kernel(const NaArgs a) {
+  run<false, ACT>(a);
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(THREADS, 1) norm_act_bwd_kernel(const NaArgs a) {
+  run<true, ACT>(a);
+}
+
+template <bool BWD, int ACT>
+cudaError_t launch(const NaArgs& a, int64_t grid, int64_t smem, cudaStream_t stream) {
+  const void* kernel = BWD ? reinterpret_cast<const void*>(norm_act_bwd_kernel<ACT>)
+                           : reinterpret_cast<const void*>(norm_act_kernel<ACT>);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return attr;
+  void* args[] = {const_cast<NaArgs*>(&a)};
+  // every CTA must be resident: a CTA waits for its row's other segments
+  return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid), dim3(THREADS), args,
+                                     (size_t)smem, stream);
+}
+
+// Zeroes the counters, then launches the kernel.
+template <bool BWD>
+cudaError_t launch_act(const NaArgs& a, int64_t act, int64_t grid, int64_t smem,
+                       cudaStream_t stream) {
+  const cudaError_t err =
+      cudaMemsetAsync(a.count, 0, sizeof(unsigned) * (size_t)(a.rows + 1), stream);
+  if (err != cudaSuccess) return err;
+  switch (act) {
+    case 1: return launch<BWD, 1>(a, grid, smem, stream);
+    case 2: return launch<BWD, 2>(a, grid, smem, stream);
+    case 3: return launch<BWD, 3>(a, grid, smem, stream);
+    default: return launch<BWD, 0>(a, grid, smem, stream);
+  }
+}
+
+// Fills the cut of `a` from the plan and checks it; false if it does not
+// cover every row and voxel, or does not fit.
+bool set_plan(NaArgs& a, int64_t rows, int64_t n, int64_t act, int64_t segs, int64_t per_round,
+              int64_t rounds, int64_t seg, int64_t keep, int64_t grid, int64_t bulk,
+              int64_t smem) {
+  if (rows < 1 || n < 1 || act < 0 || act > 3 || segs < 1 || per_round < 1 || seg < 8 ||
+      seg % 8 != 0 || keep < 0 || keep % 8 != 0 || grid != segs * per_round || grid > (1 << 30) ||
+      (segs - 1) * seg >= n || segs * seg < n || segs > MAX_SEGS || per_round * rounds < rows ||
+      smem < 2 * keep || smem > MAX_SMEM)
+    return false;
+  a.rows = rows;
+  a.n = n;
+  a.seg = seg;
+  a.segs = (int)segs;
+  a.per_round = (int)per_round;
+  a.keep_groups = (int)(keep / 8);
+  a.bulk = (int)(bulk && a.vec);
+  return true;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// part holds rows * ceil(N / chunk) * 3 floats of scratch; stats receives
-// rows * 2 floats (mean, rstd); chunk must be a multiple of 8.
+// x, y [rows, n] bf16; scale, shift [rows] f32 or null; alpha [1] f32
+// (read for prelu only). stats receives [rows, 2] (mean, rstd). scratch:
+// rows * segs * 3 floats of partials, then rows + 1 32-bit counters, zeroed
+// here. The cut (segs .. smem) comes from ops/norm_act.py:na_plan.
 COMA_API int coma_norm_act(const void* x, const void* scale, const void* shift,
-                           const void* alpha, void* y, void* part, void* stats, int64_t rows,
-                           int64_t N, int64_t chunk, int64_t act, float eps, void* stream) {
-  if (rows > 65535 || chunk % 8 != 0 || act < 0 || act > 3) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t nchunk = cdiv(N, chunk);
-  const int vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const dim3 grid((unsigned)nchunk, (unsigned)rows);
-  const auto xp = static_cast<const bf16*>(x);
-  norm_stats_kernel<<<grid, THREADS, 0, s>>>(xp, static_cast<float*>(part), N, chunk, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  norm_finalize_kernel<<<(unsigned)cdiv(rows, 128), 128, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(stats), rows, nchunk, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  norm_apply_kernel<<<grid, THREADS, 0, s>>>(
-      xp, static_cast<const float*>(stats), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const float*>(alpha), static_cast<bf16*>(y), N,
-      chunk, (int)act, vec);
-  return cudaGetLastError();
+                           const void* alpha, void* y, void* stats, void* scratch, int64_t rows,
+                           int64_t n, int64_t act, int64_t segs, int64_t per_round,
+                           int64_t rounds, int64_t seg, int64_t keep, int64_t grid, int64_t bulk,
+                           int64_t smem, float eps, void* stream) {
+  NaArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<bf16*>(y);
+  a.stats = static_cast<float*>(stats);
+  a.vec = aligned16(x) && aligned16(y);
+  a.eps = eps;
+  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
+    return cudaErrorInvalidValue;
+  a.part = static_cast<float*>(scratch);
+  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * 3);
+  return launch_act<false>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
 }
 
-// x, g, dx [rows, N] bf16; stats [rows, 2] from coma_norm_act; scale, shift
-// [rows] f32 or null; alpha [1] f32 (read for prelu only). part holds
-// rows * ceil(N / chunk) * 5 floats of scratch; sums receives [rows, 5]
-// (sum gy, gy*yhat, g*min(u,0), gt*yhat = dscale, gt = dshift) and dalpha
-// [1] the prelu slope's gradient; chunk must be a multiple of 8.
+// x, g, dx [rows, n] bf16; stats [rows, 2] from coma_norm_act; scale, shift
+// [rows] f32 or null; alpha [1] f32 (read for prelu only). sums receives
+// [rows, 5] (sum gy, gy*yhat, g*min(u,0), gt*yhat = dscale, gt = dshift)
+// and dalpha [1] the prelu slope's gradient (0 for the other activations).
+// scratch: rows * segs * 5 floats of partials, then rows + 1 32-bit
+// counters, zeroed here. The cut (segs .. smem) comes from ops/norm_act.py:na_plan.
 COMA_API int coma_norm_act_bwd(const void* x, const void* g, const void* stats, const void* scale,
-                               const void* shift, const void* alpha, void* dx, void* part,
-                               void* sums, void* dalpha, int64_t rows, int64_t N, int64_t chunk,
-                               int64_t act, void* stream) {
-  if (rows > 65535 || chunk % 8 != 0 || act < 0 || act > 3) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t nchunk = cdiv(N, chunk);
-  const int vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  const dim3 grid((unsigned)nchunk, (unsigned)rows);
-  const auto xp = static_cast<const bf16*>(x);
-  const auto gp = static_cast<const bf16*>(g);
-  const auto st = static_cast<const float*>(stats);
-  const auto sc = static_cast<const float*>(scale);
-  const auto sh = static_cast<const float*>(shift);
-  const auto al = static_cast<const float*>(alpha);
-  norm_bwd_reduce_kernel<<<grid, THREADS, 0, s>>>(xp, gp, st, sc, sh, al,
-                                                  static_cast<float*>(part), N, chunk, (int)act, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  norm_bwd_finalize_kernel<<<(unsigned)cdiv(rows, 128), 128, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(sums), rows, nchunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  norm_bwd_alpha_kernel<<<1, 1, 0, s>>>(static_cast<const float*>(sums),
-                                        static_cast<float*>(dalpha), rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  norm_bwd_apply_kernel<<<grid, THREADS, 0, s>>>(xp, gp, st, sc, sh, al,
-                                                 static_cast<const float*>(sums),
-                                                 static_cast<bf16*>(dx), N, chunk, (int)act, vec);
-  return cudaGetLastError();
+                               const void* shift, const void* alpha, void* dx, void* sums,
+                               void* dalpha, void* scratch, int64_t rows, int64_t n, int64_t act,
+                               int64_t segs, int64_t per_round, int64_t rounds, int64_t seg,
+                               int64_t keep, int64_t grid, int64_t bulk, int64_t smem,
+                               void* stream) {
+  NaArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.g = static_cast<const bf16*>(g);
+  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<bf16*>(dx);
+  a.sums = static_cast<float*>(sums);
+  a.dalpha = static_cast<float*>(dalpha);
+  a.vec = aligned16(x) && aligned16(g) && aligned16(dx);
+  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
+    return cudaErrorInvalidValue;
+  a.part = static_cast<float*>(scratch);
+  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * NSUM);
+  return launch_act<true>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
 }

@@ -53,10 +53,10 @@ _SIGNATURES = {
     "coma_conv3d_s1_tc": [_P] * 5 + [_I] * 15 + [_P],
     "coma_conv3d_s2_tc": [_P] * 5 + [_I] * 14 + [_P],
     "coma_conv3d_t2": [_P] * 5 + [_I] * 14 + [_P],
-    "coma_norm_act": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+    "coma_norm_act": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _P],
     "coma_conv3d_s1_dw": [_P] * 4 + [_I] * 14 + [_P],
     "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 13 + [_P],
-    "coma_norm_act_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "coma_norm_act_bwd": [_P] * 10 + [_I] * 11 + [_P],
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
 }
 
@@ -158,10 +158,13 @@ def ptr(t) -> int | None:
 def launch(family: str, entry: str, device: torch.device, *args) -> None:
     """Call a C entry point on the current stream of `device` and count one
     launch of `family`; raise RuntimeError if it reports a CUDA error."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    lib = _lib if _lib is not None else library()
+    fn = getattr(lib, entry)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         msg = lib.coma_error_string(rc).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")

@@ -17,8 +17,9 @@ on a CPU tensor both directions run the plain versions.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,8 +27,73 @@ from coma_unet_tpu_torch.ops import _build
 
 ACTS = {"none": 0, "relu": 1, "leakyrelu": 2, "prelu": 3}
 LEAKY_SLOPE = 1e-2
-# voxels of one row per block of the stats and apply passes (multiple of 8)
-CHUNK = 16384
+# K4 and KB3 (csrc/norm_act.cu) run one persistent, co-resident grid: each
+# CTA takes one segment of a row a round, keeps it in shared memory, and
+# meets the row's other segments at a counter.
+NA_SMS = 132             # streaming multiprocessors of the H100 (the wrapper
+                         # passes the device's own count)
+NA_SMEM = 223 * 1024     # dynamic shared memory a CTA keeps data in
+NA_MIN_SEG = 4096        # a row is spread over more CTAs only down to this
+                         # many voxels a segment
+
+
+class NaPlan(NamedTuple):
+    """How one K4 or KB3 call is cut. Each row (b, c) of `n` voxels is split
+    into `segs` segments of `seg` voxels (a multiple of 8; the last one may
+    be shorter), each on its own CTA. A round takes `rows_per_round` rows,
+    so the grid is `rows_per_round * segs` CTAs and CTA i takes segment
+    i % segs of row r * rows_per_round + i // segs in round r, for `rounds`
+    rounds. A CTA keeps `keep` bf16 values of its segment in shared memory
+    (`smem` bytes): KB3 keeps g's first, then as much of x as fits, and
+    reads the rest again. `bulk`: every segment starts and ends on 16 bytes,
+    so it is copied by the bulk copy engine."""
+    segs: int
+    rows_per_round: int
+    rounds: int
+    seg: int
+    keep: int
+    grid: int
+    bulk: bool
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def na_plan(rows: int, n: int, kept_bytes_per_voxel: int, sms: int = NA_SMS,
+            smem_per_cta: int = NA_SMEM) -> NaPlan:
+    """The cut of K4 (`kept_bytes_per_voxel` 2: x) or KB3 (4: x and g) for
+    `rows` rows of `n` voxels on `sms` CTAs of `smem_per_cta` bytes: the
+    fewest segments a row that keep it whole in shared memory (at most one
+    a CTA), as many rows a round as the grid takes, the rounds balanced,
+    and each row then spread over as many CTAs as the round leaves, down to
+    NA_MIN_SEG voxels a segment. Rows whose N % 8 != 0 start off 16 bytes:
+    a segment may then touch one more 16-byte group, which the keep allows
+    for."""
+    tensors = kept_bytes_per_voxel // 2
+    groups = smem_per_cta // 16          # 16-byte groups a CTA can keep
+    ragged = n % 8 != 0
+
+    def cut(segs):
+        seg = 8 * _cdiv(_cdiv(n, segs), 8)
+        return seg, _cdiv(n, seg)
+
+    def fits(seg):
+        return tensors * (seg // 8 + ragged) <= groups
+
+    segs = next((s for s in range(1, sms + 1) if fits(cut(s)[0])), sms)
+    seg, segs = cut(segs)
+    per_round = min(rows, sms // segs)
+    rounds = _cdiv(rows, per_round)
+    per_round = _cdiv(rows, rounds)
+    spread = min(sms // per_round, max(segs, _cdiv(n, NA_MIN_SEG)))
+    if spread > segs:
+        seg, segs = cut(spread)
+    keep = 8 * min(groups, tensors * (seg // 8 + ragged))
+    return NaPlan(segs, per_round, rounds, seg, keep, per_round * segs,
+                  not ragged, 2 * keep)
 
 
 def apply_act(u: torch.Tensor, act: str,
@@ -112,7 +178,9 @@ def _f32_rows(name: str, t: Optional[torch.Tensor], n: int,
     if t.numel() != n or t.device != device:
         raise ValueError(f"{name}: need {n} values on {device}, got "
                          f"{tuple(t.shape)} on {t.device}")
-    return t.detach().float().contiguous()
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.float().contiguous()
+    return t
 
 
 def _rows(x: torch.Tensor):
@@ -120,19 +188,39 @@ def _rows(x: torch.Tensor):
     return b * c, math.prod(x.shape[2:])
 
 
+_SMS: dict = {}
+
+
+def _plan(x: torch.Tensor, kept_bytes_per_voxel: int) -> NaPlan:
+    """`na_plan` for x's rows on x's device (its own SM count, cached)."""
+    index = x.device.index
+    if index not in _SMS:
+        props = torch.cuda.get_device_properties(x.device)
+        _SMS[index] = props.multi_processor_count
+    return na_plan(*_rows(x), kept_bytes_per_voxel, _SMS[index])
+
+
+def _plan_args(plan: NaPlan):
+    return (plan.segs, plan.rows_per_round, plan.rounds, plan.seg, plan.keep,
+            plan.grid, int(plan.bulk), plan.smem)
+
+
 def _k4(x: torch.Tensor, alpha32, scale32, shift32, act: str, eps: float):
-    """K4: (y, stats [rows, 2] = per-row (mean, rstd))."""
+    """K4, one launch cut by `na_plan`: (y, stats [rows, 2] = per-row
+    (mean, rstd))."""
     _build.check_cuda_input("x", x, x.dim(), x.device)
     rows, n = _rows(x)
-    nchunk = -(-n // CHUNK)
-    part = torch.empty(rows * nchunk * 3, dtype=torch.float32,
-                       device=x.device)
+    plan = _plan(x, 2)
+    # the partials, then rows + 1 counters that the C entry zeroes
+    scratch = torch.empty(rows * plan.segs * 3 + rows + 1,
+                          dtype=torch.float32, device=x.device)
     stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     _build.launch("norm_act", "coma_norm_act", x.device, x.data_ptr(),
                   _build.ptr(scale32), _build.ptr(shift32),
-                  _build.ptr(alpha32), y.data_ptr(), part.data_ptr(),
-                  stats.data_ptr(), rows, n, CHUNK, ACTS[act], float(eps))
+                  _build.ptr(alpha32), y.data_ptr(), stats.data_ptr(),
+                  scratch.data_ptr(), rows, n, ACTS[act], *_plan_args(plan),
+                  float(eps))
     return y, stats
 
 
@@ -172,22 +260,23 @@ def norm_act_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"norm_act_bwd: g {tuple(g.shape)} and stats "
                          f"{tuple(stats.shape)} do not fit x {tuple(x.shape)}")
     _build.check_cuda_input("stats", stats, 2, x.device, torch.float32)
-    nchunk = -(-n // CHUNK)
-    part = torch.empty(rows * nchunk * 5, dtype=torch.float32,
-                       device=x.device)
-    sums = torch.empty((rows, 5), dtype=torch.float32, device=x.device)
-    dalpha = torch.empty(1, dtype=torch.float32, device=x.device)
+    plan = _plan(x, 4)
+    # the partials, then rows + 1 counters that the C entry zeroes
+    scratch = torch.empty(rows * plan.segs * 5 + rows + 1,
+                          dtype=torch.float32, device=x.device)
+    # rows [sum gy, gy * yhat, g * min(u, 0), dscale, dshift], then a row
+    # whose first value is dalpha (0 unless prelu)
+    sums = torch.empty((rows + 1, 5), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     _build.launch("norm_act_bwd", "coma_norm_act_bwd", x.device,
                   x.data_ptr(), g.data_ptr(), stats.data_ptr(),
                   _build.ptr(scale32), _build.ptr(shift32),
-                  _build.ptr(alpha32), dx.data_ptr(), part.data_ptr(),
-                  sums.data_ptr(), dalpha.data_ptr(), rows, n, CHUNK,
-                  ACTS[act])
+                  _build.ptr(alpha32), dx.data_ptr(), sums.data_ptr(),
+                  sums.data_ptr() + 20 * rows, scratch.data_ptr(), rows, n,
+                  ACTS[act], *_plan_args(plan))
     b, c = x.shape[:2]
-    if act != "prelu":
-        dalpha.zero_()
-    return dx, dalpha, sums[:, 3].reshape(b, c), sums[:, 4].reshape(b, c)
+    return (dx, sums[rows, :1], sums[:rows, 3].view(b, c),
+            sums[:rows, 4].view(b, c))
 
 
 class NormAct(torch.autograd.Function):
