@@ -85,8 +85,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               slice's main path: every kernel family of the path must launch
               there and no plain version may run on the GPU. Then the peak
               memory and a torch.profiler top-10 for one train step.
+  10. loop:   the slice's main path, through the CLI's `main([...])` in this
+              process: a synthetic cohort of 6 subjects at 128^3 with the 36
+              ROIs (`make_synthetic_cohort`, fold 4: 4 train / 2 test) and a
+              `--config` JSON with the default ModelConfig and LossConfig,
+              epochs 2, batch 2, validation and a checkpoint every epoch.
+              `train` must give finite losses, the 3 checkpoints, CSV columns
+              epoch_0 and epoch_1, 2 pred/gt NIfTI pairs per validation and
+              adapted ROI weights; `-resume_training` to epochs 3 must start at
+              epoch 2 from parameters bit-identical to the saved ones, the step
+              count going on 4 -> 6; `validate` from that run's epoch-2
+              checkpoint must print its epoch-2 CSV values within METRIC_TOL;
+              `infer` must write finite 128^3 volumes. Every kernel family of
+              the path must launch and no plain version may run on the GPU.
+              Prints the loop's median step beside phase 7's, the loader-wait
+              share, the epoch, checkpoint save and restore, validate and
+              infer wall times, the checkpoint's size, the peak memory and the
+              phase's seconds.
 The last two lines are a JSON summary of the kernels (`launches` from the
-template-space path, phase 9; `launches_by_path` for every path) and
+loop, phase 10; `launches_by_path` for every path) and
 {"ok": true, "device": {...}}. There is no CPU path.
 """
 
@@ -115,6 +132,7 @@ GRAD_FLOOR = 2e-2     # route's, GRAD_FLOOR): sound kernels read <= 1.14x over f
                       # and targets, half the batch left out of one KB1 call >= 1.44x
 METRIC_TOL = 1e-4     # |card - cpu f64| <= METRIC_TOL * |cpu f64| (+ 1e-6 of the key's max)
 DEVICE = "cuda"       # every phase runs on the card; there is no CPU path
+READINGS: dict = {}   # numbers one phase prints beside another's
 TRAIN_STEPS = 6
 TEMPLATE_STEPS = 4
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
@@ -915,7 +933,7 @@ def phase_training() -> dict:
     for family in ops.PATH_FAMILIES:
         check(launches.get(family, 0) > 0, f"{family}: no kernel launch in training")
     check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
-    med = statistics.median(step_ms[1:])
+    med = READINGS["train_step_ms"] = statistics.median(step_ms[1:])
     print(f"train step b=2 128^3: median {med:.2f} ms over steps 2-{TRAIN_STEPS} "
           f"({med / 2:.2f} ms/volume); all steps ms {[round(t, 2) for t in step_ms]}; "
           f"peak memory {peak:.2f} GiB")
@@ -1105,6 +1123,215 @@ def phase_template() -> dict:
     return launches
 
 
+def _cli(argv, peaks: dict) -> tuple:
+    """The CLI's `main(argv)` in this process, as if in its own: (return
+    code, standard output, seconds), the output echoed; its peak device
+    memory goes into `peaks` under the command's name, and what it left
+    behind is collected before the next."""
+    import contextlib
+    import gc
+    import io
+
+    from coma_unet_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    name = argv[0] + (" (resume)" if "-resume_training" in argv else "")
+    peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(out.getvalue(), end="")
+    return rc, out.getvalue(), seconds
+
+
+def phase_loop() -> dict:
+    """The slice's main path: train, resume, validate and infer through the
+    CLI on a synthetic 128^3 cohort, the flagship at full width."""
+    import gc
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    from coma_unet_tpu_torch import ExperimentConfig, ROI_INDICES, TrainConfig
+    from coma_unet_tpu_torch import ops
+    from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort
+    from coma_unet_tpu_torch.data.table import read_csv, write_rows
+    from coma_unet_tpu_torch.io import load_nifti_vol
+    from coma_unet_tpu_torch.models.contra import ContraAttnUNet
+    from coma_unet_tpu_torch.train import create_train_state
+    from coma_unet_tpu_torch.train import loop
+    from coma_unet_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="coma_loop_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        print(f"loop: temp dir {tmp}, {free_gb:.1f} GB free; pandas "
+              f"{'present' if importlib.util.find_spec('pandas') else 'absent'}, "
+              f"matplotlib "
+              f"{'present' if importlib.util.find_spec('matplotlib') else 'absent'}")
+        t0 = time.perf_counter()
+        cohort = make_synthetic_cohort(os.path.join(tmp, "cohort"), n_subjects=6,
+                                       size=128, num_rois=len(ROI_INDICES))
+        rows = read_csv(cohort["lookup"]).rows()
+        splits = os.path.join(tmp, "splits")
+        os.makedirs(splits)
+        test_csv = os.path.join(splits, "test_lookup_4.csv")
+        write_rows(os.path.join(splits, "training_lookup_4.csv"), rows[:4])
+        write_rows(test_csv, rows[4:])
+        cohort_s = time.perf_counter() - t0
+
+        def config_file(epochs):
+            cfg = ExperimentConfig(train=TrainConfig(epochs=epochs, batch_size=2,
+                                                     val_iter=1, checkpoint_iter=1),
+                                   save_path=os.path.join(tmp, "results"))
+            path = os.path.join(tmp, f"config_{epochs}.json")
+            with open(path, "w") as f:
+                f.write(cfg.to_json())
+            return path
+
+        tables = ["--covariate_csv", cohort["cov"], "--quartile_csv", cohort["quart"],
+                  "--predictions_json", cohort["preds"]]
+        peaks: dict = {}
+
+        # the main path: counts from 0 before train, read after infer
+        ops.reset_counts()
+        rc, _, train_s = _cli(["train", "--config", config_file(2), "--splits_dir",
+                               splits, "--fold", "4"] + tables, peaks)
+        check(rc == 0, f"loop: train returned {rc}")
+        run1 = dict(loop.LAST_RUN)
+        train_launches = dict(ops.LAUNCHES)
+        (run_name,) = os.listdir(os.path.join(tmp, "results"))
+        run = os.path.join(tmp, "results", run_name)
+        ckpts = os.path.join(run, "checkpoints")
+        names = sorted(os.listdir(ckpts))
+        check(names == ["checkpoint_epoch_0", "checkpoint_epoch_1",
+                        "checkpoint_latest_epoch"], f"loop: checkpoints {names}")
+        losses = [v for e in run1["epochs"] for v in e["losses"]]
+        check(len(losses) == 4 and all(np.isfinite(losses)),
+              f"loop: losses {losses}")
+        for name in ("mae", "mape", "roi_mapes", "roi_corr"):
+            cols = read_csv(os.path.join(run, "validation_metric_results",
+                                         f"{name}.csv")).columns
+            check(cols == ["epoch_0", "epoch_1"], f"loop: {name}.csv columns {cols}")
+        for epoch in (0, 1):
+            files = os.listdir(os.path.join(run, f"{epoch}_output_samples"))
+            for kind in ("_pred.nii", "_gt.nii"):
+                check(sum(f.endswith(kind) for f in files) == 2,
+                      f"loop: epoch {epoch} samples {sorted(files)}")
+        latest = os.path.join(ckpts, "checkpoint_latest_epoch")
+        saved = load_checkpoint(latest)
+        weights = saved["roi_weights"]
+        check(saved["step"] == 4 and saved["epoch"] == 1,
+              f"loop: step {saved['step']}, epoch {saved['epoch']}")
+        check(bool(torch.isfinite(weights).all()) and float(weights.std()) > 0
+              and not bool((weights == 225.0).any()),
+              f"loop: ROI weights not adapted: {weights}")
+        ckpt_mb = os.path.getsize(latest) / 1e6
+
+        # restore: the checkpoint's parameters, bit for bit
+        cfg2 = ExperimentConfig.from_json(open(config_file(2)).read()).normalized()
+        model = ContraAttnUNet(cfg2.model, device=DEVICE)
+        t0 = time.perf_counter()
+        state, epoch, _ = CheckpointManager(run).restore(
+            create_train_state(model, cfg2.train.lr), latest)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for name, value in model.state_dict().items():
+            check(torch.equal(value.cpu(), saved["model"][name]),
+                  f"loop: restored {name} differs from the checkpoint")
+        check(state.step == 4 and epoch == 1, f"loop: restored step {state.step}")
+        del model, state, saved
+        gc.collect()  # the optimizer holds cycles: free its device state now
+        torch.cuda.empty_cache()
+
+        rc, _, resume_s = _cli(["train", "--config", config_file(3), "--splits_dir",
+                                splits, "--fold", "4", "-resume_training",
+                                "-checkpoint_path", latest] + tables, peaks)
+        check(rc == 0, f"loop: resume returned {rc}")
+        run2 = dict(loop.LAST_RUN)
+        check([e["epoch"] for e in run2["epochs"]] == [2],
+              f"loop: resumed epochs {[e['epoch'] for e in run2['epochs']]}")
+        resumed = os.path.join(tmp, "results", f"native_target_finetune_{run_name}")
+        epoch2 = os.path.join(resumed, "checkpoints", "checkpoint_epoch_2")
+        payload = load_checkpoint(epoch2)
+        check(payload["step"] == 6, f"loop: step after the resume {payload['step']}")
+        losses2 = run2["epochs"][0]["losses"]
+        check(all(np.isfinite(losses2)), f"loop: resumed losses {losses2}")
+        del payload
+        os.remove(os.path.join(ckpts, "checkpoint_epoch_0"))  # disk
+
+        rc, out, validate_s = _cli(["validate", "--config", config_file(3),
+                                    "--test_lookup", test_csv, "-checkpoint_path",
+                                    epoch2, "-save_path", os.path.join(tmp, "val")]
+                                   + tables, peaks)
+        check(rc == 0, f"loop: validate returned {rc}")
+        got = next(json.loads(line) for line in out.splitlines()
+                   if line.startswith('{"validate"'))["validate"]
+        worst = 0.0
+        for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
+            want = np.asarray(read_csv(os.path.join(
+                resumed, "validation_metric_results", f"{key}.csv"))["epoch_2"])
+            have = np.atleast_1d(np.asarray(got[key], np.float64))
+            floor = 1e-6 * float(np.abs(want).max())
+            err = np.abs(have - want)
+            check(bool((err <= METRIC_TOL * np.abs(want) + floor).all()),
+                  f"loop: validate {key} {have} vs the run's epoch-2 CSV {want}")
+            worst = max(worst, float((err / (np.abs(want) + floor + 1e-30)).max()))
+
+        rc, _, infer_s = _cli(["infer", "--config", config_file(3), "--input_lookup",
+                               test_csv, "-checkpoint_path", epoch2, "--out_dir",
+                               os.path.join(tmp, "synth")] + tables, peaks)
+        check(rc == 0, f"loop: infer returned {rc}")
+        synth = sorted(os.listdir(os.path.join(tmp, "synth")))
+        check(len(synth) == 2 and all(f.endswith("_synth_tau.nii") for f in synth),
+              f"loop: infer wrote {synth}")
+        for f in synth:
+            vol = load_nifti_vol(os.path.join(tmp, "synth", f), resize=False)
+            check(vol.shape == (1, 128, 128, 128) and bool(np.isfinite(vol).all()),
+                  f"loop: {f} {vol.shape}")
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"loop launches (train, resume, validate, infer): {launches}; "
+          f"in the first train alone: {train_launches}; plain on cuda: {plain_cuda}")
+    for family in ops.PATH_FAMILIES:
+        check(train_launches.get(family, 0) > 0, f"{family}: no launch in the loop")
+    check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
+    print(f"loop losses: {[round(v, 4) for v in losses]}, resumed {[round(v, 4) for v in losses2]}; "
+          f"ROI weights after epoch 1: mean {float(weights.mean()):.3f}, "
+          f"min {float(weights.min()):.3f}, max {float(weights.max()):.3f}")
+    steps = [t for e in run1["epochs"] + run2["epochs"] for t in e["step_ms"]]
+    for e in run1["epochs"] + run2["epochs"]:
+        busy = e["wait_s"] + e["step_s"]
+        print(f"loop epoch {e['epoch']}: {e['seconds']:.2f} s; steps ms "
+              f"{[round(t, 2) for t in e['step_ms']]}; loader wait {e['wait_s']:.3f} s "
+              f"of {busy:.3f} s ({e['wait_s'] / busy:.1%}); validate "
+              f"{e['validate_s']:.2f} s; checkpoint saves {e['checkpoint_s']:.2f} s")
+    epochs = run1["epochs"] + run2["epochs"]
+    per_step = [1e3 * (e["wait_s"] + e["step_s"]) / len(e["step_ms"]) for e in epochs]
+    print(f"loop step b=2 128^3: median {statistics.median(steps[1:]):.2f} ms over "
+          f"steps 2-{len(steps)} (from a batch's arrival to the request for the next); "
+          f"with the loader's wait {[round(t, 2) for t in per_step]} ms a step by "
+          f"epoch; phase 7's synchronized step "
+          f"{READINGS.get('train_step_ms', float('nan')):.2f} ms")
+    print(f"loop: cohort {cohort_s:.2f} s; train {train_s:.2f} s; checkpoint "
+          f"{ckpt_mb:.1f} MB, restore {restore_s:.2f} s (the resume's own "
+          f"{run2['restore_s']:.2f} s); resume {resume_s:.2f} s; validate "
+          f"{validate_s:.2f} s (worst rel {worst:.2e} against the CSV, tol "
+          f"{METRIC_TOL}); infer {infer_s:.2f} s; peak memory GiB "
+          f"{ {k: round(v, 2) for k, v in peaks.items()} }; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -1133,12 +1360,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity(s=88, b=1, template=True)
     paths["template"] = phase_template()
+    torch.cuda.empty_cache()
+    paths["loop"] = phase_loop()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths["template"].get(family, 0),
+            "launches": paths["loop"].get(family, 0),
             "launches_by_path": {p: n.get(family, 0) for p, n in paths.items()},
             "max_abs_err": entry["max_abs_err"],
             "ms": round(entry["ms"], 4), "plain_ms": round(entry["plain_ms"], 4),

@@ -1,0 +1,473 @@
+"""Command-line interface of the port (counterpart of
+`coma_unet_tpu/cli/main.py`):
+
+    python -m coma_unet_tpu_torch.cli.main train    ...  # fold training
+    python -m coma_unet_tpu_torch.cli.main validate ...  # metrics + CSVs
+    python -m coma_unet_tpu_torch.cli.main infer    ...  # MRI-only synthesis
+
+The parser has the JAX CLI's options with the same defaults, and one of its
+own: `--device` (default `cuda`). Without a card, `--device cuda` raises
+and names `--device cpu`. The Hopper kernels take bf16: with a CUDA device
+and a `compute_dtype` other than bfloat16 (flag or `--config`) the CLI
+exits with status 2 before it builds a model; `--device cpu` runs float32.
+Options whose path is not ported yet are accepted by the parser and raise
+NotImplementedError when set, naming their `ROADMAP.md` item.
+
+The results directory is the reference's: <save>/<run>/checkpoints/,
+<save>/<run>/validation_metric_results/, <save>/<run>/<epoch>_output_samples/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+MODEL_TYPES = ["ContraAttnUNET", "AttnUNET", "GenAttnUnet", "UNET", "GenUNETR",
+               "AttnUNETR", "SwinUnetr", "AttnSwinUnetr"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="coma-unet-torch")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("-save_path", default="results")
+        sp.add_argument("-model_type", default="ContraAttnUNET",
+                        choices=MODEL_TYPES)
+        sp.add_argument("-batch_size", type=int, default=2)
+        sp.add_argument("-description", default="")
+        sp.add_argument("-template_space", action="store_true")
+        sp.add_argument("-covariates", action="store_true", default=True)
+        sp.add_argument("-smoothing", action="store_true")
+        sp.add_argument("-rnc", action="store_true", default=True)
+        sp.add_argument("-checkpoint_path", default=None)
+        sp.add_argument("--config", default=None,
+                        help="ExperimentConfig JSON file (overrides flags)")
+        sp.add_argument("--splits_dir", default="training_folds")
+        sp.add_argument("--covariate_csv", default=None)
+        sp.add_argument("--quartile_csv", default=None)
+        sp.add_argument("--predictions_json", default=None)
+        sp.add_argument("--cognition_json", default=None,
+                        help="KNN-predicted MMSCORE table (combined cohort)")
+        sp.add_argument("--abeta_fallback_json", default=None,
+                        help="predicted abeta fallback table (combined cohort)")
+        sp.add_argument("--fold", type=int, default=4)
+        sp.add_argument("--data_parallel", type=int, default=1)
+        sp.add_argument("--norm", default="instance")
+        sp.add_argument("--compute_dtype", default="bfloat16")
+        sp.add_argument("--voxel_wise", action="store_true",
+                        help="voxel-wise RoiMSE weight grid + adaptive voxel "
+                             "updates")
+        sp.add_argument("--roi_template", default=None,
+                        help="template ROI mask NIfTI for the voxel-wise "
+                             "weight grid")
+        sp.add_argument("--holdout_ids", default=None,
+                        help="subjects excluded from training: comma-separated"
+                             " ids or a file with one id per line")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device: cuda (the Hopper kernels, bf16) "
+                             "or cpu (the plain versions, any dtype)")
+
+    t = sub.add_parser("train", help="train a model on fold lookups")
+    common(t)
+    t.add_argument("-resume_training", action="store_true")
+    t.add_argument("-cross_val", action="store_true")
+    t.add_argument("--train_lookup", default=None,
+                   help="explicit training lookup CSV (overrides "
+                        "splits_dir/fold)")
+    t.add_argument("--test_lookup_file", default=None,
+                   help="explicit test lookup CSV")
+    t.add_argument("--epochs", type=int, default=61)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--combined", action="store_true",
+                   help="combined ADNI+A4 flat dataset (lr default 1e-4)")
+
+    v = sub.add_parser("validate", help="run the evaluation suite")
+    common(v)
+    v.add_argument("--test_lookup", required=True)
+
+    i = sub.add_parser("infer", help="MRI-only tau-PET synthesis")
+    common(i)
+    i.add_argument("--input_lookup", default=None,
+                   help="CSV with MRI (+roi) path columns")
+    i.add_argument("--cohort", default=None,
+                   choices=("ucsf", "a4", "nacc", "nacc_nonscan",
+                            "adni_autopsy"),
+                   help="named per-cohort preset bundle")
+    i.add_argument("--cohort_dir", default=None,
+                   help="base directory of the cohort preset bundle")
+    i.add_argument("--out_dir", default="synth_out")
+    i.add_argument("--sliding_window", action="store_true")
+    i.add_argument("--spatial_parallel", type=int, default=1,
+                   help="shard the volume spatially over this many devices")
+    i.add_argument("--patch_size", type=int, default=128)
+    i.add_argument("--overlap", type=float, default=0.25)
+    i.add_argument("--save_attention", action="store_true",
+                   help="also export per-level attention maps as NIfTI")
+    return p
+
+
+def _parse_holdout_ids(spec: Optional[str]):
+    """Comma-separated ids, or a file of one id per line."""
+    if not spec:
+        return ()
+    if os.path.isfile(spec):
+        with open(spec) as f:
+            return tuple(line.strip() for line in f if line.strip())
+    return tuple(s.strip() for s in spec.split(",") if s.strip())
+
+
+def _experiment_config(args):
+    from coma_unet_tpu_torch.config import (
+        DataConfig, ExperimentConfig, LossConfig, ModelConfig, TrainConfig,
+    )
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+        # data-source flags overlay the config file
+        data_overrides = {}
+        for flag, field_name in (
+            ("splits_dir", "splits_dir"), ("covariate_csv", "covariate_csv"),
+            ("quartile_csv", "quartile_csv"), ("fold", "fold"),
+        ):
+            v = getattr(args, flag, None)
+            if v not in (None, "", "training_folds", 4):
+                data_overrides[field_name] = v
+        if data_overrides:
+            cfg = dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, **data_overrides))
+        if getattr(args, "save_path", "results") != "results":
+            cfg = dataclasses.replace(cfg, save_path=args.save_path)
+        if getattr(args, "model_type", "ContraAttnUNET") != "ContraAttnUNET":
+            cfg = dataclasses.replace(cfg, model_type=args.model_type)
+        train_overrides = {}
+        if getattr(args, "data_parallel", 1) != 1:
+            train_overrides["data_parallel"] = args.data_parallel
+        if getattr(args, "batch_size", 2) != 2:
+            train_overrides["batch_size"] = args.batch_size
+        if train_overrides:
+            cfg = dataclasses.replace(
+                cfg, train=dataclasses.replace(cfg.train, **train_overrides))
+        if getattr(args, "voxel_wise", False):
+            cfg = dataclasses.replace(
+                cfg, loss=dataclasses.replace(cfg.loss, voxel_wise=True))
+        late_data = {}
+        if getattr(args, "roi_template", None):
+            late_data["roi_template_path"] = args.roi_template
+        if getattr(args, "holdout_ids", None):
+            late_data["holdout_ids"] = _parse_holdout_ids(args.holdout_ids)
+        if late_data:
+            cfg = dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, **late_data))
+        return cfg
+    model = ModelConfig(
+        conditional=args.covariates,
+        norm=args.norm,
+        compute_dtype=args.compute_dtype,
+        with_modulator=args.model_type == "ContraAttnUNET",
+    )
+    loss = LossConfig(
+        rnc=args.rnc,
+        roi_weight=1.0 if args.template_space else 225.0,
+        voxel_wise=getattr(args, "voxel_wise", False),
+    )
+    train_cfg = TrainConfig(
+        epochs=getattr(args, "epochs", 61),
+        lr=getattr(args, "lr", 1e-3) if not getattr(args, "combined", False)
+        else 1e-4,
+        batch_size=args.batch_size,
+        data_parallel=args.data_parallel,
+    )
+    data = DataConfig(
+        splits_dir=args.splits_dir,
+        covariate_csv=args.covariate_csv or "",
+        quartile_csv=args.quartile_csv or "",
+        fold=args.fold,
+        template_space=args.template_space,
+        smoothing=args.smoothing,
+        roi_template_path=getattr(args, "roi_template", None) or "",
+        holdout_ids=_parse_holdout_ids(getattr(args, "holdout_ids", None)),
+    )
+    return ExperimentConfig(
+        model=model, loss=loss, train=train_cfg, data=data,
+        save_path=args.save_path, description=args.description,
+        model_type=args.model_type,
+    )
+
+
+def _refuse_dtype(args, config) -> bool:
+    """The float32 decision: on CUDA the Hopper kernels take bf16 only, so
+    any other compute dtype is refused (status 2) before a model is built;
+    the CPU's plain versions run any dtype."""
+    if (torch.device(args.device).type == "cuda"
+            and config.model.compute_dtype != "bfloat16"):
+        print(f"compute_dtype {config.model.compute_dtype!r} on "
+              f"{args.device}: the port's Hopper kernels take bfloat16 only; "
+              f"use --compute_dtype bfloat16, or --device cpu to run "
+              f"{config.model.compute_dtype} through the plain versions",
+              file=sys.stderr)
+        return True
+    return False
+
+
+def _check_ported(args, config) -> None:
+    """Raise NotImplementedError for a set option whose path is not ported
+    yet, naming its ROADMAP.md item."""
+    deferred = [
+        (getattr(args, "combined", False), "--combined (CombinedVolumeDataset)",
+         "queue 1 item 2"),
+        (getattr(args, "cohort", None) or getattr(args, "cohort_dir", None),
+         "--cohort / --cohort_dir (data/cohorts.py)", "queue 1 item 2"),
+        (getattr(args, "save_attention", False),
+         "--save_attention (analysis/attention.py)", "queue 1 item 2"),
+        (max(int(config.train.data_parallel), int(config.train.spatial_parallel),
+             int(getattr(args, "spatial_parallel", 1) or 1)) > 1,
+         "--data_parallel / --spatial_parallel > 1", "queue 1 item 3"),
+        (config.model_type != "ContraAttnUNET", f"-model_type {config.model_type}",
+         "queue 1 item 4"),
+        (args.norm == "batch" or config.model.norm == "batch",
+         "--norm batch", "queue 1 item 4"),
+    ]
+    for is_set, what, item in deferred:
+        if is_set:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+def _prepare(args):
+    """The normalized config and the device, or None where the dtype is
+    refused; raises for an option not ported and for a missing card."""
+    from coma_unet_tpu_torch.train.loop import require_device
+
+    config = _experiment_config(args).normalized()
+    if _refuse_dtype(args, config):
+        return None, None
+    _check_ported(args, config)
+    return config, require_device(args.device)
+
+
+def _build_model(config, device):
+    from coma_unet_tpu_torch.models.contra import ContraAttnUNet
+
+    return ContraAttnUNet(config.model, device=device,
+                          generator=torch.Generator().manual_seed(config.train.seed))
+
+
+def _roi_indices(config):
+    from coma_unet_tpu_torch.config import ROI_INDICES, TEMPLATE_ROI_INDICES
+
+    return TEMPLATE_ROI_INDICES if config.data.template_space else ROI_INDICES
+
+
+def _tables(args, config):
+    from coma_unet_tpu_torch.data import (
+        CovariateTable, PredictionTable, QuartileTable,
+    )
+
+    cov = CovariateTable(config.data.covariate_csv)
+    quart = (QuartileTable(config.data.quartile_csv)
+             if config.data.quartile_csv else None)
+    preds = (PredictionTable(args.predictions_json)
+             if getattr(args, "predictions_json", None) else None)
+    return cov, quart, preds
+
+
+def _build_loaders(args, config):
+    from coma_unet_tpu_torch.data import (
+        DataLoader, PredictedMetaTauDataset, filter_for_holdout,
+    )
+
+    cov, quart, preds = _tables(args, config)
+    k = config.data.fold
+    train_csv = getattr(args, "train_lookup", None) or os.path.join(
+        config.data.splits_dir, f"training_lookup_{k}.csv")
+    test_csv = getattr(args, "test_lookup_file", None) or os.path.join(
+        config.data.splits_dir, f"test_lookup_{k}.csv")
+    ds_kwargs = dict(template_space=config.data.template_space,
+                     smoothing=config.data.smoothing,
+                     pad_dims=config.data.volume_shape)
+    train_ds = PredictedMetaTauDataset(train_csv, cov, quart,
+                                       meta_tau_table=preds, **ds_kwargs)
+    test_ds = PredictedMetaTauDataset(test_csv, cov, quart,
+                                      meta_tau_table=preds, **ds_kwargs)
+    roi_idx = _roi_indices(config)
+    # holdout subjects are excluded from training only
+    sampler = None
+    if config.data.holdout_ids:
+        ids = [train_ds.sample_id(i) for i in range(len(train_ds))]
+        keep = filter_for_holdout(ids, config.data.holdout_ids)
+        sampler = [i for i, kept in enumerate(keep) if kept]
+        logging.getLogger(__name__).info(
+            "holdout filter: %d/%d training samples kept",
+            len(sampler), len(train_ds))
+    train_loader = DataLoader(train_ds, config.train.batch_size,
+                              predictions=preds, shuffle=True, drop_last=False,
+                              roi_indices=roi_idx, sampler=sampler)
+    test_loader = DataLoader(test_ds, config.train.batch_size,
+                             predictions=preds, roi_indices=roi_idx)
+    return train_loader, test_loader
+
+
+def _run_dir_name(args) -> str:
+    """A timestamped results dir; resuming from a checkpoint writes to
+    `native_target_finetune_<original run dir>`, so that the finetune never
+    overwrites the source run."""
+    if getattr(args, "resume_training", False) and \
+            getattr(args, "checkpoint_path", None):
+        ckpt = os.path.abspath(args.checkpoint_path)
+        # .../<run dir>/checkpoints/<checkpoint>
+        orig = os.path.basename(os.path.dirname(os.path.dirname(ckpt)))
+        return "native_target_finetune_" + orig
+    return time.strftime("%Y-%m-%d_%H-%M-%S")
+
+
+def _load_weights(model, path: Optional[str]) -> None:
+    if path:
+        from coma_unet_tpu_torch.train.checkpoint import load_checkpoint
+
+        model.load_state_dict(load_checkpoint(path)["model"])
+
+
+def cmd_train(args) -> int:
+    from coma_unet_tpu_torch.data.table import read_csv
+    from coma_unet_tpu_torch.train.loop import train
+    from coma_unet_tpu_torch.utils.logging import setup_logging
+
+    config, device = _prepare(args)
+    if config is None:
+        return 2
+    run_dir = os.path.join(config.save_path, _run_dir_name(args))
+    os.makedirs(run_dir, exist_ok=True)
+    setup_logging(os.path.join(run_dir, f"train_{config.model_type}.log"))
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        f.write(config.to_json())
+
+    folds = [config.data.fold]
+    if getattr(args, "cross_val", False):
+        # 5-fold cross validation: a fresh model per fold, fold_k/ subdirs
+        folds = list(range(1, 6))
+    fold_metrics = []
+    for k in folds:
+        fold_cfg = dataclasses.replace(
+            config, data=dataclasses.replace(config.data, fold=k))
+        fold_dir = run_dir if len(folds) == 1 else os.path.join(run_dir, f"fold_{k}")
+        os.makedirs(fold_dir, exist_ok=True)
+        model = _build_model(fold_cfg, device)
+        train_loader, test_loader = _build_loaders(args, fold_cfg)
+        resume = args.checkpoint_path if args.resume_training else None
+        train(model, fold_cfg, train_loader, val_loader=test_loader,
+              save_path=fold_dir, resume_from=resume,
+              roi_indices=_roi_indices(fold_cfg), device=device)
+        mape_csv = os.path.join(fold_dir, "validation_metric_results", "mape.csv")
+        if os.path.exists(mape_csv):
+            table = read_csv(mape_csv)
+            if table.columns:
+                fold_metrics.append(float(table[table.columns[-1]][0]))
+    if len(fold_metrics) > 1:
+        print(f"cross-val final MAPE per fold: {fold_metrics}; "
+              f"mean {np.mean(fold_metrics):.3f}")
+    return 0
+
+
+def cmd_validate(args) -> int:
+    from coma_unet_tpu_torch.data import DataLoader, PredictedMetaTauDataset, pin_batch
+    from coma_unet_tpu_torch.train.loop import evaluate
+    from coma_unet_tpu_torch.train.step import make_eval_step
+    from coma_unet_tpu_torch.utils.logging import setup_logging
+
+    config, device = _prepare(args)
+    if config is None:
+        return 2
+    setup_logging(None)
+    model = _build_model(config, device)
+    cov, quart, preds = _tables(args, config)
+    ds = PredictedMetaTauDataset(
+        args.test_lookup, cov, quart, meta_tau_table=preds,
+        template_space=config.data.template_space,
+        pad_dims=config.data.volume_shape)
+    roi_idx = _roi_indices(config)
+    loader = DataLoader(ds, config.train.batch_size, predictions=preds,
+                        roi_indices=roi_idx,
+                        device_put=pin_batch if device.type == "cuda" else None)
+    _load_weights(model, args.checkpoint_path)
+    general, pos, neg, _ = evaluate(
+        make_eval_step(model, len(roi_idx)), loader, len(roi_idx),
+        save_path=args.save_path, device=device)
+    for tag, res in (("overall", general), ("abeta+", pos), ("abeta-", neg)):
+        print(f"[{tag}] MAE={res.mae:.4f} MAPE={res.mape:.2f}% "
+              f"RSE={res.rse:.4f} RRMSE={res.rrmse:.4f} SSIM={res.ssim:.4f} "
+              f"avg_roi_corr={np.nanmean(res.roi_correlations):.4f} "
+              f"(n={res.num_samples})")
+    # the overall numbers at full precision, as the recorder's CSVs hold them
+    print(json.dumps({"validate": {
+        "mae": general.mae, "mape": general.mape,
+        "avg_corr": float(np.mean(np.nan_to_num(general.roi_correlations))),
+        "roi_maes": general.roi_maes.tolist(),
+        "roi_mapes": general.roi_mapes.tolist(),
+        "num_samples": general.num_samples}}))
+    return 0
+
+
+def cmd_infer(args) -> int:
+    from coma_unet_tpu_torch.data import (
+        DataLoader, InferenceVolumeDataset, batch_to_device, pin_batch,
+    )
+    from coma_unet_tpu_torch.infer import make_infer_fn, sliding_window_inference
+    from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
+    from coma_unet_tpu_torch.utils.logging import setup_logging
+
+    config, device = _prepare(args)
+    if config is None:
+        return 2
+    setup_logging(None)
+    if not args.input_lookup:
+        print("--input_lookup is required", file=sys.stderr)
+        return 2
+    model = _build_model(config, device)
+    cov, _, preds = _tables(args, config)
+    ds = InferenceVolumeDataset(args.input_lookup, cov, meta_tau_table=preds,
+                                pad_dims=config.data.volume_shape)
+    loader = DataLoader(ds, 1, predictions=preds,
+                        device_put=pin_batch if device.type == "cuda" else None)
+    _load_weights(model, args.checkpoint_path)
+    infer = make_infer_fn(model)
+    os.makedirs(args.out_dir, exist_ok=True)
+    keys = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
+    for bi, batch in enumerate(loader):
+        if args.sliding_window:
+            out = sliding_window_inference(
+                infer, *(np.asarray(batch[k]) for k in keys),
+                patch_size=(args.patch_size,) * 3, overlap=args.overlap)
+        else:
+            db = batch_to_device(batch, device)
+            out = infer(*(db[k] for k in keys))
+        sid = batch["sample_ids"][0].replace("/", "_") or f"sample_{bi}"
+        path = os.path.join(args.out_dir, f"{sid}_synth_tau.nii")
+        write_tensor_to_nii(out[0], path)
+        print(f"wrote {path}")
+    return 0
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command == "train":
+        return cmd_train(args)
+    if args.command == "validate":
+        return cmd_validate(args)
+    if args.command == "infer":
+        return cmd_infer(args)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,15 +3,17 @@
 The port's own copy of the JAX package's configuration
 (`coma_unet_tpu/config.py`): the same dataclasses with the same field
 names, defaults and `ExperimentConfig.normalized()` semantics, so that one
-experiment description drives either package. The JSON round trip and the
-ROI names are not copied; nothing in the port reads them.
+experiment description drives either package, with the same JSON round
+trip (`ExperimentConfig.to_json` / `from_json`, the CLI's `--config`) and
+the same ROI names (the keys of the prediction tables).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 # The 36 Braak-region FreeSurfer ROI labels of native-space volumes.
 ROI_INDICES: Tuple[int, ...] = (
@@ -20,6 +22,26 @@ ROI_INDICES: Tuple[int, ...] = (
     2001, 2006, 2007, 2009, 2015, 2016, 2030, 2034, 2033, 2008, 2025, 2029,
     2031, 2022, 49, 50, 51, 52, 53, 54,
 )
+
+ROI_NAMES: Tuple[str, ...] = (
+    "ctx-lh-bankssts", "ctx-lh-entorhinal", "ctx-lh-fusiform",
+    "ctx-lh-inferiortemporal", "ctx-lh-middletemporal",
+    "ctx-lh-parahippocampal", "ctx-lh-superiortemporal",
+    "ctx-lh-transversetemporal", "ctx-lh-temporalpole",
+    "ctx-lh-inferiorparietal", "ctx-lh-precuneus", "ctx-lh-superiorparietal",
+    "ctx-lh-supramarginal", "ctx-lh-postcentral",
+    "Left-Hippocampus", "Left-Amygdala",
+    "ctx-rh-bankssts", "ctx-rh-entorhinal", "ctx-rh-fusiform",
+    "ctx-rh-inferiortemporal", "ctx-rh-middletemporal",
+    "ctx-rh-parahippocampal", "ctx-rh-superiortemporal",
+    "ctx-rh-transversetemporal", "ctx-rh-temporalpole",
+    "ctx-rh-inferiorparietal", "ctx-rh-precuneus", "ctx-rh-superiorparietal",
+    "ctx-rh-supramarginal", "ctx-rh-postcentral",
+    "Right-Thalamus-Proper", "Right-Caudate", "Right-Putamen",
+    "Right-Pallidum", "Right-Hippocampus", "Right-Amygdala",
+)
+
+ROI_INDEX_TO_NAME = dict(zip(ROI_INDICES, ROI_NAMES))
 
 # Template-space ROI labels (`-template_space`): Yeo-7 network labels 1..8.
 TEMPLATE_ROI_INDICES: Tuple[int, ...] = tuple(range(1, 9))
@@ -153,6 +175,30 @@ class ExperimentConfig:
             return self
         return dataclasses.replace(self, model=model, data=data)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "ExperimentConfig":
+        raw = json.loads(text)
+        return cls(
+            model=_from_dict(ModelConfig, raw.get("model", {})),
+            loss=_from_dict(LossConfig, raw.get("loss", {})),
+            train=_from_dict(TrainConfig, raw.get("train", {})),
+            data=_from_dict(DataConfig, raw.get("data", {})),
+            **{k: raw[k] for k in ("save_path", "description", "model_type")
+               if k in raw},
+        )
+
+
+def _from_dict(cls: Any, raw: dict) -> Any:
+    """`cls(**raw)` over the fields `cls` has, lists made tuples; unknown
+    keys are ignored."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in raw.items() if k in names})
+
 
 __all__ = ["DataConfig", "ExperimentConfig", "LossConfig", "ModelConfig",
-           "ROI_INDICES", "TEMPLATE_ROI_INDICES", "TrainConfig"]
+           "ROI_INDEX_TO_NAME", "ROI_INDICES", "ROI_NAMES",
+           "TEMPLATE_ROI_INDICES", "TrainConfig"]

@@ -1,0 +1,28 @@
+"""The data pipeline of the port (counterpart of `coma_unet_tpu/data/`):
+lookup CSVs, covariate and prediction tables, datasets and the threaded
+loader, read and written with the standard library and numpy."""
+
+from coma_unet_tpu_torch.data.covariates import (  # noqa: F401
+    CovariateTable,
+    PredictionTable,
+    QuartileTable,
+)
+from coma_unet_tpu_torch.data.datasets import (  # noqa: F401
+    CovariateVolumeDataset,
+    InferenceVolumeDataset,
+    PredictedMetaTauDataset,
+    VolumeDataset,
+)
+from coma_unet_tpu_torch.data.lookup import (  # noqa: F401
+    extract_id,
+    filter_for_holdout,
+    get_id_from_path,
+    load_lookup_csv,
+)
+from coma_unet_tpu_torch.data.pipeline import (  # noqa: F401
+    DataLoader,
+    batch_to_device,
+    collate,
+    compact_roi_np,
+    pin_batch,
+)

@@ -12,4 +12,8 @@ from coma_unet_tpu_torch.losses.contrastive import (  # noqa: F401
 from coma_unet_tpu_torch.losses.roi_losses import (  # noqa: F401
     make_voxel_weights,
     roi_mse,
+    roi_rrmse,
+    roi_rse,
+    update_roi_weights,
+    update_voxel_weights,
 )

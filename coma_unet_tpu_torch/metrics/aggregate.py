@@ -1,6 +1,6 @@
 """Host-side metric accumulation across evaluation batches, with the
 overall / Abeta+ / Abeta- split (the port's own copy of
-`coma_unet_tpu/metrics/aggregate.py`, without its CSV export).
+`coma_unet_tpu/metrics/aggregate.py`).
 
 The eval step emits per-sample partials (`voxel_metrics`, `roi_metrics`);
 the accumulator moves them to the host once per batch, sums them, and
@@ -11,10 +11,13 @@ wRRMSE and per-ROI Pearson r.
 from __future__ import annotations
 
 from dataclasses import dataclass
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from coma_unet_tpu_torch.data.table import write_csv
 
 
 @dataclass
@@ -161,3 +164,21 @@ class MetricAccumulator:
         if self._voxel_rel_sum is None or self.overall.n == 0:
             return None
         return 100.0 * self._voxel_rel_sum / self.overall.n
+
+    def save_matrices(self, save_path: str, prefix: str = "") -> None:
+        """Write the pred and gt ROI-mean matrices, [R, N], as CSVs with
+        one column per sample: `{prefix}{tag}pred_means.csv` and
+        `{prefix}{tag}gt_means.csv` for the tags "", "pos_" and "neg_".
+        The header row holds the sample ids; a split without ids has no
+        header row."""
+        os.makedirs(save_path, exist_ok=True)
+        for split, tag in ((self.overall, ""), (self.pos, "pos_"),
+                           (self.neg, "neg_")):
+            if not split.pred_means:
+                continue
+            header = split.sample_ids if split.sample_ids else None
+            for name, means in (("pred", split.pred_means),
+                                ("gt", split.gt_means)):
+                per_sample = np.concatenate(means)  # [N, R]: the columns
+                write_csv(os.path.join(save_path, f"{prefix}{tag}{name}_means.csv"),
+                          header, list(per_sample))

@@ -1,7 +1,10 @@
 """Training of the port (counterpart of `coma_unet_tpu/train/`): the train
-and eval steps, AdamW and the plateau controller, and the train state."""
+and eval steps, AdamW (with gradient accumulation) and the plateau
+controller, the train state, checkpoints, the metric recorder and the
+training loop."""
 
 from coma_unet_tpu_torch.train.optim import (  # noqa: F401
+    MultiSteps,
     ReduceLROnPlateau,
     get_lr,
     make_optimizer,

@@ -1,5 +1,6 @@
 """Train state (counterpart of `coma_unet_tpu/train/state.py`): the model
-holds the parameters, the optimizer its state; `step` counts the updates."""
+holds the parameters, the optimizer its state; `step` counts the updates as
+flax's `TrainState.step` does."""
 
 from __future__ import annotations
 
@@ -7,23 +8,31 @@ from dataclasses import dataclass
 
 import torch
 
-from coma_unet_tpu_torch.train.optim import make_optimizer
+from coma_unet_tpu_torch.train.optim import (
+    MultiSteps,
+    Optimizer,
+    inner_steps,
+    make_optimizer,
+)
 
 
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optimizer
 
     @property
     def step(self) -> int:
-        """Updates applied so far: the optimizer's own count, so it advances
-        with every `optimizer.step()` and comes back with its state dict."""
-        return max((int(s["step"]) for s in self.optimizer.state.values()
-                    if "step" in s), default=0)
+        """`apply_gradients` calls so far, flax's count: the AdamW updates,
+        or with gradient accumulation every micro-batch. It comes from the
+        optimizer's state, so it comes back with its state dict."""
+        if isinstance(self.optimizer, MultiSteps):
+            return self.optimizer.steps
+        return inner_steps(self.optimizer)
 
 
 def create_train_state(model: torch.nn.Module, lr: float,
-                       weight_decay: float = 0.01) -> TrainState:
+                       weight_decay: float = 0.01,
+                       grad_acc: int = 1) -> TrainState:
     return TrainState(model, make_optimizer(model.parameters(), lr,
-                                            weight_decay))
+                                            weight_decay, grad_acc))

@@ -1,0 +1,272 @@
+"""The port's command line (`coma_unet_tpu_torch/cli/main.py`) on the CPU.
+
+The parser has every option of the JAX CLI with the same default, plus
+`--device`; `train` -> `validate` -> `infer` with `--device cpu` write the
+files that `tests/test_cli.py` names, `validate` prints the metrics the
+run's last validation CSV holds, a resume writes to
+`native_target_finetune_<run>` and continues the epochs, and `-cross_val`
+trains one fold directory per fold. The device and dtype rules: `--device
+cuda` without a card raises and names `--device cpu`; a compute dtype
+other than bfloat16 on CUDA exits with status 2 before a model is built;
+each option whose path is not ported raises NotImplementedError. A fresh
+interpreter that refuses jax, flax, optax, orbax, pandas, matplotlib and
+the JAX package runs `train`, and holds no model after it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import coma_unet_tpu_torch.train.loop as ploop
+from coma_unet_tpu_torch.cli import build_parser, main
+from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort
+from coma_unet_tpu_torch.data.table import read_csv, write_rows
+from coma_unet_tpu_torch.io import load_nifti_vol
+from coma_unet_tpu_torch.train.recorder import MetricRecorder
+
+ROOT = Path(__file__).resolve().parents[1]
+
+TINY = {
+    "model": {"channels": [4, 8], "strides": [2, 2], "latent_spaces": [16, 16],
+              "prompt_shape": [16, 16, 16], "num_experts": 2,
+              "compute_dtype": "float32"},
+    "loss": {"cds_weights": [0.0, 1.0]},
+    "train": {"epochs": 1, "batch_size": 2, "val_iter": 1,
+              "adaptive_roi_weights": False},
+    "data": {"volume_shape": [16, 16, 16]},
+}
+
+
+@pytest.fixture(scope="module")
+def cohort(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    c = make_synthetic_cohort(str(root / "cohort"))
+    rows = read_csv(c["lookup"]).rows()
+    splits = root / "splits"
+    splits.mkdir()
+    for k in range(1, 6):
+        write_rows(str(splits / f"training_lookup_{k}.csv"), rows[:4])
+        write_rows(str(splits / f"test_lookup_{k}.csv"), rows[4:6])
+    c["splits"] = str(splits)
+    c["root"] = str(root)
+    return c
+
+
+def _config_file(path, **train):
+    cfg = json.loads(json.dumps(TINY))
+    cfg["train"].update(train)
+    cfg["save_path"] = str(path.parent / "results")
+    with open(str(path), "w") as f:
+        json.dump(cfg, f)
+    return str(path)
+
+
+def _tables(c):
+    return ["--covariate_csv", c["cov"], "--quartile_csv", c["quart"],
+            "--predictions_json", c["preds"]]
+
+
+def test_parser_has_every_jax_option_with_its_default():
+    jax_cli = pytest.importorskip("coma_unet_tpu.cli")
+
+    def options(parser):
+        sub = next(a for a in parser._actions if a.choices and
+                   isinstance(a.choices, dict))
+        return {cmd: {a.dest: (tuple(a.option_strings), a.default, a.choices,
+                               a.required)
+                      for a in sp._actions if a.dest != "help"}
+                for cmd, sp in sub.choices.items()}
+
+    ours, theirs = options(build_parser()), options(jax_cli.build_parser())
+    assert set(ours) == set(theirs) == {"train", "validate", "infer"}
+    for cmd in theirs:
+        assert {k: v for k, v in ours[cmd].items() if k != "device"} == theirs[cmd]
+        assert ours[cmd]["device"][:2] == (("--device",), "cuda")
+
+
+def test_train_validate_infer_on_the_cpu(cohort, tmp_path, capsys):
+    cfg = _config_file(tmp_path / "config.json", epochs=2, checkpoint_iter=1,
+                       adaptive_roi_weights=True)
+    common = ["--config", cfg, "--device", "cpu"] + _tables(cohort)
+    assert main(["train", "--splits_dir", cohort["splits"], "--fold", "1"]
+                + common) == 0
+    runs = sorted((tmp_path / "results").iterdir())
+    assert len(runs) == 1
+    run = runs[0]
+    for name in ("checkpoint_latest_epoch", "checkpoint_epoch_0",
+                 "checkpoint_epoch_1"):
+        assert (run / "checkpoints" / name).exists()
+    assert (run / "config.json").exists()
+    assert (run / "train_ContraAttnUNET.log").exists()
+    assert (run / "val_MAE.png").exists() and (run / "train_average_loss.png").exists()
+    mae = read_csv(str(run / "validation_metric_results" / "mae.csv"))
+    assert mae.columns == ["epoch_0", "epoch_1"]
+    assert (run / "1_output_samples" / "pred_means.csv").exists()
+    assert len(list((run / "1_output_samples").glob("*_pred.nii"))) == 2
+
+    capsys.readouterr()
+    latest = str(run / "checkpoints" / "checkpoint_latest_epoch")
+    assert main(["validate", "--test_lookup",
+                 os.path.join(cohort["splits"], "test_lookup_1.csv"),
+                 "-checkpoint_path", latest,
+                 "-save_path", str(tmp_path / "val_out")] + common) == 0
+    printed = capsys.readouterr().out
+    line = next(json.loads(s) for s in printed.splitlines() if s.startswith("{"))
+    got = line["validate"]
+    assert got["num_samples"] == 2
+    assert "[overall] MAE=" in printed and "[abeta-]" in printed
+    csv_dir = run / "validation_metric_results"
+    for key, name in (("mae", "mae"), ("mape", "mape"), ("avg_corr", "avg_corr"),
+                      ("roi_maes", "roi_maes"), ("roi_mapes", "roi_mapes")):
+        want = read_csv(str(csv_dir / f"{name}.csv"))["epoch_1"]
+        np.testing.assert_allclose(np.atleast_1d(got[key]), want, rtol=1e-12,
+                                   atol=0, err_msg=key)
+    assert (tmp_path / "val_out" / "pred_means.csv").exists()
+
+    out_dir = tmp_path / "synth"
+    assert main(["infer", "--input_lookup", cohort["lookup"],
+                 "-checkpoint_path", latest, "--out_dir", str(out_dir)] + common) == 0
+    outs = sorted(os.listdir(str(out_dir)))
+    assert len(outs) == 8 and all(o.endswith("_synth_tau.nii") for o in outs)
+    vol = load_nifti_vol(str(out_dir / outs[0]), resize=False)
+    assert vol.shape == (1, 16, 16, 16) and np.isfinite(vol).all()
+    win_dir = tmp_path / "synth_window"
+    assert main(["infer", "--input_lookup", cohort["lookup"], "-checkpoint_path",
+                 latest, "--out_dir", str(win_dir), "--sliding_window",
+                 "--patch_size", "16"] + common) == 0
+    a = load_nifti_vol(str(out_dir / outs[0]), resize=False)
+    b = load_nifti_vol(str(win_dir / outs[0]), resize=False)
+    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)  # one patch, f32
+
+    # resume: a new run dir named after the source run, epoch 2 only
+    cfg3 = _config_file(tmp_path / "config3.json", epochs=3, checkpoint_iter=1,
+                        adaptive_roi_weights=True)
+    assert main(["train", "--config", cfg3, "--device", "cpu", "--splits_dir",
+                 cohort["splits"], "--fold", "1", "-resume_training",
+                 "-checkpoint_path", latest] + _tables(cohort)) == 0
+    resumed = tmp_path / "results" / f"native_target_finetune_{run.name}"
+    assert resumed.is_dir()
+    assert [e["epoch"] for e in ploop.LAST_RUN["epochs"]] == [2]
+    assert read_csv(str(resumed / "validation_metric_results" / "mae.csv")).columns \
+        == ["epoch_2"]
+    payload = torch.load(str(resumed / "checkpoints" / "checkpoint_epoch_2"),
+                         weights_only=True)
+    assert payload["epoch"] == 2 and payload["step"] == 6
+
+
+def test_cross_validation_trains_every_fold(cohort, tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(ploop, "loss_graph", lambda *a, **k: None)
+    monkeypatch.setattr(MetricRecorder, "plot", lambda self: None)
+    cfg = _config_file(tmp_path / "config.json")
+    assert main(["train", "--config", cfg, "--device", "cpu", "--splits_dir",
+                 cohort["splits"], "-cross_val"] + _tables(cohort)) == 0
+    run = next((tmp_path / "results").iterdir())
+    for k in range(1, 6):
+        assert (run / f"fold_{k}" / "checkpoints" / "checkpoint_latest_epoch").exists()
+    assert "cross-val final MAPE per fold" in capsys.readouterr().out
+
+
+def test_cuda_without_a_card_names_the_cpu(cohort, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "bf16.json"
+    raw = json.loads(json.dumps(TINY))
+    raw["model"]["compute_dtype"] = "bfloat16"
+    cfg.write_text(json.dumps(raw))
+    for cmd in (["train", "--splits_dir", cohort["splits"]],
+                ["validate", "--test_lookup", cohort["lookup"]],
+                ["infer", "--input_lookup", cohort["lookup"]]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main(cmd + ["--config", str(cfg)] + _tables(cohort))
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ploop.train(model, None, [])
+
+
+@pytest.mark.parametrize("how", ["flag", "config"])
+def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
+                                                capsys, how):
+    import coma_unet_tpu_torch.models.contra as contra
+
+    def no_model(*a, **k):
+        raise AssertionError("a model was built")
+
+    monkeypatch.setattr(contra, "ContraAttnUNet", no_model)
+    if how == "flag":
+        args = ["--compute_dtype", "float32"]
+    else:
+        args = ["--config", _config_file(tmp_path / "f32.json")]
+    for cmd in (["train", "--splits_dir", cohort["splits"]],
+                ["validate", "--test_lookup", cohort["lookup"]],
+                ["infer", "--input_lookup", cohort["lookup"]]):
+        assert main(cmd + args + ["--device", "cuda"] + _tables(cohort)) == 2
+        err = capsys.readouterr().err
+        assert "bfloat16" in err and "--device cpu" in err
+
+
+@pytest.mark.parametrize("cmd,flag,item", [
+    ("train", ["--combined"], "queue 1 item 2"),
+    ("infer", ["--cohort", "ucsf"], "queue 1 item 2"),
+    ("infer", ["--cohort_dir", "somewhere"], "queue 1 item 2"),
+    ("infer", ["--save_attention"], "queue 1 item 2"),
+    ("train", ["--data_parallel", "2"], "queue 1 item 3"),
+    ("infer", ["--spatial_parallel", "4"], "queue 1 item 3"),
+    ("validate", ["-model_type", "UNET"], "queue 1 item 4"),
+    ("train", ["--norm", "batch"], "queue 1 item 4"),
+])
+def test_deferred_options_raise(cohort, tmp_path, cmd, flag, item):
+    extra = {"train": ["--splits_dir", cohort["splits"]],
+             "validate": ["--test_lookup", cohort["lookup"]],
+             "infer": ["--input_lookup", cohort["lookup"]]}[cmd]
+    with pytest.raises(NotImplementedError, match=item):
+        main([cmd, "--device", "cpu", "--compute_dtype", "float32"] + extra
+             + flag + _tables(cohort))
+    assert not (tmp_path / "results").exists()
+
+
+_REFUSE = """
+import importlib.abc, importlib.machinery, sys
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "matplotlib",
+          "coma_unet_tpu"}
+class Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    # a banned module is found, as if installed, and fails when imported
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            return importlib.machinery.ModuleSpec(name, self)
+        return None
+    def create_module(self, spec):
+        raise ImportError(f"refused: {spec.name}")
+    def exec_module(self, module):
+        raise ImportError(f"refused: {module.__name__}")
+sys.meta_path.insert(0, Refuse())
+import gc
+from coma_unet_tpu_torch.cli import main
+from coma_unet_tpu_torch.models.contra import ContraAttnUNet
+rc = main(sys.argv[1:])
+assert not {m.split(".")[0] for m in sys.modules} & BANNED, sorted(sys.modules)
+gc.collect()  # nothing keeps the run's model alive, not the chart latch
+assert not [o for o in gc.get_objects() if isinstance(o, ContraAttnUNet)]
+print("rc", rc)
+"""
+
+
+def test_train_runs_without_jax_pandas_or_matplotlib(cohort, tmp_path):
+    rows = read_csv(cohort["lookup"]).rows()
+    write_rows(str(tmp_path / "train.csv"), rows[:2])
+    cfg = _config_file(tmp_path / "config.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _REFUSE, "train", "--config", cfg, "--device", "cpu",
+         "--train_lookup", str(tmp_path / "train.csv"), "--test_lookup_file",
+         str(tmp_path / "train.csv")] + _tables(cohort),
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "rc 0" in proc.stdout, proc.stderr[-3000:]
+    assert "no charts (PNGs) are written" in proc.stderr
+    run = next((tmp_path / "results").iterdir())
+    assert (run / "checkpoints" / "checkpoint_latest_epoch").exists()
+    assert not list(run.glob("*.png"))

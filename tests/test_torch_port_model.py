@@ -200,11 +200,36 @@ def _docstrings(tree):
                 yield first.value
 
 
+# the one function that may import matplotlib: the recorder's chart helper
+_CHART_FUNCTION = "_plt"
+
+
+def _imports_outside_charts(tree):
+    """(node, names) for every import in `tree`, except those inside a
+    function named `_CHART_FUNCTION`, whose matplotlib imports are allowed."""
+    allowed = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == _CHART_FUNCTION:
+            allowed |= {id(n) for n in ast.walk(node)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        if id(node) in allowed:
+            names = [n for n in names if n.split(".")[0] != "matplotlib"]
+        yield node, names
+
+
 def test_port_source_imports_no_jax():
-    """AST scan: no import of jax, flax, optax or orbax, nothing of the JAX
-    package, no loader that runs a file by path, and no string that names a
-    path into the JAX package."""
-    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "coma_unet_tpu"}
+    """AST scan: no import of jax, flax, optax, orbax, pandas or matplotlib
+    (matplotlib only inside the recorder's chart function), nothing of the
+    JAX package, no loader that runs a file by path, and no string that
+    names a path into the JAX package."""
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "coma_unet_tpu",
+              "pandas", "matplotlib"}
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -212,23 +237,24 @@ def test_port_source_imports_no_jax():
         tree = ast.parse(path.read_text())
         docs = {id(node) for node in _docstrings(tree)}
         for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            elif isinstance(node, (ast.Attribute, ast.Name)):
+            if isinstance(node, (ast.Attribute, ast.Name)):
                 name = node.attr if isinstance(node, ast.Attribute) else node.id
                 assert name not in _LOADERS, f"{path}:{node.lineno}: {name}"
-                continue
             elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
                   and id(node) not in docs):
                 assert not _REF_PATH.match(node.value.strip()), (
                     f"{path}:{node.lineno}: {node.value!r}")
-                continue
-            else:
-                continue
+        for node, names in _imports_outside_charts(tree):
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path}: {name}"
+
+
+def test_purity_scan_confines_matplotlib():
+    """matplotlib passes the scan inside the chart function only."""
+    inside = ast.parse("def _plt():\n    import matplotlib.pyplot as plt\n")
+    outside = ast.parse("import matplotlib\ndef chart():\n    import matplotlib\n")
+    assert [n for _, n in _imports_outside_charts(inside)] == [[]]
+    assert [n for _, n in _imports_outside_charts(outside)] == [["matplotlib"]] * 2
 
 
 def test_purity_scan_catches_a_load_by_path():

@@ -40,6 +40,7 @@ from coma_unet_tpu_torch import ContraAttnUNet, ops  # noqa: E402
 from coma_unet_tpu_torch import losses as port_losses  # noqa: E402
 from coma_unet_tpu_torch.convert import from_flax  # noqa: E402
 from coma_unet_tpu_torch.train import (  # noqa: E402
+    MultiSteps,
     ReduceLROnPlateau,
     create_train_state as port_create_train_state,
     get_lr,
@@ -395,8 +396,11 @@ def test_optimizer_and_state():
         model(torch.ones(4, 3)).sum().backward()
         state.optimizer.step()
         assert state.step == n
-    with pytest.raises(NotImplementedError):
-        make_optimizer(model.parameters(), 1e-3, grad_acc=2)
+    # gradient accumulation: optax.MultiSteps semantics, lr on the inner AdamW
+    acc = make_optimizer(model.parameters(), 1e-3, grad_acc=2)
+    assert isinstance(acc, MultiSteps) and isinstance(acc.inner, torch.optim.AdamW)
+    set_lr(acc, 2e-4)
+    assert get_lr(acc) == 2e-4 == acc.inner.param_groups[0]["lr"]
 
 
 def test_models_without_projections_raise():
