@@ -102,8 +102,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               share, the epoch, checkpoint save and restore, validate and
               infer wall times, the checkpoint's size, the peak memory and the
               phase's seconds.
+  11. tCDS:   the tCDS loss (`LossConfig(rnc=False)`: anchor, positive and
+              negative, three forwards and their backward) and the data
+              options of the CLI. Phase 5's check at 64^3 b=2 with partners
+              distinct from the anchors, to phase 5's limits, the tCDS term
+              non-zero on every route; four synchronized 128^3 b=2 tCDS steps
+              of the default ModelConfig (median, peak memory, a profile:
+              kernel time and idle share; every kernel family launches, no
+              plain version on the GPU); a synthetic 10-subject 128^3 cohort
+              whose training split (8) holds two subjects or more in every
+              (abeta, quartile) cell, so that no anchor is its own positive;
+              one b=2 batch's host time by part (read with the numpy and the
+              native reader, mask, ROI compaction, collate, pin) for RnC and
+              tCDS; the slice's main path, `train --config` with
+              "loss": {"rnc": false}, 2 epochs through the CLI (every kernel
+              family must launch, no plain version on the GPU, the pos/neg
+              CSVs written); `infer --cohort ucsf --cohort_dir <bundle>
+              --save_attention` on a synthetic 128^3 bundle, each psi map
+              within ATTN_TOL of the forward's attention. Prints the
+              loader-wait shares of phases 10 and 11.
 The last two lines are a JSON summary of the kernels (`launches` from the
-loop, phase 10; `launches_by_path` for every path) and
+tCDS train of phase 11; `launches_by_path` for every path) and
 {"ok": true, "device": {...}}. There is no CPU path.
 """
 
@@ -135,6 +154,10 @@ DEVICE = "cuda"       # every phase runs on the card; there is no CPU path
 READINGS: dict = {}   # numbers one phase prints beside another's
 TRAIN_STEPS = 6
 TEMPLATE_STEPS = 4
+TCDS_STEPS = 4
+ATTN_TOL = 1e-2       # |psi written by `infer --save_attention` - psi of the forward|: the
+                      # same bf16 forward twice, where cuDNN's transposed convs may add in
+                      # another order
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
@@ -809,7 +832,7 @@ def _group(name: str) -> str:
     return ".".join(parts[:2]) if parts[0] == "unet" else parts[0]
 
 
-def _loss_and_grads(model, batch: dict, device) -> tuple:
+def _loss_and_grads(model, batch: dict, device, loss_config=None) -> tuple:
     from coma_unet_tpu_torch import LossConfig
     from coma_unet_tpu_torch.train import make_loss_fn
 
@@ -818,7 +841,7 @@ def _loss_and_grads(model, batch: dict, device) -> tuple:
     tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     roi_w = torch.full((36,), 225.0, device=device)
     t0 = time.perf_counter()
-    total, metrics = make_loss_fn(model, LossConfig())(tb, roi_w)
+    total, metrics = make_loss_fn(model, loss_config or LossConfig())(tb, roi_w)
     total.backward()
     loss = float(total.detach())
     grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
@@ -826,12 +849,26 @@ def _loss_and_grads(model, batch: dict, device) -> tuple:
     return loss, float(metrics["tcds_loss"]), grads, time.perf_counter() - t0
 
 
-def phase_gradients(b: int = 2) -> None:
+def _with_partners(batch: dict, rng: np.random.Generator) -> dict:
+    """`batch` with pos_*/neg_* partners (the tCDS triplets): volumes and
+    covariates of their own, distinct from the anchors'."""
+    b, s = batch["mri"].shape[0], batch["mri"].shape[-1]
+    for role in ("pos_", "neg_"):
+        other = _batch(rng, b=b, s=s)
+        for k in ("mri", "covars", "roi_loc", "roi_std", "roi_compact"):
+            batch[role + k] = other[k]
+    return batch
+
+
+def phase_gradients(b: int = 2, tcds: bool = False) -> None:
     """Phase 5 at batch b: at b=2 RnC is identically 0 (one pair, ranked
-    against itself); at b >= 3 it must be non-zero on every route."""
+    against itself); at b >= 3 it must be non-zero on every route. With
+    `tcds` (phase 11), the tCDS loss on (anchor, positive, negative)
+    triplets whose partners differ from the anchors: three forwards and
+    their backward, the tCDS term non-zero on every route."""
     import dataclasses
 
-    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+    from coma_unet_tpu_torch import ContraAttnUNet, LossConfig, ModelConfig
 
     s = 64
     cfg = ModelConfig(prompt_shape=(s, s, s))
@@ -846,19 +883,28 @@ def phase_gradients(b: int = 2) -> None:
     gpu_model.load_state_dict(ref_model.state_dict())
     bf16_model = ContraAttnUNet(cfg, device="cpu")
     bf16_model.load_state_dict(ref_model.state_dict())
-    batch = _batch(np.random.default_rng(1), b=b, s=s)
+    rng = np.random.default_rng(1)
+    batch = _batch(rng, b=b, s=s)
     batch["covars"][:, 0] = [1.0, 0.0, 1.0][:b]  # abeta+ and abeta- prompts
+    loss_config = LossConfig(rnc=not tcds)
+    if tcds:
+        batch = _with_partners(batch, rng)
+    tag = f"gradients 64^3 b={b}{' tCDS' if tcds else ''}"
+    term = "tCDS" if tcds else "RnC"
 
-    loss_gpu, rnc_gpu, g_gpu, t_gpu = _loss_and_grads(gpu_model, batch, "cuda")
-    loss_ref, rnc_ref, g_ref, t_ref = _loss_and_grads(ref_model, batch, "cpu")
-    loss_bf, rnc_bf, g_bf, t_bf = _loss_and_grads(bf16_model, batch, "cpu")
-    print(f"gradients 64^3 b={b}: loss gpu {loss_gpu:.6f}, cpu f32 {loss_ref:.6f}, "
-          f"cpu bf16 {loss_bf:.6f}; RnC gpu {rnc_gpu:.6f}, cpu f32 {rnc_ref:.6f}, "
+    loss_gpu, rnc_gpu, g_gpu, t_gpu = _loss_and_grads(gpu_model, batch, "cuda",
+                                                      loss_config)
+    loss_ref, rnc_ref, g_ref, t_ref = _loss_and_grads(ref_model, batch, "cpu",
+                                                      loss_config)
+    loss_bf, rnc_bf, g_bf, t_bf = _loss_and_grads(bf16_model, batch, "cpu",
+                                                  loss_config)
+    print(f"{tag}: loss gpu {loss_gpu:.6f}, cpu f32 {loss_ref:.6f}, "
+          f"cpu bf16 {loss_bf:.6f}; {term} gpu {rnc_gpu:.6f}, cpu f32 {rnc_ref:.6f}, "
           f"cpu bf16 {rnc_bf:.6f}; gpu {t_gpu:.2f} s, cpu f32 {t_ref:.1f} s, "
           f"cpu bf16 {t_bf:.1f} s")
-    if b >= 3:
+    if b >= 3 or tcds:
         check(all(np.isfinite(v) and v != 0.0 for v in (rnc_gpu, rnc_ref, rnc_bf)),
-              f"gradients b={b}: RnC should be non-zero: {rnc_gpu}, {rnc_ref}, {rnc_bf}")
+              f"{tag}: {term} should be non-zero: {rnc_gpu}, {rnc_ref}, {rnc_bf}")
     for name, g in g_ref.items():
         if g is None:
             continue
@@ -866,7 +912,7 @@ def phase_gradients(b: int = 2) -> None:
         check(got is not None, f"gradients: {name} has a CPU gradient but none on the GPU")
         check(bool(torch.isfinite(got).all()), f"gradients: {name} non-finite on the GPU")
     rel_loss = abs(loss_gpu - loss_ref) / abs(loss_ref)
-    check(rel_loss <= LOSS_TOL, f"gradients: loss differs by {rel_loss} > {LOSS_TOL}")
+    check(rel_loss <= LOSS_TOL, f"{tag}: loss differs by {rel_loss} > {LOSS_TOL}")
 
     skip = _norm_fed_biases(ref_model)
     groups: dict = {}
@@ -893,8 +939,8 @@ def phase_gradients(b: int = 2) -> None:
               f"{rel_l2_to(g_gpu, g_bf, names):10.3e}")
         if err > limit:
             failed.append(group)
-    check(not failed, f"gradients: groups over their limit: {failed}")
-    print(f"gradients b={b}: loss rel diff {rel_loss:.3e}; {len(groups)} groups within "
+    check(not failed, f"{tag}: groups over their limit: {failed}")
+    print(f"{tag}: loss rel diff {rel_loss:.3e}; {len(groups)} groups within "
           f"limits ({len(skip)} norm-fed conv biases excluded)")
 
 
@@ -942,9 +988,10 @@ def phase_training() -> dict:
     return launches
 
 
-def profile_step(fn) -> None:
+def profile_step(fn) -> tuple:
     """torch.profiler over one call of `fn`: wall time, summed kernel time,
-    the device's idle share and the top 10 kernels by device time."""
+    the device's idle share and the top 10 kernels by device time. Returns
+    (wall ms, kernel ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -982,6 +1029,7 @@ def profile_step(fn) -> None:
         f"{name} {by_name[name][0]:.3f} ms x{by_name[name][1]} "
         f"({by_name[name][0] / total:.2%})" if name in by_name else f"{name} not run"
         for name in SMALL_KERNELS))
+    return wall, total
 
 
 def _check_metrics(name: str, got: dict, want: dict) -> float:
@@ -1316,6 +1364,8 @@ def phase_loop() -> dict:
               f"of {busy:.3f} s ({e['wait_s'] / busy:.1%}); validate "
               f"{e['validate_s']:.2f} s; checkpoint saves {e['checkpoint_s']:.2f} s")
     epochs = run1["epochs"] + run2["epochs"]
+    READINGS["loop_wait_share"] = [e["wait_s"] / (e["wait_s"] + e["step_s"])
+                                   for e in epochs]
     per_step = [1e3 * (e["wait_s"] + e["step_s"]) / len(e["step_ms"]) for e in epochs]
     print(f"loop step b=2 128^3: median {statistics.median(steps[1:]):.2f} ms over "
           f"steps 2-{len(steps)} (from a batch's arrival to the request for the next); "
@@ -1327,6 +1377,254 @@ def phase_loop() -> dict:
           f"{run2['restore_s']:.2f} s); resume {resume_s:.2f} s; validate "
           f"{validate_s:.2f} s (worst rel {worst:.2e} against the CSV, tol "
           f"{METRIC_TOL}); infer {infer_s:.2f} s; peak memory GiB "
+          f"{ {k: round(v, 2) for k, v in peaks.items()} }; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _loader_split(ds, predictions, triplets: bool) -> dict:
+    """The host time of one b=2 batch of `ds` (samples 0 and 1), part by
+    part on this thread, ms: reading (read, resample to 2 mm, center
+    pad/crop) with the numpy reader and with the native one (a subject's 3
+    files in one call, as the dataset reads them), masking the MRI by its
+    ROI, ROI compaction, the rest of `collate` and pinning; then the
+    loader's own time a batch (4 workers, partners drawn, prefetch 2) over
+    one pass."""
+    from coma_unet_tpu_torch.data import DataLoader, collate, compact_roi_np, pin_batch
+    from coma_unet_tpu_torch.io import load_nifti_vol
+    from coma_unet_tpu_torch.ops.preprocess import center_pad_crop
+    from coma_unet_tpu_torch.runtime import load_batch_native, native
+
+    native.library()  # built before the clock starts
+    drawn = [(i, ds.draw(i) if triplets else None) for i in (0, 1)]
+    subjects = [j for i, d in drawn for j in ([i] + ([d["pos"], d["negs"][0]] if d else []))]
+    paths = [p for j in subjects for p in ds._paths(j)]
+    ms = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[key] = ms.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    plain = timed("read numpy", lambda: [center_pad_crop(load_nifti_vol(p), ds.pad_dims)
+                                         for p in paths])
+    vols = timed("read native", lambda: [v[None] for k in range(0, len(paths), 3)
+                                         for v in load_batch_native(
+                                             paths[k:k + 3], ds.pad_dims, num_threads=3)])
+    check(all(np.array_equal(a, b) for a, b in zip(vols, plain)),
+          "loader split: the native reader differs from the numpy reader")
+    t0 = time.perf_counter()
+    for k in range(0, len(vols), 3):
+        mri = vols[k].copy()
+        mri[vols[k + 2] == 0] = 0
+    ms["mask"] = (time.perf_counter() - t0) * 1e3
+    rois = np.stack([vols[k + 2][0] for k in range(0, len(vols), 3)])
+    timed("ROI compaction", lambda: compact_roi_np(rois))
+    samples = [ds.load(i, d) for i, d in drawn]
+    batch = timed("collate", lambda: collate(samples, predictions, triplets))
+    ms["collate"] -= ms["ROI compaction"]  # collate compacts the ROIs too
+    timed("pin", lambda: pin_batch(batch))
+    loader = DataLoader(ds, 2, predictions=predictions, with_triplets=triplets,
+                        num_workers=4, device_put=pin_batch)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    ms["loader a batch"] = (time.perf_counter() - t0) * 1e3 / n
+    ms["files"] = len(paths)
+    return ms
+
+
+def phase_tcds() -> dict:
+    """Phase 11: the tCDS loss and the data options of the CLI on the card.
+    Returns the launches of its main path, the CLI's tCDS `train`."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from coma_unet_tpu_torch import (
+        ContraAttnUNet,
+        ExperimentConfig,
+        LossConfig,
+        ModelConfig,
+        ROI_INDICES,
+        TrainConfig,
+    )
+    from coma_unet_tpu_torch import data as pdata
+    from coma_unet_tpu_torch import ops
+    from coma_unet_tpu_torch.data.cohorts import load_cohort_dataset
+    from coma_unet_tpu_torch.data.synthetic import (
+        make_synthetic_cohort,
+        make_synthetic_cohort_bundle,
+    )
+    from coma_unet_tpu_torch.data.table import read_csv, write_rows
+    from coma_unet_tpu_torch.io import read_nifti
+    from coma_unet_tpu_torch.train import create_train_state, loop, make_train_step
+
+    t_phase = time.perf_counter()
+    phase_gradients(b=2, tcds=True)
+    grad_s = time.perf_counter() - t_phase
+
+    # the synchronized tCDS step at 128^3 b=2: three forwards and their backward
+    model = ContraAttnUNet(ModelConfig(), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, 1e-3)
+    step = make_train_step(model, LossConfig(rnc=False), state.optimizer)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in _with_partners(_batch(rng, b=2, s=128), rng).items()}
+    roi_w = torch.full((36,), 225.0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, terms, step_ms = [], [], []
+    for _ in range(TCDS_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, roi_w)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        terms.append(float(metrics["tcds_loss"]))
+    step_launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"tCDS train losses: {[round(v, 6) for v in losses]}; tCDS terms "
+          f"{[round(v, 6) for v in terms]}")
+    print(f"tCDS launches over {TCDS_STEPS} steps: {step_launches}; plain on cuda: "
+          f"{plain_cuda}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(terms)),
+          f"tCDS: non-finite loss {losses} {terms}")
+    check(all(v != 0.0 for v in terms), f"tCDS: the triplet term is 0: {terms}")
+    for family in ops.PATH_FAMILIES:
+        check(step_launches.get(family, 0) > 0, f"{family}: no launch in the tCDS step")
+    check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
+    med = statistics.median(step_ms[1:])
+    wall, kernel = profile_step(lambda: step(batch, roi_w))
+    print(f"tCDS train step b=2 128^3: median {med:.2f} ms over steps 2-{TCDS_STEPS} "
+          f"(phase 7's RnC step {READINGS.get('train_step_ms', float('nan')):.2f} ms); "
+          f"all steps ms {[round(t, 2) for t in step_ms]}; profiled {wall:.2f} ms wall, "
+          f"{kernel:.2f} ms kernel time, idle share {max(0.0, 1 - kernel / wall):.3f} "
+          f"(against the median step {max(0.0, 1 - kernel / med):.3f}); "
+          f"peak memory {peak:.2f} GiB")
+    del model, state, step, batch, metrics
+    gc.collect()  # the optimizer holds cycles: free its device state now
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="coma_tcds_")
+    try:
+        t0 = time.perf_counter()
+        cohort = make_synthetic_cohort(os.path.join(tmp, "cohort"), n_subjects=10,
+                                       size=128, num_rois=len(ROI_INDICES))
+        rows = read_csv(cohort["lookup"]).rows()
+        splits = os.path.join(tmp, "splits")
+        os.makedirs(splits)
+        train_csv = os.path.join(splits, "training_lookup_4.csv")
+        write_rows(train_csv, rows[:8])
+        write_rows(os.path.join(splits, "test_lookup_4.csv"), rows[8:])
+        cohort_s = time.perf_counter() - t0
+        tables = [pdata.CovariateTable(cohort["cov"]), pdata.QuartileTable(cohort["quart"]),
+                  pdata.PredictionTable(cohort["preds"])]
+
+        def dataset():
+            return pdata.PredictedMetaTauDataset(train_csv, *tables[:2],
+                                                 meta_tau_table=tables[2])
+
+        # every (abeta, quartile) cell of the training split holds two
+        # subjects or more: no anchor is its own positive over the 3
+        # passes a 2-epoch run draws
+        ds = dataset()
+        cells = Counter(ds._key)
+        self_pos = sum(ds.draw(i)["pos"] == i for _ in range(3) for i in range(len(ds)))
+        print(f"tCDS cohort: {len(ds)} training subjects in cells {dict(cells)}; "
+              f"anchors drawn as their own positive: {self_pos}")
+        check(min(cells.values()) >= 2 and self_pos == 0,
+              f"tCDS: cells {dict(cells)}, {self_pos} self-positives")
+        splits_ms = {kind: _loader_split(dataset(), tables[2], kind == "tcds")
+                     for kind in ("rnc", "tcds")}
+        for kind, ms in splits_ms.items():
+            print(f"loader split, one b=2 batch ({kind}, {ms.pop('files')} files of "
+                  f"128^3), ms: " + "; ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+
+        cfg = ExperimentConfig(loss=LossConfig(rnc=False),
+                               train=TrainConfig(epochs=2, batch_size=2, val_iter=1),
+                               save_path=os.path.join(tmp, "results"))
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        peaks: dict = {}
+        # the main path: counts from 0 before train, read after it
+        ops.reset_counts()
+        rc, _, train_s = _cli(["train", "--config", cfg_path, "--splits_dir", splits,
+                               "--fold", "4", "--covariate_csv", cohort["cov"],
+                               "--quartile_csv", cohort["quart"], "--predictions_json",
+                               cohort["preds"]], peaks)
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        check(rc == 0, f"tCDS: train returned {rc}")
+        run = dict(loop.LAST_RUN)
+        cli_losses = [v for e in run["epochs"] for v in e["losses"]]
+        check(len(run["epochs"]) == 2 and len(cli_losses) == 8
+              and all(np.isfinite(cli_losses)), f"tCDS: losses {cli_losses}")
+        (run_name,) = os.listdir(os.path.join(tmp, "results"))
+        for sub in ("", "pos_metrics", "neg_metrics"):
+            cols = read_csv(os.path.join(tmp, "results", run_name, sub,
+                                         "validation_metric_results", "mape.csv")).columns
+            check(cols == ["epoch_0", "epoch_1"], f"tCDS: {sub} mape.csv {cols}")
+        print(f"tCDS loop launches (train): {launches}; plain on cuda: {plain_cuda}")
+        for family in ops.PATH_FAMILIES:
+            check(launches.get(family, 0) > 0, f"{family}: no launch in the tCDS loop")
+        check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
+
+        # infer --cohort --save_attention: each psi map against the forward's
+        bundle = make_synthetic_cohort_bundle(os.path.join(tmp, "bundle"), "ucsf",
+                                              n_subjects=2, size=128)
+        out = os.path.join(tmp, "synth")
+        rc, _, infer_s = _cli(["infer", "--config", cfg_path, "--cohort", "ucsf",
+                               "--cohort_dir", bundle, "--out_dir", out,
+                               "--save_attention"], peaks)
+        check(rc == 0, f"tCDS: infer --cohort returned {rc}")
+        ref = ExperimentConfig.from_json(open(cfg_path).read()).normalized()
+        model = ContraAttnUNet(ref.model, device="cuda",
+                               generator=torch.Generator().manual_seed(ref.train.seed))
+        cohort_ds = load_cohort_dataset("ucsf", bundle, pad_dims=ref.data.volume_shape)
+        worst, maps = 0.0, 0
+        for b in pdata.DataLoader(cohort_ds, 1, predictions=cohort_ds.meta_tau_table):
+            sid = b["sample_ids"][0]
+            synth = read_nifti(os.path.join(out, f"{sid}_synth_tau.nii")).data_zyx
+            check(synth.shape == (128, 128, 128) and bool(np.isfinite(synth).all()),
+                  f"tCDS: infer wrote {synth.shape} for {sid}")
+            with torch.inference_mode():
+                outs = model(*_args(b, "cuda"), with_projections=False)
+            for level, psi in enumerate(outs.attention):
+                got = read_nifti(os.path.join(out, "attention",
+                                              f"{sid}_attn_level{level}.nii")).data_zyx
+                want = psi[0, 0].float().cpu().numpy()
+                check(got.shape == want.shape, f"tCDS: {sid} level {level} {got.shape}")
+                worst = max(worst, float(np.abs(got - want).max()))
+                maps += 1
+        written = len(os.listdir(os.path.join(out, "attention")))
+        check(written == maps and maps > 0, f"tCDS: {written} maps written, {maps} levels")
+        check(worst <= ATTN_TOL, f"tCDS: psi maps differ from the forward's by {worst}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for e in run["epochs"]:
+        busy = e["wait_s"] + e["step_s"]
+        print(f"tCDS loop epoch {e['epoch']}: {e['seconds']:.2f} s; steps ms "
+              f"{[round(t, 2) for t in e['step_ms']]}; loader wait {e['wait_s']:.3f} s "
+              f"of {busy:.3f} s ({e['wait_s'] / busy:.1%}); validate "
+              f"{e['validate_s']:.2f} s; checkpoint saves {e['checkpoint_s']:.2f} s")
+    steps = [t for e in run["epochs"] for t in e["step_ms"]]
+    shares = [e["wait_s"] / (e["wait_s"] + e["step_s"]) for e in run["epochs"]]
+    print(f"loader-wait share by epoch: phase 10 (RnC) "
+          f"{[round(v, 3) for v in READINGS.get('loop_wait_share', [])]}, phase 11 "
+          f"(tCDS) {[round(v, 3) for v in shares]}; tCDS loop step median "
+          f"{statistics.median(steps[1:]):.2f} ms over steps 2-{len(steps)}")
+    print(f"tCDS: gradient check {grad_s:.1f} s; cohort {cohort_s:.2f} s; train "
+          f"{train_s:.2f} s; infer --cohort --save_attention {infer_s:.2f} s ({maps} psi "
+          f"maps within {worst:.2e} of the forward's, tol {ATTN_TOL}); peak memory GiB "
           f"{ {k: round(v, 2) for k, v in peaks.items()} }; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -1362,12 +1660,14 @@ def main() -> int:
     paths["template"] = phase_template()
     torch.cuda.empty_cache()
     paths["loop"] = phase_loop()
+    torch.cuda.empty_cache()
+    paths["tcds"] = phase_tcds()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths["loop"].get(family, 0),
+            "launches": paths["tcds"].get(family, 0),
             "launches_by_path": {p: n.get(family, 0) for p, n in paths.items()},
             "max_abs_err": entry["max_abs_err"],
             "ms": round(entry["ms"], 4), "plain_ms": round(entry["plain_ms"], 4),

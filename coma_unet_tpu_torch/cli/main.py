@@ -10,7 +10,10 @@ own: `--device` (default `cuda`). Without a card, `--device cuda` raises
 and names `--device cpu`. The Hopper kernels take bf16: with a CUDA device
 and a `compute_dtype` other than bfloat16 (flag or `--config`) the CLI
 exits with status 2 before it builds a model; `--device cpu` runs float32.
-Options whose path is not ported yet are accepted by the parser and raise
+The training objective is the config's: `"loss": {"rnc": false}` in
+`--config` trains with tCDS on (anchor, positive, negative) triplets. The
+options whose path is not ported yet (data and spatial parallelism, the
+baselines, `--norm batch`) are accepted by the parser and raise
 NotImplementedError when set, naming their `ROADMAP.md` item.
 
 The results directory is the reference's: <save>/<run>/checkpoints/,
@@ -224,12 +227,6 @@ def _check_ported(args, config) -> None:
     """Raise NotImplementedError for a set option whose path is not ported
     yet, naming its ROADMAP.md item."""
     deferred = [
-        (getattr(args, "combined", False), "--combined (CombinedVolumeDataset)",
-         "queue 1 item 2"),
-        (getattr(args, "cohort", None) or getattr(args, "cohort_dir", None),
-         "--cohort / --cohort_dir (data/cohorts.py)", "queue 1 item 2"),
-        (getattr(args, "save_attention", False),
-         "--save_attention (analysis/attention.py)", "queue 1 item 2"),
         (max(int(config.train.data_parallel), int(config.train.spatial_parallel),
              int(getattr(args, "spatial_parallel", 1) or 1)) > 1,
          "--data_parallel / --spatial_parallel > 1", "queue 1 item 3"),
@@ -282,9 +279,17 @@ def _tables(args, config):
     return cov, quart, preds
 
 
+def _load_json(path: Optional[str]) -> dict:
+    if not path:
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
 def _build_loaders(args, config):
     from coma_unet_tpu_torch.data import (
-        DataLoader, PredictedMetaTauDataset, filter_for_holdout,
+        CombinedVolumeDataset, DataLoader, PredictedMetaTauDataset,
+        filter_for_holdout,
     )
 
     cov, quart, preds = _tables(args, config)
@@ -296,10 +301,21 @@ def _build_loaders(args, config):
     ds_kwargs = dict(template_space=config.data.template_space,
                      smoothing=config.data.smoothing,
                      pad_dims=config.data.volume_shape)
-    train_ds = PredictedMetaTauDataset(train_csv, cov, quart,
-                                       meta_tau_table=preds, **ds_kwargs)
-    test_ds = PredictedMetaTauDataset(test_csv, cov, quart,
-                                      meta_tau_table=preds, **ds_kwargs)
+    if getattr(args, "combined", False):
+        if not config.loss.rnc:
+            raise ValueError(
+                "--combined reads the flat CombinedVolumeDataset, which has no "
+                "triplets; the tCDS loss (loss.rnc = false) needs them")
+        aux = dict(cognition_table=_load_json(args.cognition_json),
+                   abeta_fallback_table=_load_json(args.abeta_fallback_json))
+        train_ds, test_ds = (CombinedVolumeDataset(csv, cov, meta_tau_table=preds,
+                                                   **aux, **ds_kwargs)
+                             for csv in (train_csv, test_csv))
+    else:
+        train_ds, test_ds = (PredictedMetaTauDataset(csv, cov, quart,
+                                                     meta_tau_table=preds,
+                                                     **ds_kwargs)
+                             for csv in (train_csv, test_csv))
     roi_idx = _roi_indices(config)
     # holdout subjects are excluded from training only
     sampler = None
@@ -312,6 +328,7 @@ def _build_loaders(args, config):
             len(sampler), len(train_ds))
     train_loader = DataLoader(train_ds, config.train.batch_size,
                               predictions=preds, shuffle=True, drop_last=False,
+                              with_triplets=not config.loss.rnc,
                               roi_indices=roi_idx, sampler=sampler)
     test_loader = DataLoader(test_ds, config.train.batch_size,
                              predictions=preds, roi_indices=roi_idx)
@@ -420,7 +437,8 @@ def cmd_validate(args) -> int:
 
 def cmd_infer(args) -> int:
     from coma_unet_tpu_torch.data import (
-        DataLoader, InferenceVolumeDataset, batch_to_device, pin_batch,
+        CovariateTable, DataLoader, InferenceVolumeDataset, PredictionTable,
+        batch_to_device, pin_batch,
     )
     from coma_unet_tpu_torch.infer import make_infer_fn, sliding_window_inference
     from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
@@ -430,13 +448,26 @@ def cmd_infer(args) -> int:
     if config is None:
         return 2
     setup_logging(None)
-    if not args.input_lookup:
-        print("--input_lookup is required", file=sys.stderr)
+    if args.cohort and not args.cohort_dir:
+        print("--cohort requires --cohort_dir", file=sys.stderr)
+        return 2
+    if not args.cohort and not args.input_lookup:
+        print("--input_lookup is required without --cohort", file=sys.stderr)
         return 2
     model = _build_model(config, device)
-    cov, _, preds = _tables(args, config)
-    ds = InferenceVolumeDataset(args.input_lookup, cov, meta_tau_table=preds,
-                                pad_dims=config.data.volume_shape)
+    preds = (PredictionTable(args.predictions_json)
+             if args.predictions_json else None)
+    if args.cohort:
+        from coma_unet_tpu_torch.data.cohorts import load_cohort_dataset
+
+        ds = load_cohort_dataset(args.cohort, args.cohort_dir,
+                                 pad_dims=config.data.volume_shape,
+                                 paths_csv=args.input_lookup)
+        preds = preds or ds.meta_tau_table
+    else:
+        ds = InferenceVolumeDataset(
+            args.input_lookup, CovariateTable(config.data.covariate_csv),
+            meta_tau_table=preds, pad_dims=config.data.volume_shape)
     loader = DataLoader(ds, 1, predictions=preds,
                         device_put=pin_batch if device.type == "cuda" else None)
     _load_weights(model, args.checkpoint_path)
@@ -455,6 +486,12 @@ def cmd_infer(args) -> int:
         path = os.path.join(args.out_dir, f"{sid}_synth_tau.nii")
         write_tensor_to_nii(out[0], path)
         print(f"wrote {path}")
+        if args.save_attention:
+            from coma_unet_tpu_torch.analysis import export_attention_maps
+
+            export_attention_maps(model, batch,
+                                  os.path.join(args.out_dir, "attention"),
+                                  sample_ids=batch["sample_ids"])
     return 0
 
 

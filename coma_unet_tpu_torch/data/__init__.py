@@ -1,6 +1,7 @@
 """The data pipeline of the port (counterpart of `coma_unet_tpu/data/`):
-lookup CSVs, covariate and prediction tables, datasets and the threaded
-loader, read and written with the standard library and numpy."""
+lookup CSVs, covariate and prediction tables, datasets, the threaded
+loader, the split orchestration and the cohort presets, read and written
+with the standard library, numpy and the native NIfTI reader."""
 
 from coma_unet_tpu_torch.data.covariates import (  # noqa: F401
     CovariateTable,
@@ -8,9 +9,15 @@ from coma_unet_tpu_torch.data.covariates import (  # noqa: F401
     QuartileTable,
 )
 from coma_unet_tpu_torch.data.datasets import (  # noqa: F401
+    A4VolumeDataset,
+    ClusterVolumeDataset,
+    CombinedVolumeDataset,
+    ContrastiveVolumeDataset,
     CovariateVolumeDataset,
+    CustomSampler,
     InferenceVolumeDataset,
     PredictedMetaTauDataset,
+    RegressionVolumeDataset,
     VolumeDataset,
 )
 from coma_unet_tpu_torch.data.lookup import (  # noqa: F401

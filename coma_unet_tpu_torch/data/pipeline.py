@@ -1,10 +1,14 @@
 """Batching and prefetching on the host (counterpart of
 `coma_unet_tpu/data/pipeline.py`).
 
-A thread pool loads the samples of a batch concurrently (the NIfTI decode
-and resample are numpy, which releases the GIL in its loops), a producer
-thread collates whole batches as numpy and stages up to `prefetch` of them
-ahead of the consumer, so the next batch's IO overlaps the current step.
+A thread pool loads the samples of a batch concurrently (the native NIfTI
+reader runs outside the GIL), a producer thread collates whole batches as
+numpy and stages up to `prefetch` of them ahead of the consumer, so the
+next batch's IO overlaps the current step. For a triplet dataset (one with
+`draw`) a pass draws every sample's partners when it starts, in the pass's
+index order, before any is read: the same seed then gives the same
+partners whatever the number of workers, and a pass cut short (the
+training loop's first batch) draws what a whole one does.
 The consumer moves a batch to the device (`batch_to_device`); a
 `device_put` hook, run in the producer thread, may prepare it for that (the
 training loop pins its memory there).
@@ -12,10 +16,11 @@ training loop pins its memory there).
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +55,7 @@ def compact_roi_np(roi: np.ndarray, roi_indices=ROI_INDICES) -> np.ndarray:
 
 
 def _stack_flat(samples: List[Dict], predictions: Optional[PredictionTable],
-                roi_indices=ROI_INDICES) -> Dict[str, np.ndarray]:
+                prefix: str = "", roi_indices=ROI_INDICES) -> Dict[str, np.ndarray]:
     out = {"mri": np.stack([s["mri"] for s in samples]).astype(np.float32)}
     if "tau" in samples[0]:
         out["tau"] = np.stack([s["tau"] for s in samples]).astype(np.float32)
@@ -71,16 +76,26 @@ def _stack_flat(samples: List[Dict], predictions: Optional[PredictionTable],
                 locs[i], stds[i] = predictions.roi_arrays(sid)
     out["roi_loc"] = locs
     out["roi_std"] = stds
-    return out
+    return {prefix + k: v for k, v in out.items()}
 
 
 def collate(samples: List[Dict], predictions: Optional[PredictionTable] = None,
-            roi_indices=ROI_INDICES) -> Dict[str, np.ndarray]:
+            with_triplets: bool = False, roi_indices=ROI_INDICES
+            ) -> Dict[str, np.ndarray]:
     """Samples -> the train step's batch dict: {mri, tau, roi_compact,
-    covars, abeta, roi_loc, roi_std, sample_ids, tau_paths}."""
-    batch = _stack_flat(samples, predictions, roi_indices=roi_indices)
-    batch["sample_ids"] = [s.get("sample_id", "") for s in samples]
-    batch["tau_paths"] = [s.get("tau_path", "") for s in samples]
+    covars, abeta, roi_loc, roi_std, sample_ids, tau_paths} of the samples,
+    or of their anchors where they nest; with `with_triplets`, nested
+    samples add the pos_* and neg_* mirrors of their partners (the tCDS
+    loss)."""
+    nested = "anchor" in samples[0]
+    anchors = [s["anchor"] if nested else s for s in samples]
+    batch = _stack_flat(anchors, predictions, roi_indices=roi_indices)
+    batch["sample_ids"] = [s.get("sample_id", "") for s in anchors]
+    batch["tau_paths"] = [s.get("tau_path", "") for s in anchors]
+    if nested and with_triplets:
+        for role in ("pos", "neg"):
+            batch.update(_stack_flat([s[role] for s in samples], predictions,
+                                     role + "_", roi_indices))
     return batch
 
 
@@ -99,6 +114,11 @@ def batch_to_device(batch: Dict, device: torch.device,
             for k, v in batch.items() if k not in skip}
 
 
+def _load_drawn(dataset, with_partners: bool, job) -> Dict:
+    idx, partners = job
+    return dataset.load(idx, partners if with_partners else None)
+
+
 class DataLoader:
     """Threaded, double-buffered batch loader.
 
@@ -109,6 +129,8 @@ class DataLoader:
         flagged False in the batch's `valid`.
       sampler: iterable of indices; default range(len(dataset)).
       predictions: PredictionTable for the roi_loc/roi_std inputs.
+      with_triplets: batches of a triplet dataset carry the pos_*/neg_*
+        mirrors (the tCDS loss); without it only the anchors are read.
       shuffle, seed: each pass shuffles with
         `np.random.default_rng(seed + epoch)`, the epoch counting passes.
       num_workers: loader threads.
@@ -120,6 +142,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int,
                  sampler: Optional[Iterable[int]] = None,
                  predictions: Optional[PredictionTable] = None,
+                 with_triplets: bool = False,
                  shuffle: bool = False, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, drop_last: bool = False,
                  device_put: Optional[Callable] = None,
@@ -128,6 +151,7 @@ class DataLoader:
         self.batch_size = batch_size
         self.sampler = sampler
         self.predictions = predictions
+        self.with_triplets = with_triplets
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
@@ -138,16 +162,36 @@ class DataLoader:
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
-        """The pass count that the next pass shuffles with."""
+        """The pass count that the next pass shuffles with. For a triplet
+        dataset the partners of the passes skipped are drawn (not read),
+        so its generator stands where it would after them."""
+        draw = getattr(self.dataset, "draw", None)
+        if draw is not None:
+            for skipped in range(self._epoch, epoch):
+                for b in self._batches(skipped)[0]:
+                    for i in b:
+                        draw(i)
         self._epoch = epoch
 
-    def _indices(self) -> List[int]:
+    def _batches(self, epoch: int) -> Tuple[List[List[int]], List[int]]:
+        """The index batches of pass `epoch` and each one's count of valid
+        rows: the last partial batch dropped when `drop_last`, else padded
+        by wrapping around."""
         idxs = (list(self.sampler) if self.sampler is not None
                 else list(range(len(self.dataset))))
         if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
+            rng = np.random.default_rng(self.seed + epoch)
             idxs = [idxs[i] for i in rng.permutation(len(idxs))]
-        return idxs
+        batches = [idxs[i : i + self.batch_size]
+                   for i in range(0, len(idxs), self.batch_size)]
+        if batches and self.drop_last and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        valid_counts = [len(b) for b in batches]
+        if (batches and not self.drop_last and len(batches[-1]) < self.batch_size
+                and len(idxs) >= self.batch_size):
+            need = self.batch_size - len(batches[-1])
+            batches[-1] = batches[-1] + idxs[:need]
+        return batches, valid_counts
 
     def __len__(self) -> int:
         n = (len(list(self.sampler)) if self.sampler is not None
@@ -157,19 +201,16 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
-        idxs = self._indices()
+        batches, valid_counts = self._batches(self._epoch)
         self._epoch += 1
-        batches = [idxs[i : i + self.batch_size]
-                   for i in range(0, len(idxs), self.batch_size)]
         if not batches:
             return
-        if self.drop_last and len(batches[-1]) < self.batch_size:
-            batches.pop()
-        valid_counts = [len(b) for b in batches]
-        if (not self.drop_last and len(batches[-1]) < self.batch_size
-                and len(idxs) >= self.batch_size):
-            need = self.batch_size - len(batches[-1])
-            batches[-1] = batches[-1] + idxs[:need]
+        ds = self.dataset
+        jobs, load = batches, ds.__getitem__
+        if hasattr(ds, "draw"):
+            # every partner of the pass, in index order, before any read
+            jobs = [[(i, ds.draw(i)) for i in b] for b in batches]
+            load = functools.partial(_load_drawn, ds, self.with_triplets)
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -186,10 +227,10 @@ class DataLoader:
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for b, n_valid in zip(batches, valid_counts):
-                        samples = list(pool.map(self.dataset.__getitem__, b))
+                    for b, n_valid in zip(jobs, valid_counts):
+                        samples = list(pool.map(load, b))
                         batch = collate(samples, self.predictions,
-                                        self.roi_indices)
+                                        self.with_triplets, self.roi_indices)
                         batch["valid"] = np.arange(len(b)) < n_valid
                         if self.device_put is not None:
                             batch = self.device_put(batch)

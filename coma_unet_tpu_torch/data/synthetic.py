@@ -1,12 +1,12 @@
 """A synthetic cohort on disk (counterpart of
-`coma_unet_tpu/data/synthetic.py:make_synthetic_cohort`): the test and
-smoke data of the port's host side, since the real ADNI/A4 data cannot ship
-with the repo.
+`coma_unet_tpu/data/synthetic.py`): the test and smoke data of the port's
+host side, since the real ADNI/A4 data cannot ship with the repo.
 
 ADNI-layout NIfTI volumes (MRI, tau and a FreeSurfer-labelled ROI volume),
 a covariate CSV, an abeta x tau-quartile CSV and a per-ROI prediction JSON,
-in the schemas that the lookup, covariate and prediction tables read. The
-same seed writes the same volumes and CSV rows as the JAX package's.
+in the schemas that the lookup, covariate and prediction tables read; and
+an MRI-only cohort bundle for `infer --cohort`. The same seed writes the
+same volumes and CSV rows as the JAX package's.
 """
 
 from __future__ import annotations
@@ -68,3 +68,49 @@ def make_synthetic_cohort(root: str, n_subjects: int = 8, size: int = 16,
     with open(paths["preds"], "w") as f:
         json.dump(preds, f)
     return paths
+
+
+def make_synthetic_cohort_bundle(root: str, cohort: str = "ucsf",
+                                 n_subjects: int = 4, size: int = 16,
+                                 spacing: float = 2.0, seed: int = 0) -> str:
+    """Write the preset bundle of `cohort` under `root`, in its file names
+    (`data/cohorts.py`), so that `infer --cohort <cohort> --cohort_dir
+    <root>` runs on it; returns `root`. MRI-only subjects: the paths CSV
+    (SAMPLE_ID, MRI, roi), the covariate CSV (subject 0's abeta missing, so
+    that the fallback table fills it), the tau-meta and cognition JSONs,
+    and the abeta JSON where the cohort has one."""
+    from coma_unet_tpu_torch.data.cohorts import COHORT_PRESETS
+
+    preset = COHORT_PRESETS[cohort]
+    rng = np.random.default_rng(seed)
+    rows, cov_rows = [], []
+    tau_meta: Dict[str, dict] = {}
+    cognition: Dict[str, float] = {}
+    abeta: Dict[str, float] = {}
+    for i in range(n_subjects):
+        sid = f"COH{i:03d}"
+        d = os.path.join(root, "scans", sid)
+        os.makedirs(d, exist_ok=True)
+        mri = rng.uniform(0, 255, size=(size,) * 3).astype(np.float32)
+        roi = rng.integers(0, 3, size=(size,) * 3).astype(np.float32)
+        for name, vol in (("mri.nii", mri), ("roi.nii", roi)):
+            write_nifti(os.path.join(d, name), np.transpose(vol, (2, 1, 0)),
+                        spacing=(spacing,) * 3)
+        rows.append({"SAMPLE_ID": sid, "MRI": os.path.join(d, "mri.nii"),
+                     "roi": os.path.join(d, "roi.nii")})
+        cov_rows.append({"SAMPLE_ID": sid,
+                         "Abeta_Covar": float("nan") if i == 0 else i % 2,
+                         "Age": 60 + i, "PTGENDER": "Male" if i % 2 else "Female",
+                         "Education": 12 + i})
+        tau_meta[sid] = {"Tau_Meta": {"loc": 1.0 + i, "std": 0.2}}
+        cognition[sid] = 20.0 + i
+        abeta[sid] = 1.0
+    write_rows(os.path.join(root, preset.paths_csv), rows)
+    write_rows(os.path.join(root, preset.covariate_csv), cov_rows)
+    tables = [(preset.tau_meta_json, tau_meta), (preset.cognition_json, cognition)]
+    if preset.abeta_json:
+        tables.append((preset.abeta_json, abeta))
+    for name, table in tables:
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(table, f)
+    return root

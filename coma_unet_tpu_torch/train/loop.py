@@ -12,7 +12,8 @@ ROI correlation tracked. A step's loss is read on the host only after the
 next step is enqueued, so the host does not drain the device every step.
 
 Batches come from the loader as numpy; on a GPU the producer thread pins
-them and the loop copies them to the card asynchronously. Three things
+them and the loop copies them to the card asynchronously, the pos_*/neg_*
+partners of a tCDS batch (`loss.rnc` false) with the anchors. Three things
 differ from the JAX package, so that a resumed run continues as an
 uninterrupted one would: the checkpoint also holds the adapted ROI (voxel)
 weights, it is written after the epoch's validation, which adapts them, and
@@ -153,10 +154,6 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
                          f"training was asked on {device}")
     device = _model_device(model)
     tcfg, lcfg = config.train, config.loss
-    if not lcfg.rnc:
-        raise NotImplementedError(
-            "the tCDS loss (loss.rnc = false) needs the triplet datasets, "
-            "which are not ported yet (ROADMAP.md, queue 1)")
     if max(int(tcfg.data_parallel), 1) * max(int(tcfg.spatial_parallel), 1) > 1:
         raise NotImplementedError(
             "data and spatial parallelism are not ported yet (ROADMAP.md, "

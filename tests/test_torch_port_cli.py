@@ -210,10 +210,6 @@ def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("cmd,flag,item", [
-    ("train", ["--combined"], "queue 1 item 2"),
-    ("infer", ["--cohort", "ucsf"], "queue 1 item 2"),
-    ("infer", ["--cohort_dir", "somewhere"], "queue 1 item 2"),
-    ("infer", ["--save_attention"], "queue 1 item 2"),
     ("train", ["--data_parallel", "2"], "queue 1 item 3"),
     ("infer", ["--spatial_parallel", "4"], "queue 1 item 3"),
     ("validate", ["-model_type", "UNET"], "queue 1 item 4"),

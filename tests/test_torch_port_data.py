@@ -344,10 +344,11 @@ def test_dataset_items_match_jax(cohort, mask_path, name):
     got_ds = _datasets(cohort, True, mask_path)[name]
     assert len(got_ds) == len(want_ds) == 8
     for idx in (0, 5):
-        want = want_ds[idx]
-        if name == "predicted":  # the JAX item is cluster-mode: its anchor
-            want = want["anchor"]
-        _same(got_ds[idx], want)
+        want, got = want_ds[idx], got_ds[idx]
+        if name == "predicted":  # cluster-mode: the port reads the negative
+            want = dict(want)    # that the JAX collate takes
+            want["neg"] = want.pop("negs")[0]
+        _same(got, want)
 
 
 def test_loader_batches_match_jax(cohort, tmp_path):

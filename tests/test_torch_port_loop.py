@@ -476,8 +476,6 @@ def test_loop_refuses_paths_not_ported(cohort):
     loader, _ = _loaders(cohort, port=True)
     base = _config(pconfig, epochs=1)
     for cfg, what in (
-        (dataclasses.replace(base, loss=dataclasses.replace(base.loss, rnc=False)),
-         "triplet"),
         (dataclasses.replace(base, train=dataclasses.replace(base.train,
                                                              data_parallel=2)),
          "parallelism"),

@@ -233,6 +233,8 @@ def test_port_source_imports_no_jax():
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # the native runtime and the analysis modules are scanned too
+    assert {"runtime", "analysis"} <= {p.parent.name for p in files}
     for path in files:
         tree = ast.parse(path.read_text())
         docs = {id(node) for node in _docstrings(tree)}
