@@ -108,8 +108,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               distinct from the anchors, to phase 5's limits, the tCDS term
               non-zero on every route; four synchronized 128^3 b=2 tCDS steps
               of the default ModelConfig (median, peak memory, a profile:
-              kernel time and idle share; every kernel family launches, no
-              plain version on the GPU); a synthetic 10-subject 128^3 cohort
+              kernel time and idle share; fresh triplets every step, the
+              triplet term non-zero on each; every kernel family launches,
+              no plain version on the GPU); a synthetic 10-subject 128^3 cohort
               whose training split (8) holds two subjects or more in every
               (abeta, quartile) cell, so that no anchor is its own positive;
               one b=2 batch's host time by part (read with the numpy and the
@@ -121,6 +122,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               --save_attention` on a synthetic 128^3 bundle, each psi map
               within ATTN_TOL of the forward's attention. Prints the
               loader-wait shares of phases 10 and 11.
+  12. baselines: the registry's seven other model types (AttnUNET,
+              GenAttnUnet, UNET, GenUNETR, AttnUNETR, SwinUnetr,
+              AttnSwinUnetr) at the registry's widths, weights from seed 0.
+              (a) Each one's bf16 forward on the card against its f32 CPU
+              forward at 32^3 b=2, rel L2 of `out` within PARITY_TOL, or,
+              where bf16 rounding alone exceeds it, within PARITY_RATIO x
+              the plain bf16 CPU route's error, as phase 8; each
+              one with batch norm at 32^3 b=2: a train step moves every
+              running statistic and an eval step leaves them as they are.
+              (b) At 128^3 b=2: the median of 10 forwards (CUDA events),
+              BASELINE_STEPS synchronized train steps (median of steps 2 on,
+              finite non-zero losses, every parameter given a finite
+              gradient), the peak memory and one profiled step (kernel
+              time, idle share). AttnUNET and GenAttnUnet run the flagship's
+              backbone: every kernel family of the path must launch there
+              (`launches_by_path["baselines"]`); the other five must launch
+              none; no plain version may run on the GPU. (c) Through the
+              CLI on a synthetic 6-subject 128^3 cohort: `train -model_type
+              UNET` 1 epoch; AttnUNET with the config's batch norm 2 epochs
+              and a resumed third, `validate` from its epoch-2 checkpoint
+              within METRIC_TOL of the run's CSV, `infer`; `train
+              -model_type GenUNETR` 1 epoch and `infer` from its checkpoint.
 The last two lines are a JSON summary of the kernels (`launches` from the
 tCDS train of phase 11; `launches_by_path` for every path) and
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -155,6 +178,12 @@ READINGS: dict = {}   # numbers one phase prints beside another's
 TRAIN_STEPS = 6
 TEMPLATE_STEPS = 4
 TCDS_STEPS = 4
+BASELINE_STEPS = 4
+# the registry's baselines; the first two run the flagship's backbone, whose
+# levels 0-1 go through the kernels, the other five PyTorch's built-ins
+BASELINE_TYPES = ("AttnUNET", "GenAttnUnet", "UNET", "GenUNETR", "AttnUNETR",
+                  "SwinUnetr", "AttnSwinUnetr")
+KERNEL_BASELINES = ("AttnUNET", "GenAttnUnet")
 ATTN_TOL = 1e-2       # |psi written by `infer --save_attention` - psi of the forward|: the
                       # same bf16 forward twice, where cuDNN's transposed convs may add in
                       # another order
@@ -732,10 +761,7 @@ def phase_parity(s: int = 64, b: int = 2, template: bool = False, seed: int = 0)
     cpu_cfg = dataclasses.replace(cfg, compute_dtype="float32")
     gen = torch.Generator().manual_seed(seed)
     ref_model = ContraAttnUNet(cpu_cfg, device="cpu", generator=gen).eval()
-    with torch.no_grad():  # FiLM starts at zero: give it and the routing signal
-        for name, p in ref_model.named_parameters():
-            if ".film." in name or ".route." in name:
-                p.add_(0.5 * torch.randn(p.shape, generator=gen))
+    _film_signal(ref_model, gen)
     gpu_model = ContraAttnUNet(cfg, device=DEVICE).eval()
     gpu_model.load_state_dict(ref_model.state_dict())
     # the same bf16 forward through the plain versions on the CPU: the share
@@ -875,10 +901,7 @@ def phase_gradients(b: int = 2, tcds: bool = False) -> None:
     gen = torch.Generator().manual_seed(0)
     ref_model = ContraAttnUNet(dataclasses.replace(cfg, compute_dtype="float32"),
                                device="cpu", generator=gen)
-    with torch.no_grad():  # FiLM starts at zero: give it and the routing signal
-        for name, p in ref_model.named_parameters():
-            if ".film." in name or ".route." in name:
-                p.add_(0.5 * torch.randn(p.shape, generator=gen))
+    _film_signal(ref_model, gen)
     gpu_model = ContraAttnUNet(cfg, device="cuda")
     gpu_model.load_state_dict(ref_model.state_dict())
     bf16_model = ContraAttnUNet(cfg, device="cpu")
@@ -988,10 +1011,10 @@ def phase_training() -> dict:
     return launches
 
 
-def profile_step(fn) -> tuple:
+def profile_step(fn, detail: bool = True) -> tuple:
     """torch.profiler over one call of `fn`: wall time, summed kernel time,
-    the device's idle share and the top 10 kernels by device time. Returns
-    (wall ms, kernel ms)."""
+    the device's idle share and, with `detail`, the top 10 kernels by device
+    time. Returns (wall ms, kernel ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1010,6 +1033,8 @@ def profile_step(fn) -> tuple:
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=device_us, reverse=True)
     total = sum(device_us(e) for e in kernels) / 1e3
+    if not detail:
+        return wall, total
     print(f"profiled step: {wall:.2f} ms wall, {total:.2f} ms summed kernel time "
           f"(device idle share {max(0.0, 1 - total / wall):.3f}); top 10 kernels:")
     for e in kernels[:10]:
@@ -1171,11 +1196,11 @@ def phase_template() -> dict:
     return launches
 
 
-def _cli(argv, peaks: dict) -> tuple:
+def _cli(argv, peaks: dict, name: str = "") -> tuple:
     """The CLI's `main(argv)` in this process, as if in its own: (return
     code, standard output, seconds), the output echoed; its peak device
-    memory goes into `peaks` under the command's name, and what it left
-    behind is collected before the next."""
+    memory goes into `peaks` under `name` (default: the command's), and
+    what it left behind is collected before the next."""
     import contextlib
     import gc
     import io
@@ -1189,7 +1214,7 @@ def _cli(argv, peaks: dict) -> tuple:
         rc = cli_main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    name = argv[0] + (" (resume)" if "-resume_training" in argv else "")
+    name = name or argv[0] + (" (resume)" if "-resume_training" in argv else "")
     peaks[name] = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
     torch.cuda.empty_cache()
@@ -1472,14 +1497,19 @@ def phase_tcds() -> dict:
     state = create_train_state(model, 1e-3)
     step = make_train_step(model, LossConfig(rnc=False), state.optimizer)
     rng = np.random.default_rng(0)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in _with_partners(_batch(rng, b=2, s=128), rng).items()}
     roi_w = torch.full((36,), 225.0, device="cuda")
+    # every step takes fresh triplets, so the hinge cannot fit one batch and
+    # must stay live on all of them
+    batches = [_with_partners(_batch(rng, b=2, s=128), rng) for _ in range(TCDS_STEPS)]
+    batch = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     losses, terms, step_ms = [], [], []
-    for _ in range(TCDS_STEPS):
+    for host_batch in batches:
+        del batch
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in host_batch.items()}
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step(batch, roi_w)
         torch.cuda.synchronize()
@@ -1506,7 +1536,7 @@ def phase_tcds() -> dict:
           f"{kernel:.2f} ms kernel time, idle share {max(0.0, 1 - kernel / wall):.3f} "
           f"(against the median step {max(0.0, 1 - kernel / med):.3f}); "
           f"peak memory {peak:.2f} GiB")
-    del model, state, step, batch, metrics
+    del model, state, step, batch, batches, metrics
     gc.collect()  # the optimizer holds cycles: free its device state now
     torch.cuda.empty_cache()
 
@@ -1630,6 +1660,319 @@ def phase_tcds() -> dict:
     return launches
 
 
+def _film_signal(model, gen: torch.Generator) -> None:
+    """FiLM starts at zero: give it and the routing a signal."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".film." in name or ".route." in name:
+                p.add_(0.5 * torch.randn(p.shape, generator=gen).to(p.device))
+
+
+def _baseline_parity(name: str, s: int = 32, b: int = 2) -> float:
+    """Phase 12 (a): the bf16 forward of `name` on the card against its f32
+    forward on the CPU, same weights, at s^3 batch b: rel L2 of `out`
+    within PARITY_TOL (5e-2), as phase 4 holds the flagship, unless bf16
+    rounding alone exceeds it; then, as phase 8 holds the template model,
+    within PARITY_RATIO x the error of the same weights run in bf16 through
+    the plain versions on the CPU. That happens here: the instance norms of
+    the transformer decoders subtract their mean in bf16, and
+    AttnSwinUnetr's plain bf16 CPU route read 8.42e-2 at 32^3 on the H100's
+    host, the card 7.14e-2."""
+    import dataclasses
+
+    from coma_unet_tpu_torch import ModelConfig, apply_model, build_model
+
+    cfg = ModelConfig(prompt_shape=(s, s, s))
+    gen = torch.Generator().manual_seed(0)
+    ref = build_model(name, dataclasses.replace(cfg, compute_dtype="float32"),
+                      device="cpu", generator=gen).eval()
+    _film_signal(ref, gen)
+    model = build_model(name, cfg, device=DEVICE).eval()
+    model.load_state_dict(ref.state_dict())
+    plain_bf16 = build_model(name, cfg, device="cpu").eval()
+    plain_bf16.load_state_dict(ref.state_dict())
+    batch = _batch(np.random.default_rng(1), b=b, s=s)
+    with torch.inference_mode():
+        got = apply_model(model, *_args(batch, DEVICE),
+                          with_projections=False).out.float().cpu()
+        want = apply_model(ref, *_args(batch, "cpu"), with_projections=False).out
+        base_out = apply_model(plain_bf16, *_args(batch, "cpu"),
+                               with_projections=False).out.float()
+    norm = torch.linalg.vector_norm(want).item()
+    rel = torch.linalg.vector_norm(got - want).item() / norm
+    base = torch.linalg.vector_norm(base_out - want).item() / norm
+    limit = max(PARITY_RATIO * base, PARITY_TOL)
+    params = sum(p.numel() for p in ref.parameters())
+    print(f"baseline parity {name} {s}^3 b={b}: rel L2(out) = {rel:.4e} (limit "
+          f"{limit:.4e}); plain bf16 on CPU vs f32: {base:.4e} (ratio "
+          f"{rel / base:.4f}); {params / 1e6:.2f} M parameters; max|ref| "
+          f"{want.abs().max().item():.4f}")
+    check(tuple(got.shape) == (b, 1, s, s, s), f"{name}: out {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()) and norm > 0, f"{name}: degenerate output")
+    check(rel <= limit, f"{name}: parity rel L2 {rel} > {limit}")
+    return rel
+
+
+def _baseline_batch_norm(name: str, s: int = 32, b: int = 2) -> None:
+    """Phase 12 (a): `name` with batch norm on the card: a train step moves
+    every running statistic, an eval step leaves them as they are."""
+    from coma_unet_tpu_torch import LossConfig, ModelConfig, build_model
+    from coma_unet_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    model = build_model(name, ModelConfig(prompt_shape=(s, s, s), norm="batch"),
+                        device=DEVICE, generator=torch.Generator().manual_seed(0))
+    _film_signal(model, torch.Generator().manual_seed(1))
+
+    def running():
+        return {k: v.clone() for k, v in model.state_dict().items()
+                if k.endswith((".bnorm.mean", ".bnorm.var"))}
+
+    state = create_train_state(model, 1e-3)
+    step = make_train_step(model, LossConfig(), state.optimizer)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in _batch(np.random.default_rng(2), b=b, s=s).items()}
+    before = running()
+    loss = float(step(batch, torch.full((36,), 225.0, device=DEVICE))["loss"])
+    trained = running()
+    make_eval_step(model, 36)(batch)
+    after = running()
+    moved = sum(not torch.equal(before[k], trained[k]) for k in before)
+    kept = sum(torch.equal(trained[k], after[k]) for k in before)
+    print(f"baseline batch norm {name} {s}^3 b={b}: loss {loss:.6f}; {moved} of "
+          f"{len(before)} running statistics moved in the train step, {kept} "
+          f"unchanged by the eval step")
+    check(np.isfinite(loss) and loss != 0.0, f"{name} batch norm: loss {loss}")
+    check(len(before) > 0 and moved == len(before),
+          f"{name}: {len(before) - moved} running statistics did not move")
+    check(kept == len(before), f"{name}: the eval step moved running statistics")
+
+
+def _baseline_times(name: str, s: int = 128, b: int = 2) -> tuple:
+    """Phase 12 (b): `name` at s^3 batch b on the card: forward, train
+    steps, peak memory and a profiled step. Returns the launches and the
+    plain calls on CUDA of its forwards and steps."""
+    from coma_unet_tpu_torch import (
+        LossConfig,
+        ModelConfig,
+        apply_model,
+        build_model,
+        ops,
+    )
+    from coma_unet_tpu_torch.train import create_train_state, make_train_step
+
+    model = build_model(name, ModelConfig(prompt_shape=(s, s, s)), device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in _batch(np.random.default_rng(0), b=b, s=s).items()}
+    args = _args(batch, DEVICE)
+    roi_w = torch.full((36,), 225.0, device=DEVICE)
+    state = create_train_state(model, 1e-3)
+    step = make_train_step(model, LossConfig(), state.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_counts()
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = median_ms(lambda: apply_model(model, *args, with_projections=False),
+                           reps=10)
+    losses, step_ms = [], []
+    for _ in range(BASELINE_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, roi_w)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    missing = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    wall, kernel_ms = profile_step(lambda: step(batch, roi_w), detail=False)
+    med = statistics.median(step_ms[1:])
+    params = sum(p.numel() for p in model.parameters())
+    print(f"baseline {name} {s}^3 b={b}: forward median {fwd_ms:.2f} ms; train "
+          f"step median {med:.2f} ms over steps 2-{BASELINE_STEPS} (all "
+          f"{[round(t, 2) for t in step_ms]}); profiled step {wall:.2f} ms wall, "
+          f"{kernel_ms:.2f} ms kernel time, idle share "
+          f"{max(0.0, 1 - kernel_ms / wall):.3f}; peak memory {peak:.2f} GiB; "
+          f"losses {[round(v, 4) for v in losses]}; {params / 1e6:.2f} M parameters")
+    print(f"baseline {name} launches: {launches}; plain on cuda: {plain_cuda}")
+    check(all(np.isfinite(v) and v != 0.0 for v in losses),
+          f"{name}: train losses {losses}")
+    check(not missing, f"{name}: parameters without a finite gradient: {missing[:8]}")
+    READINGS.setdefault("baselines", {})[name] = dict(
+        forward_ms=fwd_ms, step_ms=med, kernel_ms=kernel_ms,
+        idle=max(0.0, 1 - kernel_ms / wall), peak_gib=peak)
+    return launches, plain_cuda
+
+
+def phase_baselines(s: int = 128, parity_s: int = 32) -> dict:
+    """Phase 12: the registry's baselines on the card, timed and driven
+    through the CLI at s^3 (parity and batch norm at parity_s^3). Returns
+    the launches of AttnUNET's and GenAttnUnet's forwards and train steps,
+    the baselines that run the kernels."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from coma_unet_tpu_torch import (
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+        ROI_INDICES,
+        TrainConfig,
+        ops,
+    )
+    from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort
+    from coma_unet_tpu_torch.data.table import read_csv, write_rows
+    from coma_unet_tpu_torch.io import load_nifti_vol
+    from coma_unet_tpu_torch.train import loop
+    from coma_unet_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    for name in BASELINE_TYPES:
+        _baseline_parity(name, s=parity_s)
+        _baseline_batch_norm(name, s=parity_s)
+        gc.collect()
+        torch.cuda.empty_cache()
+    parity_s = time.perf_counter() - t_phase
+
+    # the main path: the kernels' counts from 0 before AttnUNET, read after
+    # GenAttnUnet; each of the other five must launch none
+    path: dict = {}
+    for name in BASELINE_TYPES:
+        launches, plain_cuda = _baseline_times(name, s=s)
+        check(sum(plain_cuda.values()) == 0,
+              f"{name}: plain versions ran on the GPU: {plain_cuda}")
+        if name in KERNEL_BASELINES:
+            for family in ops.PATH_FAMILIES:
+                check(launches.get(family, 0) > 0, f"{name}: no {family} launch")
+            for family, n in launches.items():
+                path[family] = path.get(family, 0) + n
+        else:
+            check(sum(launches.values()) == 0,
+                  f"{name}: launched kernels off its path: {launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    times_s = time.perf_counter() - t_phase - parity_s
+
+    tmp = tempfile.mkdtemp(prefix="coma_baselines_")
+    try:
+        cohort = make_synthetic_cohort(os.path.join(tmp, "cohort"), n_subjects=6,
+                                       size=s, num_rois=len(ROI_INDICES))
+        rows = read_csv(cohort["lookup"]).rows()
+        splits = os.path.join(tmp, "splits")
+        os.makedirs(splits)
+        test_csv = os.path.join(splits, "test_lookup_4.csv")
+        write_rows(os.path.join(splits, "training_lookup_4.csv"), rows[:4])
+        write_rows(test_csv, rows[4:])
+        tables = ["--covariate_csv", cohort["cov"], "--quartile_csv", cohort["quart"],
+                  "--predictions_json", cohort["preds"], "--device", DEVICE]
+        peaks: dict = {}
+        seconds: dict = {}
+
+        def config_file(tag, epochs, norm="instance"):
+            cfg = ExperimentConfig(model=ModelConfig(norm=norm),
+                                   train=TrainConfig(epochs=epochs, batch_size=2,
+                                                     val_iter=1, checkpoint_iter=1),
+                                   data=DataConfig(volume_shape=(s, s, s)),
+                                   save_path=os.path.join(tmp, tag))
+            path_ = os.path.join(tmp, f"{tag}_{epochs}.json")
+            with open(path_, "w") as f:
+                f.write(cfg.to_json())
+            return path_
+
+        def train(tag, model_type, epochs, norm="instance", extra=()):
+            what = f"train {model_type}{' (resume)' if extra else ''}"
+            rc, _, secs = _cli(["train", "--config", config_file(tag, epochs, norm),
+                                "--splits_dir", splits, "--fold", "4", "-model_type",
+                                model_type, *extra] + tables, peaks, what)
+            check(rc == 0, f"baselines: {what} returned {rc}")
+            seconds[what] = secs
+            losses = [v for e in loop.LAST_RUN["epochs"] for v in e["losses"]]
+            check(len(losses) > 0 and all(np.isfinite(losses)),
+                  f"baselines: {model_type} losses {losses}")
+            return sorted(os.listdir(os.path.join(tmp, tag)))
+
+        def infer(model_type, tag, ckpt, norm="instance"):
+            out_dir = os.path.join(tmp, f"synth_{tag}")
+            what = f"infer {model_type}"
+            rc, _, secs = _cli(["infer", "--config", config_file(tag, 1, norm),
+                                "-model_type", model_type, "--input_lookup", test_csv,
+                                "-checkpoint_path", ckpt, "--out_dir", out_dir]
+                               + tables, peaks, what)
+            check(rc == 0, f"baselines: {what} returned {rc}")
+            seconds[what] = secs
+            synth = sorted(os.listdir(out_dir))
+            check(len(synth) == 2, f"baselines: infer {model_type} wrote {synth}")
+            for f in synth:
+                vol = load_nifti_vol(os.path.join(out_dir, f), resize=False)
+                check(vol.shape == (1, s, s, s) and bool(np.isfinite(vol).all()),
+                      f"baselines: {model_type} {f} {vol.shape}")
+
+        (run,) = train("unet", "UNET", 1)
+        check(os.path.isfile(os.path.join(tmp, "unet", run, "train_UNET.log")),
+              "baselines: no train_UNET.log")
+        shutil.rmtree(os.path.join(tmp, "unet"))
+
+        # AttnUNET with batch norm: 2 epochs, a resumed third, validate, infer
+        (run,) = train("attn", "AttnUNET", 2, norm="batch")
+        latest = os.path.join(tmp, "attn", run, "checkpoints", "checkpoint_latest_epoch")
+        saved = load_checkpoint(latest)
+        stats = [k for k in saved["model"] if k.endswith((".bnorm.mean", ".bnorm.var"))]
+        check(len(stats) > 0 and saved["step"] == 4,
+              f"baselines: {len(stats)} running statistics, step {saved['step']}")
+        del saved
+        os.remove(os.path.join(tmp, "attn", run, "checkpoints", "checkpoint_epoch_0"))
+        train("attn", "AttnUNET", 3, norm="batch",
+              extra=("-resume_training", "-checkpoint_path", latest))
+        check([e["epoch"] for e in loop.LAST_RUN["epochs"]] == [2],
+              f"baselines: resumed epochs {loop.LAST_RUN['epochs']}")
+        resumed = os.path.join(tmp, "attn", f"native_target_finetune_{run}")
+        epoch2 = os.path.join(resumed, "checkpoints", "checkpoint_epoch_2")
+        check(load_checkpoint(epoch2)["step"] == 6, "baselines: step after the resume")
+        rc, out, secs = _cli(["validate", "--config", config_file("attn", 3, "batch"),
+                              "-model_type", "AttnUNET", "--test_lookup", test_csv,
+                              "-checkpoint_path", epoch2, "-save_path",
+                              os.path.join(tmp, "val")] + tables, peaks,
+                             "validate AttnUNET")
+        check(rc == 0, f"baselines: validate returned {rc}")
+        seconds["validate AttnUNET"] = secs
+        got = next(json.loads(line) for line in out.splitlines()
+                   if line.startswith('{"validate"'))["validate"]
+        worst = 0.0
+        for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
+            want = np.asarray(read_csv(os.path.join(
+                resumed, "validation_metric_results", f"{key}.csv"))["epoch_2"])
+            have = np.atleast_1d(np.asarray(got[key], np.float64))
+            floor = 1e-6 * float(np.abs(want).max())
+            err = np.abs(have - want)
+            check(bool((err <= METRIC_TOL * np.abs(want) + floor).all()),
+                  f"baselines: validate {key} {have} vs the run's epoch-2 CSV {want}")
+            worst = max(worst, float((err / (np.abs(want) + floor + 1e-30)).max()))
+        infer("AttnUNET", "attn", epoch2, norm="batch")
+        shutil.rmtree(os.path.join(tmp, "attn"))
+
+        (run,) = train("unetr", "GenUNETR", 1)
+        infer("GenUNETR", "unetr", os.path.join(
+            tmp, "unetr", run, "checkpoints", "checkpoint_latest_epoch"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"baselines CLI: validate within {worst:.2e} of the run's epoch-2 CSV "
+          f"(tol {METRIC_TOL}); seconds "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }; peak memory GiB "
+          f"{ {k: round(v, 2) for k, v in peaks.items()} }")
+    print(f"baselines launches (AttnUNET and GenAttnUnet at {s}^3): {path}")
+    print(f"baselines: parity and batch norm {parity_s:.1f} s, times {times_s:.1f} s, "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -1662,6 +2005,8 @@ def main() -> int:
     paths["loop"] = phase_loop()
     torch.cuda.empty_cache()
     paths["tcds"] = phase_tcds()
+    torch.cuda.empty_cache()
+    paths["baselines"] = phase_baselines()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]

@@ -10,8 +10,10 @@ file of the JAX package: its configuration (`config.py`) is its own copy.
 Ported so far: the serving forward of the flagship ContraAttnUNet
 (`models/`, `infer/`), its train step (`losses/`, `train/`), whose
 backward runs through hand-written kernels too, and its eval step with the
-metric suite (`metrics/`), at 128^3 and in template space at 216^3. Models
-build on the GPU unless asked for the CPU (`device="cpu"`).
+metric suite (`metrics/`), at 128^3 and in template space at 216^3; the
+loop, the data pipeline and the CLI; the model registry and the seven
+baselines (`models/registry.py`, `baselines.py`, `swin.py`). Models build
+on the GPU unless asked for the CPU (`device="cpu"`).
 """
 
 from coma_unet_tpu_torch.config import (  # noqa: F401
@@ -30,4 +32,9 @@ from coma_unet_tpu_torch.models.attention_unet import (  # noqa: F401
 from coma_unet_tpu_torch.models.contra import (  # noqa: F401
     ContraAttnUNet,
     ContraOutputs,
+)
+from coma_unet_tpu_torch.models.registry import (  # noqa: F401
+    MODEL_TYPES,
+    apply_model,
+    build_model,
 )

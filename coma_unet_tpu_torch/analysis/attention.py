@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
+from coma_unet_tpu_torch.models.registry import apply_model, has_attention_maps
 
 _INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
 
@@ -21,12 +22,17 @@ def export_attention_maps(model: torch.nn.Module, batch, save_path: str,
                           spacing=(2.0, 2.0, 2.0)) -> List[str]:
     """Run one forward of `batch` (arrays or tensors, moved to the model's
     device) and write each level's psi map of each sample as
-    `<save_path>/<sid>_attn_level{i}.nii`; returns the written paths."""
+    `<save_path>/<sid>_attn_level{i}.nii`; returns the written paths. A
+    model whose output carries no psi maps (the baselines) raises
+    ValueError before anything is written."""
+    if not has_attention_maps(model):
+        raise ValueError(f"{type(model).__name__} returns no attention maps "
+                         f"to export")
     device = next(model.parameters()).device
     args = [None if batch.get(k) is None else torch.as_tensor(batch[k], device=device)
             for k in _INPUTS]
     with torch.inference_mode():
-        outs = model(*args, with_projections=False)
+        outs = apply_model(model, *args, with_projections=False)
     os.makedirs(save_path, exist_ok=True)
     b = args[0].shape[0]
     ids = sample_ids or [f"sample{j}" for j in range(b)]

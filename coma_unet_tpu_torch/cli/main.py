@@ -11,10 +11,14 @@ and names `--device cpu`. The Hopper kernels take bf16: with a CUDA device
 and a `compute_dtype` other than bfloat16 (flag or `--config`) the CLI
 exits with status 2 before it builds a model; `--device cpu` runs float32.
 The training objective is the config's: `"loss": {"rnc": false}` in
-`--config` trains with tCDS on (anchor, positive, negative) triplets. The
-options whose path is not ported yet (data and spatial parallelism, the
-baselines, `--norm batch`) are accepted by the parser and raise
-NotImplementedError when set, naming their `ROADMAP.md` item.
+`--config` trains with tCDS on (anchor, positive, negative) triplets.
+Every `-model_type` of the registry runs (`models/registry.py`), with
+`--norm batch` and a config's dropout; the baselines train on the
+generative loss alone, and `--save_attention` asks for psi maps that only
+ContraAttnUNET returns (ValueError before anything is written otherwise).
+Data and spatial parallelism are not ported yet: the parser accepts them
+and they raise NotImplementedError when set, naming their `ROADMAP.md`
+item.
 
 The results directory is the reference's: <save>/<run>/checkpoints/,
 <save>/<run>/validation_metric_results/, <save>/<run>/<epoch>_output_samples/.
@@ -34,8 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-MODEL_TYPES = ["ContraAttnUNET", "AttnUNET", "GenAttnUnet", "UNET", "GenUNETR",
-               "AttnUNETR", "SwinUnetr", "AttnSwinUnetr"]
+from coma_unet_tpu_torch.models.registry import MODEL_TYPES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     def common(sp):
         sp.add_argument("-save_path", default="results")
         sp.add_argument("-model_type", default="ContraAttnUNET",
-                        choices=MODEL_TYPES)
+                        choices=list(MODEL_TYPES))
         sp.add_argument("-batch_size", type=int, default=2)
         sp.add_argument("-description", default="")
         sp.add_argument("-template_space", action="store_true")
@@ -224,21 +227,13 @@ def _refuse_dtype(args, config) -> bool:
 
 
 def _check_ported(args, config) -> None:
-    """Raise NotImplementedError for a set option whose path is not ported
-    yet, naming its ROADMAP.md item."""
-    deferred = [
-        (max(int(config.train.data_parallel), int(config.train.spatial_parallel),
-             int(getattr(args, "spatial_parallel", 1) or 1)) > 1,
-         "--data_parallel / --spatial_parallel > 1", "queue 1 item 3"),
-        (config.model_type != "ContraAttnUNET", f"-model_type {config.model_type}",
-         "queue 1 item 4"),
-        (args.norm == "batch" or config.model.norm == "batch",
-         "--norm batch", "queue 1 item 4"),
-    ]
-    for is_set, what, item in deferred:
-        if is_set:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, {item})")
+    """Raise NotImplementedError for data or spatial parallelism, which is
+    not ported yet, naming its ROADMAP.md item."""
+    if max(int(config.train.data_parallel), int(config.train.spatial_parallel),
+           int(getattr(args, "spatial_parallel", 1) or 1)) > 1:
+        raise NotImplementedError(
+            "--data_parallel / --spatial_parallel > 1 is not ported yet "
+            "(ROADMAP.md, queue 1 item 3)")
 
 
 def _prepare(args):
@@ -254,10 +249,10 @@ def _prepare(args):
 
 
 def _build_model(config, device):
-    from coma_unet_tpu_torch.models.contra import ContraAttnUNet
+    from coma_unet_tpu_torch.models.registry import build_model
 
-    return ContraAttnUNet(config.model, device=device,
-                          generator=torch.Generator().manual_seed(config.train.seed))
+    return build_model(config.model_type, config.model, device=device,
+                       generator=torch.Generator().manual_seed(config.train.seed))
 
 
 def _roi_indices(config):
@@ -455,6 +450,12 @@ def cmd_infer(args) -> int:
         print("--input_lookup is required without --cohort", file=sys.stderr)
         return 2
     model = _build_model(config, device)
+    if args.save_attention:
+        from coma_unet_tpu_torch.models.registry import has_attention_maps
+
+        if not has_attention_maps(model):
+            raise ValueError(f"--save_attention: -model_type "
+                             f"{config.model_type} returns no attention maps")
     preds = (PredictionTable(args.predictions_json)
              if args.predictions_json else None)
     if args.cohort:

@@ -14,6 +14,8 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from coma_unet_tpu_torch.models.registry import apply_model
+
 
 def _grid_starts(size: int, patch: int, stride: int) -> Sequence[int]:
     if size <= patch:
@@ -42,15 +44,16 @@ def gaussian_importance_map(
 
 def make_infer_fn(model: torch.nn.Module) -> Callable:
     """Inference forward: (mri, covars, roi_loc, roi_std, roi_compact) ->
-    out [B, 1, D, H, W] f32 on the model's device. Inputs may be numpy
-    arrays or tensors; they move to the model's device."""
+    out [B, 1, D, H, W] f32 on the model's device, for any registry model.
+    Inputs may be numpy arrays or tensors; they move to the model's
+    device."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
     def infer(mri, covars, roi_loc, roi_std, roi_compact):
         args = [torch.as_tensor(a, device=device)
                 for a in (mri, covars, roi_loc, roi_std, roi_compact)]
-        return model(*args, with_projections=False).out
+        return apply_model(model, *args, with_projections=False).out
 
     return infer
 

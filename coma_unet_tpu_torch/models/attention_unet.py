@@ -62,8 +62,6 @@ class AttentionUNet(nn.Module):
         super().__init__()
         cfg = self.config = config
         device = resolve_device(device)
-        if cfg.dropout > 0.0:
-            raise NotImplementedError("dropout is not ported yet")
         common = dict(dtype=getattr(torch, cfg.compute_dtype),
                       param_dtype=getattr(torch, cfg.param_dtype),
                       device=device, generator=generator)
@@ -71,7 +69,8 @@ class AttentionUNet(nn.Module):
         strides = [_cubic(s) for s in cfg.strides]
         k, up_k = _cubic(cfg.kernel_size), _cubic(cfg.up_kernel_size)
         self.depth = len(ch)
-        block = dict(kernel_size=k, conditional=cfg.conditional,
+        block = dict(kernel_size=k, dropout=cfg.dropout,
+                     conditional=cfg.conditional,
                      num_covars=cfg.block_num_covars,
                      num_experts=cfg.num_experts, film=cfg.film,
                      norm=cfg.norm, **common)
@@ -84,15 +83,16 @@ class AttentionUNet(nn.Module):
         for i in range(self.depth - 2, -1, -1):
             setattr(self, f"up{i}", UpBlock(
                 ch[i + 1], ch[i], strides=strides[i], kernel_size=up_k,
-                conditional=cfg.conditional, num_covars=cfg.num_covars,
-                num_experts=cfg.num_experts, film=cfg.film, norm=cfg.norm,
+                dropout=cfg.dropout, conditional=cfg.conditional,
+                num_covars=cfg.num_covars, num_experts=cfg.num_experts,
+                film=cfg.film, norm=cfg.norm,
                 kernels=uses_kernels(i + 1), **common))
             setattr(self, f"gate{i}", AttentionGate(
                 max(ch[i] // 2, 1), ch[i], ch[i], norm=cfg.norm,
                 kernels=uses_kernels(i), **common))
             setattr(self, f"merge{i}", Convolution(
                 2 * ch[i], ch[i], kernel_size=3, act="prelu", norm=cfg.norm,
-                kernels=uses_kernels(i), **common))
+                dropout=cfg.dropout, kernels=uses_kernels(i), **common))
         if cfg.conditional:
             self.reduce = CondConvolution(
                 ch[0], cfg.out_channels, kernel_size=1, conv_only=True,

@@ -12,8 +12,11 @@ wrapper of its family (`conv3d_s1`, `conv3d_s2`, `conv3d_t2`) and its
 instance norm + FiLM + activation through `norm_act`; each wrapper launches
 the family's CUDA kernel for a CUDA tensor and runs the plain version for a
 CPU tensor. When False the block uses PyTorch's built-in ops, as the JAX
-package leaves those sites to XLA. The models set `kernels` by U-Net level
-(`models/attention_unet.py`), never by tensor shape. Blocks, like the
+package leaves those sites to XLA. As in the JAX package (`_norm_act_ok`),
+batch norm, dropout and an activation outside K4's set (gelu) keep the
+norm, FiLM and activation in plain ops even where `kernels` is True. The
+models set `kernels` by U-Net level (`models/attention_unet.py`), never by
+tensor shape. Blocks, like the
 models, build on the GPU unless `device` names another device
 (`resolve_device`).
 """
@@ -34,6 +37,12 @@ from coma_unet_tpu_torch.ops.conv3d_strided import (
     conv_transpose3d_ref,
 )
 from coma_unet_tpu_torch.ops.norm_act import ACTS, apply_act, norm_act
+
+
+def gelu(u: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation."""
+    return F.gelu(u, approximate="tanh")
+
 
 # flax's lecun_normal: a normal truncated at two standard deviations, with
 # the standard deviation rescaled so that the truncated variance is 1/fan_in
@@ -80,6 +89,38 @@ def dense_init_(layer: nn.Linear, generator: Optional[torch.Generator],
     _fill_(layer.bias, torch.zeros_like)
 
 
+class Dense(nn.Linear):
+    """flax `nn.Dense` at a compute dtype: input, weight and bias cast to
+    `dtype` at use, the parameters kept in the param dtype; lecun-normal
+    weight, zero bias. `weight` is flax's kernel transposed."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype=torch.bfloat16, param_dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__(in_features, out_features, dtype=param_dtype,
+                         device=resolve_device(device))
+        self.compute_dtype = dtype
+        dense_init_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm(dtype=float32)`: eps 1e-6, the input taken in f32,
+    the output f32. `weight` is flax's `scale`."""
+
+    def __init__(self, features: int, param_dtype=torch.float32,
+                 device=None):
+        super().__init__(features, eps=1e-6, dtype=param_dtype,
+                         device=resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
 class PReLU(nn.Module):
     """torch-default PReLU: one shared learnable slope, init 0.25."""
 
@@ -110,18 +151,111 @@ class InstanceNorm(nn.Module):
         return instance_norm(x)
 
 
-class Norm(nn.Module):
-    """Norm factory: "instance" or "none" ("batch" is not ported yet)."""
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5, axis=1,
+    dtype=float32)`: per-channel statistics over (B, D, H, W) in f32 and
+    the biased variance (flax's E[x^2] - E[x]^2, here taken in two passes),
+    in train mode the batch's (and the running averages move: new = 0.9 old
+    + 0.1 batch), in eval mode the running ones. Parameters `scale` and `bias`, buffers
+    `mean` and `var`: the keys of flax's params and `batch_stats`. The
+    output is f32."""
 
-    def __init__(self, kind: Optional[str] = "instance"):
+    MOMENTUM = 0.9
+    EPS = 1e-5
+
+    def __init__(self, channels: int, param_dtype=torch.float32, device=None):
         super().__init__()
-        if kind not in (None, "none", "instance"):
-            raise NotImplementedError(f"norm {kind!r} is not ported yet")
-        self.kind = kind or "none"
-        self.inorm = InstanceNorm() if self.kind == "instance" else None
+        device = resolve_device(device)
+        self.scale = nn.Parameter(torch.ones(channels, dtype=param_dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=param_dtype,
+                                             device=device))
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            with torch.no_grad():
+                dims = (0,) + tuple(range(2, x.dim()))
+                var, mean = torch.var_mean(xf, dims, correction=0)
+                m = self.MOMENTUM
+                self.mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.var.mul_(m).add_(var, alpha=1.0 - m)
+        # training=True normalizes with the batch's biased variance
+        return F.batch_norm(xf, None if self.training else self.mean,
+                            None if self.training else self.var,
+                            self.scale.float(), self.bias.float(),
+                            training=self.training, eps=self.EPS)
+
+
+class Norm(nn.Module):
+    """Norm factory: "instance", "batch" (`BatchNorm` as `bnorm`) or
+    "none"."""
+
+    def __init__(self, kind: Optional[str] = "instance",
+                 channels: Optional[int] = None, param_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if kind not in (None, "none", "instance", "batch"):
+            raise ValueError(f"unknown norm {kind!r}")
+        self.kind = kind or "none"
+        self.inorm = InstanceNorm() if self.kind == "instance" else None
+        if self.kind == "batch":
+            self.bnorm = BatchNorm(channels, param_dtype=param_dtype,
+                                   device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "batch":
+            return self.bnorm(x)
         return x if self.inorm is None else self.inorm(x)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in train mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), in eval mode the
+    identity. The mask is drawn from a `torch.Generator` of the input's
+    device, seeded with `seed` (`seed_dropout` sets it); nothing draws from
+    the global generator."""
+
+    def __init__(self, rate: float, seed: int = 0):
+        super().__init__()
+        self.rate = float(rate)
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        self.seed = int(seed)
+        self._generators: dict = {}
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        key = str(device)
+        if key not in self._generators:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(self.seed)
+            self._generators[key] = gen
+        return self._generators[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        draw = torch.rand(x.shape, generator=self.generator(x.device),
+                          device=x.device)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
+def seed_dropout(model: nn.Module, seed: int, step: int = 0) -> int:
+    """Seed every `Dropout` of `model` for one step: site i (in module
+    order) draws from a seed of its own, a function of (seed, step, i), so
+    a run seeded alike draws alike, a resumed run included. Returns the
+    number of sites."""
+    sites = [m for m in model.modules() if isinstance(m, Dropout)]
+    for i, site in enumerate(sites):
+        site.reseed(int(np.random.SeedSequence(
+            [int(seed), int(step), i]).generate_state(1, np.uint64)[0] >> 1))
+    return len(sites)
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor,
@@ -151,30 +285,40 @@ def norm_film_act(y: torch.Tensor, norm: Norm, act: Optional[str],
                   alpha: Optional[torch.Tensor],
                   scale: Optional[torch.Tensor],
                   shift: Optional[torch.Tensor],
-                  kernels: bool) -> torch.Tensor:
-    """norm -> FiLM (`scale`, `shift` [B, C] f32, or None) -> act."""
-    if kernels and norm.kind == "instance":
+                  kernels: bool,
+                  dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """norm -> FiLM (`scale`, `shift` [B, C] f32, or None) -> dropout ->
+    act. K4 (`norm_act`) takes the chain where `kernels` is set, the norm is
+    instance norm, there is no dropout and K4 has the activation; otherwise
+    plain ops, as JAX's `_norm_act_ok` decides."""
+    if (kernels and norm.kind == "instance" and dropout is None
+            and (act or "none") in ACTS):
         return norm_act(y, alpha, act, scale, shift)
     y = norm(y)
     if scale is not None:
         y = (y * scale[:, :, None, None, None].to(y.dtype)
              + shift[:, :, None, None, None].to(y.dtype))
+    if dropout is not None:
+        y = dropout(y)
+    if act == "gelu":
+        return gelu(y)
     return apply_act(y, act or "none", alpha)
 
 
 def _check_act(act: Optional[str]) -> None:
-    if (act or "none") not in ACTS:
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
+    if (act or "none") not in ACTS and act != "gelu":
+        raise ValueError(f"unknown activation {act!r}")
 
 
 class Convolution(nn.Module):
     """MONAI-equivalent Convolution: conv (or transposed conv) -> norm ->
-    act. `conv_only=True` skips norm and act."""
+    dropout -> act. `conv_only=True` skips norm, dropout and act."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, strides: int = 1,
                  act: Optional[str] = "prelu",
-                 norm: Optional[str] = "instance", conv_only: bool = False,
+                 norm: Optional[str] = "instance", dropout: float = 0.0,
+                 conv_only: bool = False,
                  is_transposed: bool = False, use_bias: bool = True,
                  kernels: bool = False, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None, generator=None):
@@ -192,8 +336,11 @@ class Convolution(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=param_dtype,
                                               device=device))
                      if use_bias else None)
+        self.dropout = None
         if not conv_only:
-            self.norm = Norm(norm)
+            self.norm = Norm(norm, out_channels, param_dtype, device)
+            if dropout > 0.0:
+                self.dropout = Dropout(dropout)
             if act == "prelu":
                 self.prelu = PReLU(param_dtype, device)
 
@@ -204,7 +351,7 @@ class Convolution(nn.Module):
             return y
         alpha = self.prelu.alpha if self.act == "prelu" else None
         return norm_film_act(y, self.norm, self.act, alpha, None, None,
-                             self.kernels)
+                             self.kernels, self.dropout)
 
 
 class CondConvolution(nn.Module):
@@ -212,12 +359,13 @@ class CondConvolution(nn.Module):
     routing Dense maps the first `num_covars` covariates to sigmoid gates
     over `num_experts` expert kernels, mixed per sample in the compute dtype;
     an optional FiLM Dense (zero-initialized, scale = 1 + s) follows the
-    norm."""
+    norm, then dropout and the activation."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, strides: int = 1,
                  act: Optional[str] = "prelu",
-                 norm: Optional[str] = "instance", conv_only: bool = False,
+                 norm: Optional[str] = "instance", dropout: float = 0.0,
+                 conv_only: bool = False,
                  is_transposed: bool = False, num_experts: int = 8,
                  num_covars: int = 5, film: bool = True,
                  use_bias: bool = True, kernels: bool = False,
@@ -240,9 +388,11 @@ class CondConvolution(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=param_dtype,
                                               device=device))
                      if use_bias else None)
-        self.film = None
+        self.film = self.dropout = None
         if not conv_only:
-            self.norm = Norm(norm)
+            self.norm = Norm(norm, out_channels, param_dtype, device)
+            if dropout > 0.0:
+                self.dropout = Dropout(dropout)
             if film:
                 self.film = nn.Linear(num_covars, 2 * out_channels,
                                       dtype=param_dtype, device=device)
@@ -271,7 +421,7 @@ class CondConvolution(nn.Module):
             scale = 1.0 + sc
         alpha = self.prelu.alpha if self.act == "prelu" else None
         return norm_film_act(y, self.norm, self.act, alpha, scale, shift,
-                             self.kernels)
+                             self.kernels, self.dropout)
 
 
 class ConvBlock(nn.Module):
@@ -280,13 +430,14 @@ class ConvBlock(nn.Module):
     both convs."""
 
     def __init__(self, in_channels: int, out_channels: int, strides: int = 1,
-                 kernel_size: int = 3, conditional: bool = False,
+                 kernel_size: int = 3, dropout: float = 0.0,
+                 conditional: bool = False,
                  num_covars: int = 5, num_experts: int = 8, film: bool = True,
                  norm: str = "instance", kernels: bool = False, **common):
         super().__init__()
         self.conditional = conditional
         args = dict(kernel_size=kernel_size, act="relu", norm=norm,
-                    kernels=kernels, **common)
+                    dropout=dropout, kernels=kernels, **common)
         if conditional:
             cond = dict(num_covars=num_covars, num_experts=num_experts,
                         film=film, **args)
@@ -331,13 +482,15 @@ class UpBlock(nn.Module):
     expert-mixture transposed conv."""
 
     def __init__(self, in_channels: int, out_channels: int, strides: int = 2,
-                 kernel_size: int = 3, conditional: bool = False,
+                 kernel_size: int = 3, dropout: float = 0.0,
+                 conditional: bool = False,
                  num_covars: int = 6, num_experts: int = 8, film: bool = True,
                  norm: str = "instance", kernels: bool = False, **common):
         super().__init__()
         self.conditional = conditional
         args = dict(kernel_size=kernel_size, strides=strides, act="relu",
-                    norm=norm, is_transposed=True, kernels=kernels, **common)
+                    norm=norm, dropout=dropout, is_transposed=True,
+                    kernels=kernels, **common)
         if conditional:
             self.up = CondConvolution(in_channels, out_channels,
                                       num_covars=num_covars,

@@ -32,17 +32,24 @@ from coma_unet_tpu_torch.ops import _build
 def conv3d_ref(x: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                stride: int = 1) -> torch.Tensor:
-    """SAME-padded (k // 2) correlation through PyTorch's built-in conv, for
-    shared or per-sample weights; the bias is added in x's dtype."""
+    """SAME-padded correlation through PyTorch's built-in conv, for shared
+    or per-sample weights; the bias is added in x's dtype. The padding is
+    the JAX package's `same_padding`, (k // 2, k - 1 - k // 2) on each
+    axis, whatever the stride: symmetric for odd k, one less on the high
+    side for even k (the k=16 s=16 and k=2 s=2 patch embeddings)."""
     k = w.shape[-1]
+    pad = k // 2
+    if k % 2 == 0:
+        x = F.pad(x, (k // 2, k // 2 - 1) * 3)
+        pad = 0
     if w.dim() == 6:
         b, cout, cin = w.shape[:3]
         y = F.conv3d(x.reshape((1, b * cin) + x.shape[2:]),
                      w.reshape((b * cout, cin) + w.shape[3:]),
-                     stride=stride, padding=k // 2, groups=b)
+                     stride=stride, padding=pad, groups=b)
         y = y.reshape((b, cout) + y.shape[2:])
     else:
-        y = F.conv3d(x, w, stride=stride, padding=k // 2)
+        y = F.conv3d(x, w, stride=stride, padding=pad)
     if bias is not None:
         y = y + bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
     return y

@@ -18,8 +18,10 @@ differ from the JAX package, so that a resumed run continues as an
 uninterrupted one would: the checkpoint also holds the adapted ROI (voxel)
 weights, it is written after the epoch's validation, which adapts them, and
 a resumed run's loader shuffles each epoch as the uninterrupted run did.
-The JAX package's multi-chip mesh, split step and AOT precompile are TPU
-paths and are not here.
+The model is any of the registry's (`models/registry.py`); its state
+dict, batch norm's running statistics included, is what a checkpoint
+keeps of it. The JAX package's multi-chip mesh, split step and AOT
+precompile are TPU paths and are not here.
 """
 
 from __future__ import annotations
@@ -212,7 +214,8 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
             if ld is not None and getattr(ld, "device_put", False) is None:
                 ld.device_put = pin_batch
     if train_step is None:
-        train_step = make_train_step(model, lcfg, state.optimizer)
+        train_step = make_train_step(model, lcfg, state.optimizer,
+                                     seed=tcfg.seed)
     if eval_step is None:
         eval_step = make_eval_step(model, num_rois)
 

@@ -13,6 +13,13 @@ arrays, moved to the model's device, NCDHW:
     valid_mask   [B] 0/1          optional: wrap-padded rows are 0
     pos_*/neg_*  mirrors of mri/covars/roi_loc/roi_std/roi_compact for the
                  tCDS triplet path (loss.rnc == False)
+
+A model without projection heads (the registry's baselines) trains on the
+generative loss alone, as the JAX package's step does: gen_weight times the
+sum over the valid rows of the per-sample RoiMSE, with pred_space_loss and
+tcds_loss 0. Batch norm's running statistics move in the train step and
+stay as they are in the eval step; dropout draws from generators seeded
+with (seed, step) each step (`seed_dropout`).
 """
 
 from __future__ import annotations
@@ -23,8 +30,12 @@ import torch
 
 from coma_unet_tpu_torch.config import LossConfig
 from coma_unet_tpu_torch.losses.composite import GenerativeContrastiveLoss
+from coma_unet_tpu_torch.losses.roi_losses import roi_mse
 from coma_unet_tpu_torch.metrics.roi import roi_metrics
 from coma_unet_tpu_torch.metrics.voxel import voxel_metrics
+from coma_unet_tpu_torch.models.blocks import Dropout, seed_dropout
+from coma_unet_tpu_torch.models.registry import apply_model
+from coma_unet_tpu_torch.train.state import TrainState
 
 _INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
 
@@ -39,14 +50,10 @@ def _to_device(batch, device: Optional[torch.device]) -> Dict[str, torch.Tensor]
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _apply(model, batch: Dict[str, torch.Tensor], prefix: str = ""):
-    outs = model(*(batch.get(prefix + k) for k in _INPUTS),
-                 with_projections=True)
-    if not getattr(outs, "projections", ()):
-        raise NotImplementedError(
-            "models without projection heads (the baselines) are not "
-            "ported yet")
-    return outs
+def _apply(model, batch: Dict[str, torch.Tensor], prefix: str = "",
+           with_projections: bool = True):
+    return apply_model(model, *(batch.get(prefix + k) for k in _INPUTS),
+                       with_projections=with_projections)
 
 
 def make_loss_fn(model: torch.nn.Module,
@@ -59,6 +66,15 @@ def make_loss_fn(model: torch.nn.Module,
     def loss_fn(batch, roi_weights, voxel_weights=None):
         valid = batch.get("valid_mask")
         outs = _apply(model, batch)
+        if not outs.projections:
+            gen = roi_mse(outs.out, batch["tau"], batch["roi_compact"],
+                          roi_weights, voxel_weights=voxel_weights,
+                          reduction=None)
+            vsum = gen if valid is None else gen * valid.reshape(-1).to(gen.dtype)
+            total = loss_config.gen_weight * vsum.sum()
+            zero = torch.zeros((), dtype=torch.float32, device=total.device)
+            return total, {"loss": total.detach(), "gen_loss": gen.detach(),
+                           "pred_space_loss": zero, "tcds_loss": zero}
         kwargs = dict(voxel_weights=voxel_weights, valid=valid)
         if loss_config.rnc:
             kwargs.update(rnc_features=outs.projections[-1],
@@ -86,18 +102,24 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def make_train_step(model: torch.nn.Module, loss_config: LossConfig,
-                    optimizer: torch.optim.Optimizer) -> Callable:
+                    optimizer: torch.optim.Optimizer,
+                    seed: int = 0) -> Callable:
     """step(batch, roi_weights, voxel_weights=None) -> metrics: one forward
     and backward in `.train()` mode, then one optimizer step. The gradients
     stay in the parameters' `.grad` until the next step; `grad_norm` is
-    their global L2 norm."""
+    their global L2 norm. Dropout sites are seeded from (`seed`, the
+    state's step count) before each forward."""
     loss_fn = make_loss_fn(model, loss_config)
     params = [p for p in model.parameters() if p.requires_grad]
     device = _device_of(model)
+    state = TrainState(model, optimizer)
+    dropout = any(isinstance(m, Dropout) for m in model.modules())
 
     def step(batch: Dict[str, torch.Tensor], roi_weights: torch.Tensor,
              voxel_weights: Optional[torch.Tensor] = None):
         model.train()
+        if dropout:
+            seed_dropout(model, seed, state.step)
         optimizer.zero_grad(set_to_none=True)
         batch = _to_device(batch, device)
         roi_weights = torch.as_tensor(roi_weights, device=device)
@@ -125,8 +147,7 @@ def make_eval_step(model: torch.nn.Module, num_rois: int) -> Callable:
     def eval_step(batch):
         model.eval()
         batch = _to_device(batch, device)
-        pred = model(*(batch.get(k) for k in _INPUTS),
-                     with_projections=False).out
+        pred = _apply(model, batch, with_projections=False).out
         vox = voxel_metrics(pred, batch["tau"])
         roi = roi_metrics(pred, batch["tau"], batch["roi_compact"], num_rois)
         return pred, vox, roi

@@ -8,7 +8,8 @@ run's last validation CSV holds, a resume writes to
 trains one fold directory per fold. The device and dtype rules: `--device
 cuda` without a card raises and names `--device cpu`; a compute dtype
 other than bfloat16 on CUDA exits with status 2 before a model is built;
-each option whose path is not ported raises NotImplementedError. A fresh
+each option whose path is not ported raises NotImplementedError, and the
+baselines and `--norm batch` run. A fresh
 interpreter that refuses jax, flax, optax, orbax, pandas, matplotlib and
 the JAX package runs `train`, and holds no model after it.
 """
@@ -192,11 +193,13 @@ def test_cuda_without_a_card_names_the_cpu(cohort, tmp_path, monkeypatch):
 def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
                                                 capsys, how):
     import coma_unet_tpu_torch.models.contra as contra
+    import coma_unet_tpu_torch.models.registry as registry
 
     def no_model(*a, **k):
         raise AssertionError("a model was built")
 
     monkeypatch.setattr(contra, "ContraAttnUNet", no_model)
+    monkeypatch.setattr(registry, "build_model", no_model)
     if how == "flag":
         args = ["--compute_dtype", "float32"]
     else:
@@ -215,14 +218,51 @@ def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
     ("validate", ["-model_type", "UNET"], "queue 1 item 4"),
     ("train", ["--norm", "batch"], "queue 1 item 4"),
 ])
-def test_deferred_options_raise(cohort, tmp_path, cmd, flag, item):
+def test_deferred_options_raise(cohort, tmp_path, monkeypatch, capsys, cmd,
+                                flag, item):
+    """An option whose path is not ported (queue 1 item 3: data and spatial
+    parallelism) raises NotImplementedError naming its ROADMAP.md item and
+    writes nothing. Queue 1 item 4 (the baselines, batch norm) is ported:
+    its cases run the command from the flags alone, the default ModelConfig
+    and DataConfig shrunk to the test's widths and 16^3, and check what it
+    writes."""
     extra = {"train": ["--splits_dir", cohort["splits"]],
              "validate": ["--test_lookup", cohort["lookup"]],
              "infer": ["--input_lookup", cohort["lookup"]]}[cmd]
-    with pytest.raises(NotImplementedError, match=item):
-        main([cmd, "--device", "cpu", "--compute_dtype", "float32"] + extra
-             + flag + _tables(cohort))
-    assert not (tmp_path / "results").exists()
+    argv = ([cmd, "--device", "cpu", "--compute_dtype", "float32"] + extra
+            + flag + _tables(cohort))
+    if item != "queue 1 item 4":
+        with pytest.raises(NotImplementedError, match=item):
+            main(argv)
+        assert not (tmp_path / "results").exists()
+        return
+    import functools
+
+    from coma_unet_tpu_torch import config as pconfig
+
+    monkeypatch.setattr(pconfig, "ModelConfig", functools.partial(
+        pconfig.ModelConfig, **{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in TINY["model"].items()
+                                if k != "compute_dtype"}))
+    monkeypatch.setattr(pconfig, "DataConfig", functools.partial(
+        pconfig.DataConfig, volume_shape=(16, 16, 16)))
+    monkeypatch.setattr(ploop, "loss_graph", lambda *a, **k: None)
+    monkeypatch.setattr(MetricRecorder, "plot", lambda self: None)
+    out = tmp_path / "out"
+    run_args = ["--epochs", "1"] if cmd == "train" else []
+    assert main(argv + run_args + ["-save_path", str(out)]) == 0
+    if cmd == "validate":  # UNET, random weights: the metrics and matrices
+        line = next(json.loads(s) for s in capsys.readouterr().out.splitlines()
+                    if s.startswith('{"validate"'))
+        assert line["validate"]["num_samples"] == 8
+        assert (out / "pred_means.csv").exists()
+        return
+    (run,) = out.iterdir()  # the flagship with batch norm, one epoch
+    assert json.loads((run / "config.json").read_text())["model"]["norm"] == "batch"
+    payload = torch.load(str(run / "checkpoints" / "checkpoint_latest_epoch"),
+                         weights_only=True)
+    means = {k: v for k, v in payload["model"].items() if k.endswith("bnorm.mean")}
+    assert means and all(bool(v.abs().max() > 0) for v in means.values())
 
 
 _REFUSE = """

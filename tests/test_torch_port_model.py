@@ -12,6 +12,7 @@ blending match the JAX package's, and the port never imports JAX.
 """
 
 import ast
+import dataclasses
 import os
 import re
 import subprocess
@@ -31,6 +32,7 @@ from coma_unet_tpu.infer import sliding_window as jax_sw  # noqa: E402
 from coma_unet_tpu.models import ContraAttnUNet as FlaxContra  # noqa: E402
 import coma_unet_tpu_torch  # noqa: E402
 from coma_unet_tpu_torch import AttentionUNet, ContraAttnUNet, ops  # noqa: E402
+from coma_unet_tpu_torch import MODEL_TYPES, build_model  # noqa: E402
 from coma_unet_tpu_torch.convert import from_flax  # noqa: E402
 from coma_unet_tpu_torch.infer import (  # noqa: E402
     make_infer_fn,
@@ -154,8 +156,8 @@ def test_infer_and_sliding_window_match_jax(setup):
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port and runs a tiny forward; JAX must
-    never be imported."""
+    """A fresh interpreter imports the port and runs a tiny forward of the
+    flagship and of three baselines; JAX must never be imported."""
     code = (
         "import sys, torch\n"
         "from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig\n"
@@ -167,6 +169,14 @@ def test_port_runs_without_jax():
         "with torch.inference_mode():\n"
         "    out = m(torch.rand(2, 1, 8, 8, 8), torch.rand(2, 6)).out\n"
         "assert out.shape == (2, 1, 8, 8, 8) and bool(torch.isfinite(out).all())\n"
+        "import dataclasses\n"
+        "from coma_unet_tpu_torch.models.registry import build_model\n"
+        "cfg16 = dataclasses.replace(cfg, prompt_shape=(16, 16, 16))\n"
+        "for name in ('UNET', 'GenUNETR', 'AttnSwinUnetr'):\n"
+        "    b = build_model(name, cfg16, device='cpu')\n"
+        "    with torch.inference_mode():\n"
+        "        y = b(torch.rand(1, 1, 16, 16, 16))\n"
+        "    assert y.shape == (1, 1, 16, 16, 16), name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'coma_unet_tpu')]\n"
         "assert not bad, bad\n"
@@ -233,8 +243,11 @@ def test_port_source_imports_no_jax():
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    # the native runtime and the analysis modules are scanned too
+    # the native runtime and the analysis modules are scanned too, and the
+    # registry and its baselines
     assert {"runtime", "analysis"} <= {p.parent.name for p in files}
+    assert {"baselines.py", "swin.py", "registry.py"} <= {
+        p.name for p in files if p.parent.name == "models"}
     for path in files:
         tree = ast.parse(path.read_text())
         docs = {id(node) for node in _docstrings(tree)}
@@ -285,5 +298,11 @@ def test_models_build_on_the_gpu_by_default(monkeypatch):
     for cls in (ContraAttnUNet, AttentionUNet):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             cls(cfg)
+    for name in MODEL_TYPES:  # every type of the registry
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build_model(name, cfg)
     model = ContraAttnUNet(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    model = build_model("AttnSwinUnetr", dataclasses.replace(
+        cfg, prompt_shape=(16, 16, 16)), device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}

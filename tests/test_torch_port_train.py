@@ -404,13 +404,31 @@ def test_optimizer_and_state():
 
 
 def test_models_without_projections_raise():
+    """A model without projection heads (a registry baseline returns the
+    volume alone) no longer raises: it trains on the generative loss only,
+    gen_weight x the sum over valid rows of the per-sample RoiMSE, as the
+    JAX step's baseline branch does, with pred_space_loss and tcds_loss 0
+    and the gradient reaching its parameter."""
     class Plain(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.gain = torch.nn.Parameter(torch.ones(()))
+
         def forward(self, x, *args, with_projections=True):
-            return x
+            return x * self.gain
 
     model = Plain()
-    step = make_train_step(model, LossConfig(),
-                           make_optimizer([torch.nn.Parameter(torch.zeros(1))], 1e-3))
+    loss_config = LossConfig(gen_weight=0.5)
+    step = make_train_step(model, loss_config,
+                           make_optimizer(model.parameters(), 1e-3))
     batch = _torch_batch(_batch(np.random.default_rng(11)))
-    with pytest.raises(NotImplementedError, match="baselines"):
-        step(batch, torch.from_numpy(ROI_W))
+    batch["valid_mask"] = torch.tensor([1.0, 0.0])
+    metrics = step(batch, torch.from_numpy(ROI_W))
+    gen = jax_roi_losses.roi_mse(
+        jnp.asarray(batch["mri"].numpy()), jnp.asarray(batch["tau"].numpy()),
+        jnp.asarray(batch["roi_compact"].numpy()), jnp.asarray(ROI_W),
+        reduction=None)
+    _close(metrics["gen_loss"].numpy(), gen)
+    _close(metrics["loss"].numpy(), 0.5 * float(gen[0]))
+    assert float(metrics["pred_space_loss"]) == float(metrics["tcds_loss"]) == 0.0
+    assert model.gain.grad is not None and float(model.gain.grad) != 0.0
