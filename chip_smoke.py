@@ -144,6 +144,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               and a resumed third, `validate` from its epoch-2 checkpoint
               within METRIC_TOL of the run's CSV, `infer`; `train
               -model_type GenUNETR` 1 epoch and `infer` from its checkpoint.
+  13. data parallel: `parallel/mesh.py` with two rank processes sharing the
+              one card over gloo (NCCL takes one rank a device), each on 2
+              rows of a global 128^3 b=4 batch of the default ModelConfig
+              (RnC, `valid_mask` [1, 1, 1, 0], cuDNN deterministic on both
+              sides), against one process's b=4 steps on the card: the
+              sharded eval step's pred bit for bit and its metrics within
+              METRIC_TOL of one process's eval of the same rows, the first
+              sharded train step's loss within LOSS_TOL, its grad_norm
+              within DP_NORM_TOL and every gradient group within its
+              DP_GRAD_LIMITS (rel L2, the norm-fed conv biases left out as
+              in phase 5), the parameters bit-identical on both ranks after
+              two steps; then `train.loop.train` under the mesh for 2 epochs
+              on a synthetic 6-subject 128^3 cohort, each rank's loaders
+              reading its rows, against the same loop in one process: the
+              same files, the validation CSVs within DP_LOOP_TOL, the
+              checkpoint loading into a single-process model. Every kernel
+              family must launch on rank 0 over the steps and the loop
+              (`launches_by_path["data_parallel"]`) and no plain version may
+              run on the GPU. A planted gather whose backward drops the
+              cross-rank sum must put some gradient group over its limit.
+              Prints the second step's time beside one process's b=4 step:
+              the cost of two ranks sharing a card, not a data-parallel
+              speed.
 The last two lines are a JSON summary of the kernels (`launches` from the
 tCDS train of phase 11; `launches_by_path` for every path) and
 {"ok": true, "device": {...}}. There is no CPU path.
@@ -1973,6 +1996,405 @@ def phase_baselines(s: int = 128, parity_s: int = 32) -> dict:
     return path
 
 
+DP_RANKS = 2
+DP_SEED = 13
+DP_VALID = (1.0, 1.0, 1.0, 0.0)  # rank 0 holds two valid rows, rank 1 one
+# phase 13's limits on the rel L2 of each gradient group, the 2-rank step
+# against one process's b=4 step (both bf16 through the kernels, cuDNN
+# deterministic): 3x what a sound run read on the H100, at least 1e-2. The
+# two differ only by bf16 rounding where the kernels and cuDNN see a batch of
+# 2 rather than 4. A gather whose backward drops the cross-rank sum halves
+# the gradient that only the batch-coupled RnC term feeds (proj4: 0.5).
+DP_GRAD_LIMITS = {
+    "pos_dynamic_prompt": 0.28, "neg_dynamic_prompt": 0.29,
+    "general_dynamic_prompt": 0.28, "unet.head": 0.13, "unet.down0": 0.15,
+    "unet.down1": 0.15, "unet.down2": 0.15, "unet.down3": 0.14,
+    "unet.up3": 0.14, "unet.gate3": 0.08, "unet.merge3": 0.13,
+    "unet.up2": 0.10, "unet.gate2": 0.045, "unet.merge2": 0.062,
+    "unet.up1": 0.035, "unet.gate1": 0.035, "unet.merge1": 0.018,
+    "unet.up0": 0.01, "unet.gate0": 0.01, "unet.merge0": 0.01,
+    "unet.reduce": 0.01, "deep_modulator_3c": 0.19, "fusion_layer": 0.02,
+    "final_pred_head": 0.01, "proj4": 0.01,
+}
+DP_NORM_TOL = 1e-3   # |grad_norm ratio - 1|, the 2-rank step against one process's
+# the 2-epoch loop on 2 ranks against one process: the validation CSVs' mae
+# and mape within DP_LOOP_TOL relative, avg_corr within DP_LOOP_TOL absolute
+DP_LOOP_TOL = 2e-2
+
+
+class _LocalOnlyGather(torch.autograd.Function):
+    """A faulty all-gather for phase 13's planted fault: its backward keeps
+    this rank's rows of the cotangent without summing it over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from coma_unet_tpu_torch.parallel.mesh import gather_all
+
+        ctx.mesh = mesh
+        return gather_all([x], mesh)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.mesh.rows(grad.shape[0])].clone(), None
+
+
+def _dp_model():
+    """Phase 13's model: the default ModelConfig, weights from seed 0."""
+    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+
+    return ContraAttnUNet(ModelConfig(), device=DEVICE,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def _dp_inputs():
+    """Phase 13's model, its global b=4 128^3 batch (RnC) and the ROI
+    weights, on the card."""
+    model = _dp_model()
+    batch = _batch(np.random.default_rng(DP_SEED), b=4, s=128)
+    batch["covars"][:, 0] = batch["abeta"] = np.asarray([1.0, 0.0, 1.0, 0.0],
+                                                        np.float32)
+    batch["valid_mask"] = np.asarray(DP_VALID, np.float32)
+    return model, batch, torch.full((36,), 225.0, device=DEVICE)
+
+
+def _dp_cohort(tmp: str) -> dict:
+    """Phase 13's synthetic 128^3 cohort: 4 training subjects (one global
+    batch of 4), 2 validation subjects (wrap-padded to 4: rank 1 holds only
+    padding)."""
+    import os
+
+    from coma_unet_tpu_torch import ROI_INDICES
+    from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort
+    from coma_unet_tpu_torch.data.table import read_csv, write_rows
+
+    cohort = make_synthetic_cohort(os.path.join(tmp, "cohort"), n_subjects=6,
+                                   size=128, num_rois=len(ROI_INDICES))
+    rows = read_csv(cohort["lookup"]).rows()
+    cohort["train"] = os.path.join(tmp, "train.csv")
+    cohort["test"] = os.path.join(tmp, "test.csv")
+    write_rows(cohort["train"], rows[:4])
+    write_rows(cohort["test"], rows[4:])
+    return cohort
+
+
+def _dp_loop(cohort: dict, save_path: str, mesh=None) -> float:
+    """`train.loop.train` for 2 epochs at a global batch of 4 on `cohort`,
+    in one process or on this rank of `mesh` (its loaders reading its rows),
+    the model from seed 0; returns the seconds."""
+    from coma_unet_tpu_torch import ContraAttnUNet, ExperimentConfig, TrainConfig
+    from coma_unet_tpu_torch.data import (
+        CovariateTable, DataLoader, PredictedMetaTauDataset, PredictionTable,
+        QuartileTable,
+    )
+    from coma_unet_tpu_torch.train import loop
+
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    cfg = ExperimentConfig(train=TrainConfig(
+        epochs=2, batch_size=4, val_iter=1, checkpoint_iter=100,
+        data_parallel=shard[1])).normalized()
+    cov, quart = CovariateTable(cohort["cov"]), QuartileTable(cohort["quart"])
+    preds = PredictionTable(cohort["preds"])
+    train_ds, test_ds = (PredictedMetaTauDataset(cohort[k], cov, quart,
+                                                 meta_tau_table=preds,
+                                                 pad_dims=cfg.data.volume_shape)
+                         for k in ("train", "test"))
+    model = ContraAttnUNet(cfg.model, device=DEVICE,
+                           generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    loop.train(model, cfg,
+               DataLoader(train_ds, 4, predictions=preds, shuffle=True,
+                          shard=shard),
+               val_loader=DataLoader(test_ds, 4, predictions=preds, shard=shard),
+               save_path=save_path, device=DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _dp_rank(rank: int, init_method: str, tmp: str, cohort: dict) -> None:
+    """One rank of phase 13 on the one card (gloo): the main path -- the
+    sharded eval step, two sharded train steps on its rows of the global
+    batch, and the 2-epoch loop on the cohort -- with the launches counted
+    from 0; then the planted fault, one step whose gather drops the
+    cross-rank sum. Every rank compares its parameters after the two steps
+    with rank 0's, bit for bit; rank 0 saves those verdicts, the launches,
+    the first step's metrics and summed gradients, the eval's metrics, the
+    second step's time and the fault's gradients and grad_norm."""
+    import gc
+    import os
+
+    from coma_unet_tpu_torch import LossConfig, ops
+    from coma_unet_tpu_torch.parallel import mesh as pmesh
+    from coma_unet_tpu_torch.train import create_train_state
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // DP_RANKS))
+    torch.backends.cudnn.deterministic = True
+    mesh = pmesh.make_mesh(rank, DP_RANKS, f"{DEVICE}:0", init_method)
+
+    def sharded(model):
+        state = pmesh.replicate_state(create_train_state(model, 1e-3), mesh)
+        return pmesh.make_sharded_train_step(model, LossConfig(),
+                                             state.optimizer, mesh)
+
+    def grads_of(model):
+        return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    try:
+        model, batch, roi_w = _dp_inputs()
+        step = sharded(model)
+        eval_step = pmesh.make_sharded_eval_step(model, 36, mesh)
+        local = pmesh.shard_batch(
+            {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}, mesh)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        pred, vox, roi = eval_step({k: v for k, v in local.items()
+                                    if k != "valid_mask"})
+        metrics = step(local, roi_w)
+        grads = grads_of(model)
+        step_ms = _timed(lambda: step(local, roi_w))
+        # rank 0's parameters on every rank, compared bit for bit
+        copies = [p.detach().clone() for p in model.parameters()]
+        pmesh.broadcast_(copies, mesh)
+        same = all(torch.equal(c, p) for c, p in zip(copies, model.parameters()))
+        params_same = pmesh.gather_objects(same, mesh)
+        del model, step, eval_step, copies
+        gc.collect()
+        torch.cuda.empty_cache()
+        loop_s = _dp_loop(cohort, os.path.join(tmp, "loop_dp"), mesh)
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = _dp_model()
+        good = pmesh.gather_rows
+        pmesh.gather_rows = lambda x, m: _LocalOnlyGather.apply(x, m)
+        try:
+            fault_norm = float(sharded(model)(local, roi_w)["grad_norm"])
+        finally:
+            pmesh.gather_rows = good
+        if rank == 0:
+            torch.save({"launches": launches, "plain_cuda": plain_cuda,
+                        "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+                        "params_same": params_same, "fault_norm": fault_norm,
+                        "grads": grads, "fault_grads": grads_of(model),
+                        "step_ms": step_ms, "loop_s": loop_s, "pred": pred.cpu(),
+                        "vox": {k: v.cpu() for k, v in vox.items()},
+                        "roi": {k: v.cpu() for k, v in roi.items()}},
+                       os.path.join(tmp, "rank0.pt"))
+    finally:
+        pmesh.destroy_mesh()
+
+
+def _dp_groups(g: dict, g_one: dict, groups: dict) -> dict:
+    """rel L2 of each gradient group of `g` against `g_one`."""
+    out = {}
+    for group, names in groups.items():
+        num = sum(float((g[n] - g_one[n]).square().sum()) for n in names)
+        den = sum(float(g_one[n].square().sum()) for n in names)
+        out[group] = (num / den) ** 0.5 if den > 0 else 0.0
+    return out
+
+
+def _dp_check_loop(single: str, dp: str) -> float:
+    """The data-parallel loop's run directory against one process's: the
+    same files (charts aside), the validation CSVs within DP_LOOP_TOL, and
+    its checkpoint at step 2, loading into a single-process model. Returns
+    the worst difference."""
+    import os
+
+    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+    from coma_unet_tpu_torch.data.table import read_csv
+    from coma_unet_tpu_torch.train.checkpoint import load_checkpoint
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs
+                      if not f.endswith(".png"))
+
+    check(tree(dp) == tree(single), f"data parallel loop: files {tree(dp)} vs "
+          f"one process's {tree(single)}")
+    worst = 0.0
+    for key in ("mae", "mape", "avg_corr"):
+        want = read_csv(os.path.join(single, "validation_metric_results",
+                                     f"{key}.csv"))
+        got = read_csv(os.path.join(dp, "validation_metric_results", f"{key}.csv"))
+        check(got.columns == want.columns == ["epoch_0", "epoch_1"],
+              f"data parallel loop: {key}.csv columns {got.columns}")
+        for col in want.columns:
+            w, g = np.asarray(want[col], np.float64), np.asarray(got[col], np.float64)
+            err = np.abs(g - w) / (1.0 if key == "avg_corr" else np.abs(w))
+            check(bool(np.all(err <= DP_LOOP_TOL)), f"data parallel loop: {key} "
+                  f"{col} {g} vs one process's {w} (> {DP_LOOP_TOL})")
+            worst = max(worst, float(err.max()))
+    payload = load_checkpoint(os.path.join(dp, "checkpoints",
+                                           "checkpoint_latest_epoch"))
+    check(payload["step"] == 2 and payload["epoch"] == 1,
+          f"data parallel loop: checkpoint step {payload['step']}")
+    model = ContraAttnUNet(ModelConfig(), device=DEVICE)
+    model.load_state_dict(payload["model"])  # strict: no `module.` prefix
+    del model, payload
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_data_parallel() -> dict:
+    """Phase 13: the data-parallel train and eval steps and the loop, two
+    gloo ranks on the one card, against one process's b=4 steps and loop.
+    Returns rank 0's launches over its eval, two train steps and the loop."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from coma_unet_tpu_torch import LossConfig, ops
+    from coma_unet_tpu_torch.metrics import roi_metrics, voxel_metrics
+    from coma_unet_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        try:
+            model, batch, roi_w = _dp_inputs()
+            state = create_train_state(model, 1e-3)
+            step = make_train_step(model, LossConfig(), state.optimizer)
+            tb = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+            eval_step = make_eval_step(model, 36)
+            pred_one = eval_step({k: v for k, v in tb.items() if k != "valid_mask"})[0]
+            pred_one = pred_one.float().cpu()
+            # one process's eval of each rank's rows, at the rank's batch size
+            halves = [eval_step({k: v[i:i + 2] for k, v in tb.items()
+                                 if k != "valid_mask"}) for i in (0, 2)]
+            want_vox, want_roi = ({k: torch.cat([h[j][k] for h in halves]).double().cpu()
+                                   for k in halves[0][j]} for j in (1, 2))
+            pred_halves = torch.cat([h[0] for h in halves]).cpu()
+            del halves
+            want = step(tb, roi_w)
+            want = {k: v.detach().cpu() for k, v in want.items()}
+            g_one = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters() if p.grad is not None}
+            one_ms = _timed(lambda: step(tb, roi_w))
+            torch.backends.cudnn.deterministic = False
+            one_free_ms = _timed(lambda: step(tb, roi_w))
+            torch.backends.cudnn.deterministic = True
+            skip = _norm_fed_biases(model)
+            del model, state, step, tb, eval_step
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cohort = _dp_cohort(tmp)
+            cohort_s = time.perf_counter() - t0
+            single_loop_s = _dp_loop(cohort, os.path.join(tmp, "loop_single"))
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+        t_ranks = time.perf_counter()
+        mp.start_processes(_dp_rank, args=("file://" + os.path.join(tmp, "store"),
+                                           tmp, cohort),
+                           nprocs=DP_RANKS, join=True, start_method="spawn")
+        ranks_s = time.perf_counter() - t_ranks
+        got = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=True)
+        loop_worst = _dp_check_loop(os.path.join(tmp, "loop_single"),
+                                    os.path.join(tmp, "loop_dp"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    launches, plain_cuda = got["launches"], got["plain_cuda"]
+    print(f"data parallel launches on rank 0 (eval, 2 steps, 2-epoch loop): "
+          f"{launches}; plain on cuda: {plain_cuda}")
+    for family in ops.PATH_FAMILIES:
+        check(launches.get(family, 0) > 0, f"{family}: no launch on rank 0 of the "
+              f"data-parallel path")
+    check(sum(plain_cuda.values()) == 0, f"plain versions ran on the GPU: {plain_cuda}")
+    check(got["params_same"] == [True] * DP_RANKS, f"data parallel: the parameters "
+          f"differ from rank 0's after 2 steps (equal on {got['params_same']})")
+    metrics = got["metrics"]
+    loss, loss_one = float(metrics["loss"]), float(want["loss"])
+    rel_loss = abs(loss - loss_one) / abs(loss_one)
+    check(rel_loss <= LOSS_TOL, f"data parallel: loss {loss} vs one process's "
+          f"{loss_one} ({rel_loss} > {LOSS_TOL})")
+    check(float(metrics["tcds_loss"]) != 0.0, "data parallel: RnC is 0 at b=4")
+    check(metrics["gen_loss"].shape == want["gen_loss"].shape,
+          f"data parallel: gen_loss {tuple(metrics['gen_loss'].shape)}")
+    norm_ratio = float(metrics["grad_norm"]) / float(want["grad_norm"])
+    check(abs(norm_ratio - 1.0) <= DP_NORM_TOL, f"data parallel: grad_norm "
+          f"{float(metrics['grad_norm'])} vs one process's "
+          f"{float(want['grad_norm'])} (ratio {norm_ratio})")
+    check(set(got["grads"]) == set(g_one),
+          "data parallel: other parameters have gradients")
+    groups: dict = {}
+    for name in g_one:
+        if name not in skip:
+            groups.setdefault(_group(name), []).append(name)
+    check(set(groups) == set(DP_GRAD_LIMITS), f"data parallel: groups "
+          f"{sorted(groups)} vs {sorted(DP_GRAD_LIMITS)}")
+    sound = _dp_groups(got["grads"], g_one, groups)
+    fault = _dp_groups(got["fault_grads"], g_one, groups)
+    print(f"{'group':28s} {'dp vs one':>10s} {'fault':>10s} {'limit':>10s}")
+    for group in groups:
+        print(f"{group:28s} {sound[group]:10.3e} {fault[group]:10.3e} "
+              f"{DP_GRAD_LIMITS[group]:10.3e}")
+    over = [(g, e) for g, e in sound.items() if e > DP_GRAD_LIMITS[g]]
+    check(not over, f"data parallel: gradient groups over their limits: {over}")
+    caught = [g for g, e in fault.items() if e > DP_GRAD_LIMITS[g]]
+    check(bool(caught), "data parallel: the planted gather without the "
+          "cross-rank sum passes the gradient check")
+    worst = max(e / DP_GRAD_LIMITS[g] for g, e in sound.items())
+    head = max(g for g in groups if g.startswith("proj"))  # fed by RnC alone
+    # the sharded eval: its pred and metrics against one process's eval of
+    # the same rows, its metrics against the f64 recomputation from its own
+    # pred (phase 9's check), its pred beside one process's at b=4, where
+    # cuDNN and the kernels' cuts see another batch
+    check(torch.equal(got["pred"], pred_halves),
+          "data parallel: the sharded eval's pred differs from one process's "
+          "eval of the same rows")
+    worst_vox = _check_metrics("data-parallel eval voxel", got["vox"], want_vox)
+    worst_roi = _check_metrics("data-parallel eval roi", got["roi"], want_roi)
+    pred64 = got["pred"].double()
+    tau64 = torch.as_tensor(batch["tau"]).double()
+    worst_f64 = max(
+        _check_metrics("data-parallel eval voxel vs f64", got["vox"],
+                       voxel_metrics(pred64, tau64)),
+        _check_metrics("data-parallel eval roi vs f64", got["roi"],
+                       roi_metrics(pred64, tau64,
+                                   torch.as_tensor(batch["roi_compact"]), 36)))
+    pred_rel = float((got["pred"].float() - pred_one).norm() / pred_one.norm())
+    check(pred_rel <= PARITY_TOL, f"data parallel: pred differs from one process's "
+          f"b=4 pred by {pred_rel} > {PARITY_TOL}")
+    print(f"data parallel 128^3, global b=4 on {DP_RANKS} gloo ranks sharing the one "
+          f"card (valid {list(DP_VALID)}, RnC {float(metrics['tcds_loss']):.6f}): loss "
+          f"{loss:.6f} vs one process's b=4 {loss_one:.6f} (rel {rel_loss:.2e}, tol "
+          f"{LOSS_TOL}); {len(groups)} gradient groups within their limits (worst at "
+          f"{worst:.2f} of its limit), grad_norm ratio {norm_ratio:.6f} (tol "
+          f"{DP_NORM_TOL}); planted gather without the cross-rank sum caught by "
+          f"{len(caught)} groups ({head} {fault[head]:.3e}, worst "
+          f"{max(fault[g] / DP_GRAD_LIMITS[g] for g in fault):.1f}x its limit, "
+          f"grad_norm ratio {got['fault_norm'] / float(want['grad_norm']):.6f}); eval "
+          f"pred bit-identical to one process's eval of the same rows, metrics within "
+          f"{max(worst_vox, worst_roi):.2e} of it and {worst_f64:.2e} of f64 (tol "
+          f"{METRIC_TOL}), pred rel L2 {pred_rel:.3e} from one process's b=4 (tol "
+          f"{PARITY_TOL}); parameters bit-identical across the ranks after 2 steps; "
+          f"2-epoch loop's validation CSVs within {loop_worst:.2e} of one process's "
+          f"(tol {DP_LOOP_TOL})")
+    print(f"data parallel step {got['step_ms']:.2f} ms (rank 0, second step; two "
+          f"ranks sharing one card over gloo: the cost of sharing, not a "
+          f"data-parallel speed) vs one process's b=4 step {one_ms:.2f} ms, both with "
+          f"cuDNN deterministic ({one_free_ms:.2f} ms without); loop (2 epochs, cohort "
+          f"{cohort_s:.1f} s) {got['loop_s']:.1f} s on the ranks vs {single_loop_s:.1f} s "
+          f"in one process; ranks {ranks_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2007,6 +2429,8 @@ def main() -> int:
     paths["tcds"] = phase_tcds()
     torch.cuda.empty_cache()
     paths["baselines"] = phase_baselines()
+    torch.cuda.empty_cache()
+    paths["data_parallel"] = phase_data_parallel()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]

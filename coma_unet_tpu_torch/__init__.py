@@ -12,7 +12,8 @@ Ported so far: the serving forward of the flagship ContraAttnUNet
 backward runs through hand-written kernels too, and its eval step with the
 metric suite (`metrics/`), at 128^3 and in template space at 216^3; the
 loop, the data pipeline and the CLI; the model registry and the seven
-baselines (`models/registry.py`, `baselines.py`, `swin.py`). Models build
+baselines (`models/registry.py`, `baselines.py`, `swin.py`); data
+parallelism over a `torch.distributed` group (`parallel/`). Models build
 on the GPU unless asked for the CPU (`device="cpu"`).
 """
 

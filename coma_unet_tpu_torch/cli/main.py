@@ -16,9 +16,19 @@ Every `-model_type` of the registry runs (`models/registry.py`), with
 `--norm batch` and a config's dropout; the baselines train on the
 generative loss alone, and `--save_attention` asks for psi maps that only
 ContraAttnUNET returns (ValueError before anything is written otherwise).
-Data and spatial parallelism are not ported yet: the parser accepts them
-and they raise NotImplementedError when set, naming their `ROADMAP.md`
-item.
+
+`train` and `validate` with `--data_parallel N` > 1 (the flag or the
+config's `train.data_parallel`) start N rank processes themselves, one a
+device: rank r on `cuda:r` over NCCL with `--device cuda`, on the CPU over
+gloo with `--device cpu`; the group meets at a file store in a temporary
+directory (`parallel/mesh.py`). Each rank reads its rows of every global
+batch, and the run gives the single-process numbers on the concatenated
+batch; rank 0 writes the files and prints. The command exits with status 2
+before anything is written where N exceeds the visible cards
+(`--device cuda`) or does not divide the batch size, and fails where a rank
+fails. `infer` with `--data_parallel` runs the plain forward, as the JAX
+CLI's does. Spatial parallelism is not ported yet: it raises
+NotImplementedError, naming its `ROADMAP.md` item.
 
 The results directory is the reference's: <save>/<run>/checkpoints/,
 <save>/<run>/validation_metric_results/, <save>/<run>/<epoch>_output_samples/.
@@ -227,24 +237,47 @@ def _refuse_dtype(args, config) -> bool:
 
 
 def _check_ported(args, config) -> None:
-    """Raise NotImplementedError for data or spatial parallelism, which is
-    not ported yet, naming its ROADMAP.md item."""
-    if max(int(config.train.data_parallel), int(config.train.spatial_parallel),
+    """Raise NotImplementedError for spatial parallelism, which is not
+    ported yet, naming its ROADMAP.md item."""
+    if max(int(config.train.spatial_parallel),
            int(getattr(args, "spatial_parallel", 1) or 1)) > 1:
         raise NotImplementedError(
-            "--data_parallel / --spatial_parallel > 1 is not ported yet "
-            "(ROADMAP.md, queue 1 item 3)")
+            "--spatial_parallel > 1 is not ported yet (ROADMAP.md, queue 1 "
+            "item 5)")
 
 
-def _prepare(args):
-    """The normalized config and the device, or None where the dtype is
-    refused; raises for an option not ported and for a missing card."""
+def _refuse_parallel(args, config) -> bool:
+    """The data-parallel decision, made before anything is written: N ranks
+    need N visible cards on CUDA (one a rank) and must split the batch."""
+    n = int(config.train.data_parallel)
+    if n <= 1:
+        return False
+    why = None
+    if config.train.batch_size % n:
+        why = (f"batch_size {config.train.batch_size} must be divisible by "
+               f"data_parallel {n}")
+    elif (torch.device(args.device).type == "cuda"
+          and n > torch.cuda.device_count()):
+        why = (f"data_parallel {n} runs one rank a card, and "
+               f"{torch.cuda.device_count()} CUDA devices are visible")
+    if why:
+        print(why, file=sys.stderr)
+    return why is not None
+
+
+def _prepare(args, mesh=None, parallel: bool = True):
+    """The normalized config and the device, or None where the dtype or the
+    data-parallel layout is refused; raises for an option not ported and
+    for a missing card. A rank of a data-parallel run takes its mesh's
+    device."""
     from coma_unet_tpu_torch.train.loop import require_device
 
     config = _experiment_config(args).normalized()
-    if _refuse_dtype(args, config):
+    if _refuse_dtype(args, config) or (parallel and _refuse_parallel(args, config)):
         return None, None
     _check_ported(args, config)
+    if mesh is not None:
+        return config, mesh.device
     return config, require_device(args.device)
 
 
@@ -281,7 +314,7 @@ def _load_json(path: Optional[str]) -> dict:
         return json.load(f)
 
 
-def _build_loaders(args, config):
+def _build_loaders(args, config, shard=(0, 1)):
     from coma_unet_tpu_torch.data import (
         CombinedVolumeDataset, DataLoader, PredictedMetaTauDataset,
         filter_for_holdout,
@@ -324,16 +357,19 @@ def _build_loaders(args, config):
     train_loader = DataLoader(train_ds, config.train.batch_size,
                               predictions=preds, shuffle=True, drop_last=False,
                               with_triplets=not config.loss.rnc,
-                              roi_indices=roi_idx, sampler=sampler)
+                              roi_indices=roi_idx, sampler=sampler, shard=shard)
     test_loader = DataLoader(test_ds, config.train.batch_size,
-                             predictions=preds, roi_indices=roi_idx)
+                             predictions=preds, roi_indices=roi_idx, shard=shard)
     return train_loader, test_loader
 
 
 def _run_dir_name(args) -> str:
     """A timestamped results dir; resuming from a checkpoint writes to
     `native_target_finetune_<original run dir>`, so that the finetune never
-    overwrites the source run."""
+    overwrites the source run. The ranks of a data-parallel run take the
+    name their launcher chose."""
+    if getattr(args, "run_dir_name", None):
+        return args.run_dir_name
     if getattr(args, "resume_training", False) and \
             getattr(args, "checkpoint_path", None):
         ckpt = os.path.abspath(args.checkpoint_path)
@@ -350,19 +386,30 @@ def _load_weights(model, path: Optional[str]) -> None:
         model.load_state_dict(load_checkpoint(path)["model"])
 
 
-def cmd_train(args) -> int:
+def _shard(mesh):
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+
+
+def cmd_train(args, mesh=None) -> int:
     from coma_unet_tpu_torch.data.table import read_csv
     from coma_unet_tpu_torch.train.loop import train
     from coma_unet_tpu_torch.utils.logging import setup_logging
 
-    config, device = _prepare(args)
+    config, device = _prepare(args, mesh)
     if config is None:
         return 2
+    if config.train.data_parallel > 1 and mesh is None:
+        args.run_dir_name = _run_dir_name(args)
+        return _launch(cmd_train, args, config)
+    writer = mesh is None or mesh.rank == 0
     run_dir = os.path.join(config.save_path, _run_dir_name(args))
-    os.makedirs(run_dir, exist_ok=True)
-    setup_logging(os.path.join(run_dir, f"train_{config.model_type}.log"))
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        f.write(config.to_json())
+    if writer:
+        os.makedirs(run_dir, exist_ok=True)
+        setup_logging(os.path.join(run_dir, f"train_{config.model_type}.log"))
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            f.write(config.to_json())
+    else:
+        setup_logging(None, level=logging.WARNING)
 
     folds = [config.data.fold]
     if getattr(args, "cross_val", False):
@@ -373,15 +420,16 @@ def cmd_train(args) -> int:
         fold_cfg = dataclasses.replace(
             config, data=dataclasses.replace(config.data, fold=k))
         fold_dir = run_dir if len(folds) == 1 else os.path.join(run_dir, f"fold_{k}")
-        os.makedirs(fold_dir, exist_ok=True)
+        if writer:
+            os.makedirs(fold_dir, exist_ok=True)
         model = _build_model(fold_cfg, device)
-        train_loader, test_loader = _build_loaders(args, fold_cfg)
+        train_loader, test_loader = _build_loaders(args, fold_cfg, _shard(mesh))
         resume = args.checkpoint_path if args.resume_training else None
         train(model, fold_cfg, train_loader, val_loader=test_loader,
               save_path=fold_dir, resume_from=resume,
-              roi_indices=_roi_indices(fold_cfg), device=device)
+              roi_indices=_roi_indices(fold_cfg), device=device, mesh=mesh)
         mape_csv = os.path.join(fold_dir, "validation_metric_results", "mape.csv")
-        if os.path.exists(mape_csv):
+        if writer and os.path.exists(mape_csv):
             table = read_csv(mape_csv)
             if table.columns:
                 fold_metrics.append(float(table[table.columns[-1]][0]))
@@ -391,16 +439,21 @@ def cmd_train(args) -> int:
     return 0
 
 
-def cmd_validate(args) -> int:
+def cmd_validate(args, mesh=None) -> int:
     from coma_unet_tpu_torch.data import DataLoader, PredictedMetaTauDataset, pin_batch
     from coma_unet_tpu_torch.train.loop import evaluate
     from coma_unet_tpu_torch.train.step import make_eval_step
     from coma_unet_tpu_torch.utils.logging import setup_logging
 
-    config, device = _prepare(args)
+    config, device = _prepare(args, mesh)
     if config is None:
         return 2
-    setup_logging(None)
+    if config.train.data_parallel > 1 and mesh is None:
+        return _launch(cmd_validate, args, config)
+    if mesh is not None and mesh.rank != 0:
+        setup_logging(None, level=logging.WARNING)
+    else:
+        setup_logging(None)
     model = _build_model(config, device)
     cov, quart, preds = _tables(args, config)
     ds = PredictedMetaTauDataset(
@@ -410,11 +463,20 @@ def cmd_validate(args) -> int:
     roi_idx = _roi_indices(config)
     loader = DataLoader(ds, config.train.batch_size, predictions=preds,
                         roi_indices=roi_idx,
-                        device_put=pin_batch if device.type == "cuda" else None)
+                        device_put=pin_batch if device.type == "cuda" else None,
+                        shard=_shard(mesh))
     _load_weights(model, args.checkpoint_path)
+    if mesh is not None:
+        from coma_unet_tpu_torch.parallel.mesh import make_sharded_eval_step
+
+        eval_step = make_sharded_eval_step(model, len(roi_idx), mesh)
+    else:
+        eval_step = make_eval_step(model, len(roi_idx))
     general, pos, neg, _ = evaluate(
-        make_eval_step(model, len(roi_idx)), loader, len(roi_idx),
-        save_path=args.save_path, device=device)
+        eval_step, loader, len(roi_idx), save_path=args.save_path,
+        device=device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     for tag, res in (("overall", general), ("abeta+", pos), ("abeta-", neg)):
         print(f"[{tag}] MAE={res.mae:.4f} MAPE={res.mape:.2f}% "
               f"RSE={res.rse:.4f} RRMSE={res.rrmse:.4f} SSIM={res.ssim:.4f} "
@@ -439,7 +501,8 @@ def cmd_infer(args) -> int:
     from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
     from coma_unet_tpu_torch.utils.logging import setup_logging
 
-    config, device = _prepare(args)
+    # --data_parallel runs the plain forward here, as in the JAX CLI
+    config, device = _prepare(args, parallel=False)
     if config is None:
         return 2
     setup_logging(None)
@@ -494,6 +557,73 @@ def cmd_infer(args) -> int:
                                   os.path.join(args.out_dir, "attention"),
                                   sample_ids=batch["sample_ids"])
     return 0
+
+
+def _rank_main(rank: int, command, args, world: int, init_method: str,
+               out_path: str) -> None:
+    """One rank of a data-parallel `command`: joins the group on its device
+    (`cuda:<rank>` or the CPU), runs the command with its mesh and exits
+    with its status; rank 0's standard output goes to `out_path`, which the
+    launcher prints."""
+    import contextlib
+
+    from coma_unet_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    cuda = torch.device(args.device).type == "cuda"
+    mesh = make_mesh(rank, world, f"cuda:{rank}" if cuda else "cpu",
+                     init_method)
+    try:
+        with open(out_path if rank == 0 else os.devnull, "w") as out, \
+                contextlib.redirect_stdout(out):
+            rc = command(args, mesh)
+    finally:
+        destroy_mesh()
+    if rc:
+        sys.exit(rc)
+
+
+def _launch(command, args, config) -> int:
+    """Run `command` on `config.train.data_parallel` rank processes and wait
+    for them: 0 when every rank succeeded, else 1 (a rank that fails ends
+    the others). The kernels are built here first, so the ranks load one
+    library and none rebuilds it. The ranks are forked from a fork server
+    that imports torch once for this process's launches (and touches no
+    device)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    world = int(config.train.data_parallel)
+    if torch.device(args.device).type == "cuda":
+        from coma_unet_tpu_torch.ops._build import build
+
+        build()
+    tmp = tempfile.mkdtemp(prefix="coma_dp_")
+    out_path = os.path.join(tmp, "rank0.out")
+    try:
+        multiprocessing.get_context("forkserver").set_forkserver_preload(
+            ["torch", "coma_unet_tpu_torch.cli.main"])
+        ctx = mp.start_processes(
+            _rank_main, args=(command, args, world,
+                              "file://" + os.path.join(tmp, "store"), out_path),
+            nprocs=world, join=False, start_method="forkserver")
+        try:
+            while not ctx.join():
+                pass
+            rc = 0
+        except ProcessException as e:
+            print(f"data-parallel {args.command} failed: {e}", file=sys.stderr)
+            rc = 1
+        if os.path.exists(out_path):
+            with open(out_path) as f:
+                print(f.read(), end="")
+        return rc
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -11,7 +11,8 @@ partners whatever the number of workers, and a pass cut short (the
 training loop's first batch) draws what a whole one does.
 The consumer moves a batch to the device (`batch_to_device`); a
 `device_put` hook, run in the producer thread, may prepare it for that (the
-training loop pins its memory there).
+training loop pins its memory there). A rank of a data-parallel group reads
+only its rows of each global batch (`shard`).
 """
 
 from __future__ import annotations
@@ -99,6 +100,15 @@ def collate(samples: List[Dict], predictions: Optional[PredictionTable] = None,
     return batch
 
 
+def shard_rows(n: int, rank: int, size: int) -> slice:
+    """Rank `rank`'s rows [r*n/N, (r+1)*n/N) of a global batch of `n`
+    split over `size` ranks."""
+    if n % size:
+        raise ValueError(f"a batch of {n} rows does not split over {size} ranks")
+    b = n // size
+    return slice(rank * b, (rank + 1) * b)
+
+
 def pin_batch(batch: Dict) -> Dict:
     """The batch's arrays as tensors in pinned host memory, so that the
     copy to the card can run asynchronously (`non_blocking=True`)."""
@@ -137,6 +147,10 @@ class DataLoader:
       prefetch: batches staged ahead.
       device_put: optional function applied to each collated batch in the
         producer thread.
+      shard: (rank, size) of a data-parallel group: the loader reads only
+        the rank's rows [r*b/N, (r+1)*b/N) of each global batch, which has
+        the single-process loader's order, shuffle, wrap-pad and triplet
+        partners; `valid` is sliced to match.
     """
 
     def __init__(self, dataset, batch_size: int,
@@ -146,7 +160,7 @@ class DataLoader:
                  shuffle: bool = False, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, drop_last: bool = False,
                  device_put: Optional[Callable] = None,
-                 roi_indices=ROI_INDICES):
+                 roi_indices=ROI_INDICES, shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -159,6 +173,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.device_put = device_put
         self.roi_indices = roi_indices
+        self.shard = (int(shard[0]), int(shard[1]))
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -228,10 +243,11 @@ class DataLoader:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for b, n_valid in zip(jobs, valid_counts):
-                        samples = list(pool.map(load, b))
+                        rows = shard_rows(len(b), *self.shard)
+                        samples = list(pool.map(load, b[rows]))
                         batch = collate(samples, self.predictions,
                                         self.with_triplets, self.roi_indices)
-                        batch["valid"] = np.arange(len(b)) < n_valid
+                        batch["valid"] = (np.arange(len(b)) < n_valid)[rows]
                         if self.device_put is not None:
                             batch = self.device_put(batch)
                         if not put(batch):

@@ -50,17 +50,41 @@ class GenerativeContrastiveLoss:
         valid: Optional[torch.Tensor] = None,
     ) -> LossOutputs:
         """`valid` ([B] 0/1) excludes wrap-padded rows from every term."""
-        cfg = self.config
+        gen, total = self.generative(pred, target, roi_compact, roi_weights,
+                                     voxel_weights=voxel_weights, valid=valid)
+        pred_space, tcds = self.coupled(
+            rnc_features=rnc_features, rnc_labels=rnc_labels,
+            anchor_projs=anchor_projs, pos_projs=pos_projs,
+            neg_projs=neg_projs, final_reprs=final_reprs, valid=valid)
+        return LossOutputs(total=total + pred_space + tcds, gen=gen,
+                           pred_space=pred_space, tcds=tcds)
+
+    def generative(self, pred: torch.Tensor, target: torch.Tensor,
+                   roi_compact: torch.Tensor, roi_weights: torch.Tensor, *,
+                   voxel_weights: Optional[torch.Tensor] = None,
+                   valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(per-sample RoiMSE [B], gen_weight x its sum over the valid
+        rows): the term that is a sum over the samples."""
         gen = roi_mse(pred, target, roi_compact, roi_weights,
                       voxel_weights=voxel_weights, reduction=None)
         vsum = gen if valid is None else gen * valid.reshape(-1).to(gen.dtype)
-        total = cfg.gen_weight * vsum.sum()
-        zero = torch.zeros((), dtype=torch.float32, device=pred.device)
-        pred_space = zero
-        if cfg.reg_weight != 0.0 and final_reprs is not None:
-            a, p, n = final_reprs
-            pred_space = cfg.reg_weight * triplet_loss(
-                a, p, n, margin=cfg.triplet_margin, valid=valid)
+        return gen, self.config.gen_weight * vsum.sum()
+
+    def coupled(
+        self, *, rnc_features: Optional[torch.Tensor] = None,
+        rnc_labels: Optional[torch.Tensor] = None,
+        anchor_projs: Optional[Sequence[torch.Tensor]] = None,
+        pos_projs: Optional[Sequence[torch.Tensor]] = None,
+        neg_projs: Optional[Sequence[torch.Tensor]] = None,
+        final_reprs: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]] = None,
+        valid: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pred-space triplet, RnC or tCDS), weighted: the terms that couple
+        the samples of the batch, computed on whatever rows they are given
+        (a data-parallel step gives them every rank's)."""
+        cfg = self.config
         if cfg.rnc:
             if rnc_features is None or rnc_labels is None:
                 raise ValueError("rnc=True requires rnc_features and rnc_labels")
@@ -73,5 +97,9 @@ class GenerativeContrastiveLoss:
             tcds = cfg.ds_reg_weight * truncated_cds(
                 anchor_projs, pos_projs, neg_projs, cfg.cds_weights,
                 margin=cfg.triplet_margin, valid=valid)
-        return LossOutputs(total=total + pred_space + tcds, gen=gen,
-                           pred_space=pred_space, tcds=tcds)
+        pred_space = torch.zeros((), dtype=torch.float32, device=tcds.device)
+        if cfg.reg_weight != 0.0 and final_reprs is not None:
+            a, p, n = final_reprs
+            pred_space = cfg.reg_weight * triplet_loss(
+                a, p, n, margin=cfg.triplet_margin, valid=valid)
+        return pred_space, tcds

@@ -87,12 +87,21 @@ class CheckpointManager:
         """`restore`, returning the whole payload."""
         if path is None:
             path = os.path.join(self.root, "checkpoint_latest_epoch")
-        payload = load_checkpoint(path)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
-        if scheduler is not None and payload.get("scheduler"):
-            scheduler.load_state_dict(payload["scheduler"])
-        return payload
+        return restore_payload(state, path, scheduler)
+
+
+def restore_payload(state: TrainState, path: str,
+                    scheduler: Optional[ReduceLROnPlateau] = None
+                    ) -> Dict[str, Any]:
+    """Load the checkpoint at `path` into `state`'s model and optimizer, and
+    into `scheduler` when given; returns the whole payload. No directory is
+    made (a data-parallel rank that writes nothing restores with this)."""
+    payload = load_checkpoint(path)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    if scheduler is not None and payload.get("scheduler"):
+        scheduler.load_state_dict(payload["scheduler"])
+    return payload
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -20,8 +20,16 @@ weights, it is written after the epoch's validation, which adapts them, and
 a resumed run's loader shuffles each epoch as the uninterrupted run did.
 The model is any of the registry's (`models/registry.py`); its state
 dict, batch norm's running statistics included, is what a checkpoint
-keeps of it. The JAX package's multi-chip mesh, split step and AOT
-precompile are TPU paths and are not here.
+keeps of it.
+
+Under a data-parallel `mesh` (`parallel/mesh.py`) every rank runs the loop
+on its rows of each global batch (the loaders are built with its `shard`):
+the step and the validation are the sharded ones, whose metrics are global,
+so every rank books the same losses and every rank's plateau controller
+and adaptive weights decide alike (checked each epoch by one all-reduce);
+only rank 0 writes checkpoints, CSVs, charts, samples and `LAST_RUN`. The
+JAX package's spatial parallelism, split step and AOT precompile are TPU
+paths and are not here.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from coma_unet_tpu_torch.losses.roi_losses import (
     update_voxel_weights,
 )
 from coma_unet_tpu_torch.metrics.aggregate import MetricAccumulator, MetricResults
-from coma_unet_tpu_torch.train.checkpoint import CheckpointManager
+from coma_unet_tpu_torch.train.checkpoint import CheckpointManager, restore_payload
 from coma_unet_tpu_torch.train.optim import ReduceLROnPlateau, get_lr, set_lr
 from coma_unet_tpu_torch.train.recorder import MetricRecorder, loss_graph
 from coma_unet_tpu_torch.train.state import TrainState, create_train_state
@@ -83,7 +91,8 @@ def _model_device(model: torch.nn.Module) -> torch.device:
 def _write_samples(pred: torch.Tensor, batch, save_path: str, saved: int,
                    limit: int) -> int:
     """Write the batch's valid (pred, gt) pairs as NIfTI into `save_path`
-    until `limit` are written; returns the count written so far."""
+    (none where it is empty) until `limit` are counted; returns the count so
+    far."""
     p = pred.float().cpu().numpy()
     t = np.asarray(batch["tau"])
     valid = batch.get("valid")
@@ -94,23 +103,46 @@ def _write_samples(pred: torch.Tensor, batch, save_path: str, saved: int,
         if saved >= limit:
             break
         if vmask[j]:
-            sid = str(ids[j]).replace("/", "_")
-            write_tensor_to_nii(p[j], os.path.join(save_path, f"{sid}_pred.nii"))
-            write_tensor_to_nii(t[j], os.path.join(save_path, f"{sid}_gt.nii"))
+            if save_path:
+                sid = str(ids[j]).replace("/", "_")
+                write_tensor_to_nii(p[j], os.path.join(save_path, f"{sid}_pred.nii"))
+                write_tensor_to_nii(t[j], os.path.join(save_path, f"{sid}_gt.nii"))
             saved += 1
     return saved
 
 
+def _gather_host(batch, mesh, with_tau: bool):
+    """The global batch's host entries (abeta, valid, sample_ids and, with
+    `with_tau`, tau) from every rank's rows, in rank order."""
+    from coma_unet_tpu_torch.parallel.mesh import gather_objects
+
+    b = len(np.asarray(batch["abeta"]).reshape(-1))
+    mine = {"abeta": np.asarray(batch["abeta"]).reshape(-1),
+            "valid": (np.ones(b, bool) if batch.get("valid") is None
+                      else np.asarray(batch["valid"]).reshape(-1))}
+    if batch.get("sample_ids") is not None:
+        mine["sample_ids"] = list(batch["sample_ids"])
+    if with_tau:
+        mine["tau"] = np.asarray(batch["tau"])
+    parts = gather_objects(mine, mesh)
+    return {k: (sum((p[k] for p in parts), []) if k == "sample_ids"
+                else np.concatenate([p[k] for p in parts])) for k in mine}
+
+
 def evaluate(eval_step, loader, num_rois: int, save_path: str = "",
              save_matrices: bool = True, save_samples: int = 0,
-             device: Optional[torch.device] = None
+             device: Optional[torch.device] = None, mesh=None
              ) -> Tuple[MetricResults, MetricResults, MetricResults,
                         Optional[np.ndarray]]:
     """Run `eval_step` over the loader and accumulate the overall, Abeta+
     and Abeta- metrics and the per-ROI Pearson r. `save_samples` > 0 writes
     the first N valid (pred, gt) pairs as NIfTI into `save_path`; the
     wrap-padded rows count nowhere. Returns the three results and the voxel
-    MAPE grid."""
+    MAPE grid. Under a data-parallel `mesh` the loader yields this rank's
+    rows and `eval_step` is the sharded one: every rank accumulates the
+    whole batch, and only rank 0 writes."""
+    if mesh is not None and mesh.rank != 0:
+        save_path = ""
     acc = MetricAccumulator(num_rois)
     saved = 0
     # cuDNN runs deterministically here, so that a checkpoint validates to
@@ -126,9 +158,11 @@ def evaluate(eval_step, loader, num_rois: int, save_path: str = "",
                 db = (batch_to_device(batch, device) if device is not None
                       else {k: v for k, v in batch.items() if k not in HOST_KEYS})
                 pred, vox, roi = eval_step(db)
+                if mesh is not None:
+                    batch = _gather_host(batch, mesh, saved < save_samples)
                 acc.update(vox, roi, batch["abeta"], batch.get("sample_ids"),
                            valid=batch.get("valid"))
-                if save_path and saved < save_samples:
+                if saved < save_samples:
                     saved = _write_samples(pred, batch, save_path, saved,
                                            save_samples)
     finally:
@@ -147,25 +181,45 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
           val_loader=None, save_path: Optional[str] = None, train_step=None,
           eval_step=None, resume_from: Optional[str] = None,
           num_rois: Optional[int] = None, roi_indices=ROI_INDICES,
-          device=None) -> TrainState:
+          device=None, mesh=None) -> TrainState:
     """Train `model`, whose parameters must be on `device` (the GPU when
-    None), for `config.train.epochs` epochs; returns the TrainState."""
+    None), for `config.train.epochs` epochs; returns the TrainState. With
+    `config.train.data_parallel` N > 1, `mesh` must be this rank's place in
+    a group of N (`parallel.make_mesh`) and the loaders must read its
+    shard."""
     device = require_device(device)
     if _model_device(model).type != device.type:
         raise ValueError(f"the model is on {_model_device(model)}, "
                          f"training was asked on {device}")
     device = _model_device(model)
     tcfg, lcfg = config.train, config.loss
-    if max(int(tcfg.data_parallel), 1) * max(int(tcfg.spatial_parallel), 1) > 1:
+    if max(int(tcfg.spatial_parallel), 1) > 1:
         raise NotImplementedError(
-            "data and spatial parallelism are not ported yet (ROADMAP.md, "
-            "queue 1 item 3)")
+            "spatial parallelism is not ported yet (ROADMAP.md, queue 1 "
+            "item 5)")
+    dp = max(int(tcfg.data_parallel), 1)
+    if (mesh.size if mesh is not None else 1) != dp:
+        raise ValueError(
+            f"data_parallel {dp} needs an initialized process group of {dp} "
+            f"ranks (parallel.make_mesh), got "
+            f"{'none' if mesh is None else mesh.size}")
+    if mesh is not None:
+        if tcfg.batch_size % dp:
+            raise ValueError(f"batch_size {tcfg.batch_size} must be divisible "
+                             f"by data_parallel {dp}")
+        for ld in (train_loader, val_loader):
+            if getattr(ld, "shard", (mesh.rank, dp)) != (mesh.rank, dp):
+                raise ValueError(f"a loader reads shard {ld.shard}, not this "
+                                 f"rank's {(mesh.rank, dp)}")
+    writer = mesh is None or mesh.rank == 0  # the rank that writes files
     if num_rois is None:
         num_rois = len(roi_indices)
     save_path = save_path or config.save_path
-    os.makedirs(save_path, exist_ok=True)
+    if writer:
+        os.makedirs(save_path, exist_ok=True)
     LAST_RUN.clear()
-    LAST_RUN.update(restore_s=0.0, epochs=[])
+    if writer:
+        LAST_RUN.update(restore_s=0.0, epochs=[])
 
     # the first batch is drawn before anything else, as the JAX loop draws
     # its init example: it spends one pass of the loader's shuffle
@@ -174,7 +228,7 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
     state = create_train_state(model, tcfg.lr, tcfg.weight_decay, tcfg.grad_acc)
     scheduler = ReduceLROnPlateau(patience=tcfg.plateau_patience,
                                   factor=tcfg.plateau_factor)
-    ckpt = CheckpointManager(save_path)
+    ckpt = CheckpointManager(save_path) if writer else None
     roi_weights = torch.full((num_rois,), lcfg.roi_weight, dtype=torch.float32,
                              device=device)
     voxel_weights = None
@@ -188,18 +242,23 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
             tpl_compact = np.asarray(example["roi_compact"][0])
         voxel_weights = make_voxel_weights(
             torch.as_tensor(tpl_compact, device=device), roi_weights)
+        if mesh is not None:  # the first sample of the global batch
+            from coma_unet_tpu_torch.parallel.mesh import broadcast_
+
+            broadcast_([voxel_weights], mesh)
     del example
 
     start_epoch = 0
     if resume_from:
         t0 = time.perf_counter()
-        payload = ckpt.restore_payload(state, resume_from, scheduler)
+        payload = restore_payload(state, resume_from, scheduler)
         last_epoch = int(payload["epoch"])
         if payload.get("roi_weights") is not None:
             roi_weights = payload["roi_weights"].to(device)
         if payload.get("voxel_weights") is not None and voxel_weights is not None:
             voxel_weights = payload["voxel_weights"].to(device)
-        LAST_RUN["restore_s"] = time.perf_counter() - t0
+        if writer:
+            LAST_RUN["restore_s"] = time.perf_counter() - t0
         start_epoch = last_epoch + 1
         # the passes the uninterrupted run made before this epoch: the
         # first batch's, one per epoch, one per in-sample validation
@@ -213,15 +272,29 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
         for ld in (train_loader, val_loader):
             if ld is not None and getattr(ld, "device_put", False) is None:
                 ld.device_put = pin_batch
+    if mesh is not None:
+        from coma_unet_tpu_torch.parallel.mesh import (
+            make_sharded_eval_step,
+            make_sharded_train_step,
+            replicate_state,
+        )
+
+        replicate_state(state, mesh)
+        if train_step is None:
+            train_step = make_sharded_train_step(model, lcfg, state.optimizer,
+                                                 mesh, seed=tcfg.seed)
+        if eval_step is None:
+            eval_step = make_sharded_eval_step(model, num_rois, mesh)
     if train_step is None:
         train_step = make_train_step(model, lcfg, state.optimizer,
                                      seed=tcfg.seed)
     if eval_step is None:
         eval_step = make_eval_step(model, num_rois)
 
-    recorder = MetricRecorder(save_path)
-    pos_recorder = MetricRecorder(os.path.join(save_path, "pos_metrics"))
-    neg_recorder = MetricRecorder(os.path.join(save_path, "neg_metrics"))
+    if writer:
+        recorder = MetricRecorder(save_path)
+        pos_recorder = MetricRecorder(os.path.join(save_path, "pos_metrics"))
+        neg_recorder = MetricRecorder(os.path.join(save_path, "neg_metrics"))
     hist: Dict[str, list] = {k: [] for k in (
         "avg", "total", "pos_avg", "neg_avg", "gen_avg", "tcds_avg")}
     best_mape, best_corr = float("inf"), -float("inf")
@@ -245,6 +318,9 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
             packed, valid, abeta, idx = item
             hm = packed.cpu().numpy()
             bl, tcds, gen = float(hm[0]), float(hm[1]), hm[2:]
+            if valid is None:  # data parallel: the rows' gathered valid, abeta
+                gen, valid, abeta = np.split(gen, 3)
+                valid = valid.astype(bool)
             step_losses.append(bl)
             epoch_loss += bl
             epoch_gen += float(gen[valid].sum())
@@ -276,9 +352,12 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
             db["valid_mask"] = torch.from_numpy(valid.astype(np.float32)).to(
                 device, non_blocking=True)
             metrics = train_step(db, roi_weights, voxel_weights)
-            packed = torch.cat([metrics["loss"].reshape(1).float(),
-                                metrics["tcds_loss"].reshape(1).float(),
-                                metrics["gen_loss"].reshape(-1).float()])
+            parts = [metrics["loss"].reshape(1), metrics["tcds_loss"].reshape(1),
+                     metrics["gen_loss"].reshape(-1)]
+            if mesh is not None:  # the metrics cover the global batch
+                parts += [metrics["valid_mask"], metrics["abeta"]]
+                valid = abeta = None
+            packed = torch.cat([t.float() for t in parts])
             if pending is not None:
                 consume(pending)
             pending = (packed, valid, abeta, batch_idx)
@@ -307,28 +386,31 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
         log.info("epoch %d: avg loss %.4f (lr %.2e, %.1fs; loader wait %.2fs / "
                  "step %.2fs = %.1f%% stalled)", epoch, avg, new_lr,
                  time.perf_counter() - t0, wait_s, step_s, 100.0 * wait_s / busy)
-        loss_graph((hist["avg"], hist["pos_avg"], hist["neg_avg"]),
-                   os.path.join(save_path, "train_average_loss"),
-                   labels=["Total", "Pos", "Neg"])
-        loss_graph((hist["gen_avg"], hist["tcds_avg"]),
-                   os.path.join(save_path, "train_average_component_losses"),
-                   labels=["Gen.", "tCDS/RnC (weighted)"])
+        if writer:
+            loss_graph((hist["avg"], hist["pos_avg"], hist["neg_avg"]),
+                       os.path.join(save_path, "train_average_loss"),
+                       labels=["Total", "Pos", "Neg"])
+            loss_graph((hist["gen_avg"], hist["tcds_avg"]),
+                       os.path.join(save_path, "train_average_component_losses"),
+                       labels=["Gen.", "tCDS/RnC (weighted)"])
         record = dict(epoch=epoch, loss=avg, losses=step_losses, wait_s=wait_s,
                       step_s=step_s, step_ms=step_ms, validate_s=0.0)
 
         if val_loader is not None and epoch % tcfg.val_iter == 0:
             t_v = time.perf_counter()
             val_dir = os.path.join(save_path, f"{epoch}_output_samples")
-            os.makedirs(val_dir, exist_ok=True)
+            if writer:
+                os.makedirs(val_dir, exist_ok=True)
             general, pos, neg, voxel_mape = evaluate(
                 eval_step, val_loader, num_rois, save_path=val_dir,
-                save_samples=2, device=device)
-            recorder.record(general, epoch)
-            pos_recorder.record(pos, epoch)
-            neg_recorder.record(neg, epoch)
-            recorder.plot()
-            pos_recorder.plot()
-            neg_recorder.plot()
+                save_samples=2, device=device, mesh=mesh)
+            if writer:
+                recorder.record(general, epoch)
+                pos_recorder.record(pos, epoch)
+                neg_recorder.record(neg, epoch)
+                recorder.plot()
+                pos_recorder.plot()
+                neg_recorder.plot()
             if tcfg.adaptive_roi_weights:
                 if voxel_weights is not None and voxel_mape is not None:
                     errors = torch.as_tensor(voxel_mape / 100.0,
@@ -353,17 +435,31 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
                          epoch, best_corr)
             record["validate_s"] = time.perf_counter() - t_v
 
+        if mesh is not None:
+            # what the ranks decided from the global metrics must agree
+            from coma_unet_tpu_torch.parallel.mesh import check_same
+
+            decided = [torch.tensor([new_lr], dtype=torch.float64),
+                       roi_weights.double().cpu()]
+            if voxel_weights is not None:
+                decided.append(voxel_weights.double().sum().reshape(1).cpu())
+            check_same(torch.cat(decided), mesh,
+                       "the learning rate and the adapted weights")
+
         t_c = time.perf_counter()
-        ckpt.save_epoch(state, epoch, avg, scheduler, tcfg.checkpoint_iter,
-                        roi_weights=roi_weights, voxel_weights=voxel_weights)
+        if writer:
+            ckpt.save_epoch(state, epoch, avg, scheduler, tcfg.checkpoint_iter,
+                            roi_weights=roi_weights, voxel_weights=voxel_weights)
         record["checkpoint_s"] = time.perf_counter() - t_c
         record["seconds"] = time.perf_counter() - t0
-        LAST_RUN["epochs"].append(record)
+        if writer:
+            LAST_RUN["epochs"].append(record)
 
         if _in_sample(epoch, tcfg.overfit_val_iter):
             log.info("in-sample (overfit) validation at epoch %d", epoch)
             general, _, _, _ = evaluate(eval_step, train_loader, num_rois,
-                                        save_matrices=False, device=device)
+                                        save_matrices=False, device=device,
+                                        mesh=mesh)
             log.info("in-sample MAE %.4f MAPE %.2f SSIM %.4f",
                      general.mae, general.mape, general.ssim)
 

@@ -30,7 +30,6 @@ import torch
 
 from coma_unet_tpu_torch.config import LossConfig
 from coma_unet_tpu_torch.losses.composite import GenerativeContrastiveLoss
-from coma_unet_tpu_torch.losses.roi_losses import roi_mse
 from coma_unet_tpu_torch.metrics.roi import roi_metrics
 from coma_unet_tpu_torch.metrics.voxel import voxel_metrics
 from coma_unet_tpu_torch.models.blocks import Dropout, seed_dropout
@@ -56,42 +55,46 @@ def _apply(model, batch: Dict[str, torch.Tensor], prefix: str = "",
                        with_projections=with_projections)
 
 
-def make_loss_fn(model: torch.nn.Module,
-                 loss_config: LossConfig) -> Callable:
+def make_loss_fn(model: torch.nn.Module, loss_config: LossConfig,
+                 gather: Optional[Callable] = None, world: int = 1) -> Callable:
     """loss_fn(batch, roi_weights, voxel_weights=None) -> (total, metrics):
     the JAX package's `loss_fn`. Every term carries `valid_mask`; metrics
-    hold loss, per-sample gen_loss, pred_space_loss and tcds_loss."""
+    hold loss, per-sample gen_loss, pred_space_loss and tcds_loss. A
+    data-parallel step (`parallel/mesh.py`) passes `gather`, which
+    all-gathers a tensor's rows over its `world` ranks differentiably: the
+    batch-coupled terms are then taken over every rank's rows and divided by
+    `world`, so that summed over the ranks they count once."""
     criterion = GenerativeContrastiveLoss(loss_config)
+    gather = gather or (lambda x: x)
 
     def loss_fn(batch, roi_weights, voxel_weights=None):
         valid = batch.get("valid_mask")
         outs = _apply(model, batch)
-        if not outs.projections:
-            gen = roi_mse(outs.out, batch["tau"], batch["roi_compact"],
-                          roi_weights, voxel_weights=voxel_weights,
-                          reduction=None)
-            vsum = gen if valid is None else gen * valid.reshape(-1).to(gen.dtype)
-            total = loss_config.gen_weight * vsum.sum()
-            zero = torch.zeros((), dtype=torch.float32, device=total.device)
-            return total, {"loss": total.detach(), "gen_loss": gen.detach(),
-                           "pred_space_loss": zero, "tcds_loss": zero}
-        kwargs = dict(voxel_weights=voxel_weights, valid=valid)
-        if loss_config.rnc:
-            kwargs.update(rnc_features=outs.projections[-1],
-                          rnc_labels=batch["covars"])
-        else:
-            pos, neg = _apply(model, batch, "pos_"), _apply(model, batch, "neg_")
-            kwargs.update(anchor_projs=outs.projections,
-                          pos_projs=pos.projections, neg_projs=neg.projections,
-                          final_reprs=(outs.final_projection,
-                                       pos.final_projection,
-                                       neg.final_projection))
-        losses = criterion(outs.out, batch["tau"], batch["roi_compact"],
-                           roi_weights, **kwargs)
-        return losses.total, {"loss": losses.total.detach(),
-                              "gen_loss": losses.gen.detach(),
-                              "pred_space_loss": losses.pred_space.detach(),
-                              "tcds_loss": losses.tcds.detach()}
+        gen, total = criterion.generative(
+            outs.out, batch["tau"], batch["roi_compact"], roi_weights,
+            voxel_weights=voxel_weights, valid=valid)
+        pred_space = tcds = torch.zeros((), dtype=torch.float32,
+                                        device=total.device)
+        if outs.projections:  # the baselines train on the generative term
+            if loss_config.rnc:
+                kwargs = dict(rnc_features=gather(outs.projections[-1]),
+                              rnc_labels=gather(batch["covars"]))
+            else:
+                pos, neg = _apply(model, batch, "pos_"), _apply(model, batch, "neg_")
+                kwargs = dict(
+                    anchor_projs=[gather(p) for p in outs.projections],
+                    pos_projs=[gather(p) for p in pos.projections],
+                    neg_projs=[gather(p) for p in neg.projections],
+                    final_reprs=(tuple(gather(o.final_projection)
+                                       for o in (outs, pos, neg))
+                                 if loss_config.reg_weight != 0.0 else None))
+            pred_space, tcds = criterion.coupled(
+                valid=None if valid is None else gather(valid), **kwargs)
+            pred_space, tcds = pred_space / world, tcds / world
+            total = total + pred_space + tcds
+        return total, {"loss": total.detach(), "gen_loss": gen.detach(),
+                       "pred_space_loss": pred_space.detach(),
+                       "tcds_loss": tcds.detach()}
 
     return loss_fn
 
@@ -109,7 +112,14 @@ def make_train_step(model: torch.nn.Module, loss_config: LossConfig,
     stay in the parameters' `.grad` until the next step; `grad_norm` is
     their global L2 norm. Dropout sites are seeded from (`seed`, the
     state's step count) before each forward."""
-    loss_fn = make_loss_fn(model, loss_config)
+    return _step_of(model, optimizer, seed, make_loss_fn(model, loss_config))
+
+
+def _step_of(model: torch.nn.Module, optimizer, seed: int, loss_fn: Callable,
+             reduce: Optional[Callable] = None) -> Callable:
+    """The train step around `loss_fn`; `reduce(grads, batch, metrics)`,
+    when given, runs between the backward and the update (a data-parallel
+    step sums the gradients there) and returns the metrics."""
     params = [p for p in model.parameters() if p.requires_grad]
     device = _device_of(model)
     state = TrainState(model, optimizer)
@@ -127,8 +137,10 @@ def make_train_step(model: torch.nn.Module, loss_config: LossConfig,
             voxel_weights = torch.as_tensor(voxel_weights, device=device)
         total, metrics = loss_fn(batch, roi_weights, voxel_weights)
         total.backward()
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in params if p.grad is not None)
+        grads = [p.grad for p in params if p.grad is not None]
+        if reduce is not None:
+            metrics = reduce(grads, batch, metrics)
+        metrics["grad_norm"] = global_norm(grads)
         optimizer.step()
         return metrics
 

@@ -8,8 +8,12 @@ run's last validation CSV holds, a resume writes to
 trains one fold directory per fold. The device and dtype rules: `--device
 cuda` without a card raises and names `--device cpu`; a compute dtype
 other than bfloat16 on CUDA exits with status 2 before a model is built;
-each option whose path is not ported raises NotImplementedError, and the
-baselines and `--norm batch` run. A fresh
+spatial parallelism, whose path is not ported, raises NotImplementedError,
+and the baselines and `--norm batch` run. `train` and `validate` with
+`--data_parallel 2` on two gloo ranks give the single-process numbers, the
+run's checkpoint resumes in one process, a batch the ranks cannot split or
+more ranks than cards exit with status 2 before writing, and a rank that
+fails fails the command. A fresh
 interpreter that refuses jax, flax, optax, orbax, pandas, matplotlib and
 the JAX package runs `train`, and holds no model after it.
 """
@@ -213,22 +217,25 @@ def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("cmd,flag,item", [
-    ("train", ["--data_parallel", "2"], "queue 1 item 3"),
-    ("infer", ["--spatial_parallel", "4"], "queue 1 item 3"),
+    ("train", "spatial_parallel", "queue 1 item 5"),
+    ("infer", ["--spatial_parallel", "4"], "queue 1 item 5"),
     ("validate", ["-model_type", "UNET"], "queue 1 item 4"),
     ("train", ["--norm", "batch"], "queue 1 item 4"),
 ])
 def test_deferred_options_raise(cohort, tmp_path, monkeypatch, capsys, cmd,
                                 flag, item):
-    """An option whose path is not ported (queue 1 item 3: data and spatial
-    parallelism) raises NotImplementedError naming its ROADMAP.md item and
-    writes nothing. Queue 1 item 4 (the baselines, batch norm) is ported:
-    its cases run the command from the flags alone, the default ModelConfig
-    and DataConfig shrunk to the test's widths and 16^3, and check what it
-    writes."""
+    """An option whose path is not ported (queue 1 item 5: spatial
+    parallelism, from `infer --spatial_parallel` or a config's
+    `train.spatial_parallel`) raises NotImplementedError naming its
+    ROADMAP.md item and writes nothing. Queue 1 item 4 (the baselines, batch
+    norm) is ported: its cases run the command from the flags alone, the
+    default ModelConfig and DataConfig shrunk to the test's widths and
+    16^3, and check what it writes."""
     extra = {"train": ["--splits_dir", cohort["splits"]],
              "validate": ["--test_lookup", cohort["lookup"]],
              "infer": ["--input_lookup", cohort["lookup"]]}[cmd]
+    if flag == "spatial_parallel":
+        flag = ["--config", _config_file(tmp_path / "sp.json", spatial_parallel=2)]
     argv = ([cmd, "--device", "cpu", "--compute_dtype", "float32"] + extra
             + flag + _tables(cohort))
     if item != "queue 1 item 4":
@@ -263,6 +270,148 @@ def test_deferred_options_raise(cohort, tmp_path, monkeypatch, capsys, cmd,
                          weights_only=True)
     means = {k: v for k, v in payload["model"].items() if k.endswith("bnorm.mean")}
     assert means and all(bool(v.abs().max() > 0) for v in means.values())
+
+
+def _train(cohort, cfg, save, extra=()):
+    """`train` on fold 1 with `cfg`'s settings into `save`; its run dir."""
+    assert main(["train", "--config", cfg, "--device", "cpu", "--splits_dir",
+                 cohort["splits"], "--fold", "1", "-save_path", str(save)]
+                + _tables(cohort) + list(extra)) == 0
+    (run,) = save.iterdir()
+    return run
+
+
+def _tree(root):
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+
+
+@pytest.fixture(scope="module")
+def dp_runs(cohort, tmp_path_factory):
+    """The same 2-epoch run at batch 4 in one process and over two gloo
+    ranks (`--data_parallel 2`: 2 rows a rank). Neither draws its charts:
+    the single-process run's are patched out, and the ranks, which start
+    with this process's `sys.path`, find a `matplotlib` that does not
+    import first, so that the recorder skips them as it does without
+    matplotlib."""
+    root = tmp_path_factory.mktemp("dp")
+    cfg = _config_file(root / "config.json", batch_size=4, epochs=2,
+                       checkpoint_iter=1, adaptive_roi_weights=True)
+    shadow = root / "no_charts" / "matplotlib"
+    shadow.mkdir(parents=True)
+    (shadow / "__init__.py").write_text(
+        "raise ImportError('no charts in this test')\n")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ploop, "loss_graph", lambda *a, **k: None)
+        mp.setattr(MetricRecorder, "plot", lambda self: None)
+        single = _train(cohort, cfg, root / "single")
+        mp.syspath_prepend(str(shadow.parent))
+        dp = _train(cohort, cfg, root / "dp", ["--data_parallel", "2"])
+    return dict(root=root, cfg=cfg, single=single, dp=dp)
+
+
+def test_data_parallel_train_matches_single_process(dp_runs):
+    """`train --data_parallel 2` on the CPU: the validation metrics of both
+    epochs within rtol 1e-3 / atol 1e-5 of the single-process run's, the
+    adapted ROI weights and the step count in its checkpoint, and the run
+    directory the single-process run writes (rank 0 writes it alone)."""
+    single, dp = dp_runs["single"], dp_runs["dp"]
+    for m in ("mae", "mape", "avg_corr", "roi_maes"):
+        want = read_csv(str(single / "validation_metric_results" / f"{m}.csv"))
+        got = read_csv(str(dp / "validation_metric_results" / f"{m}.csv"))
+        assert got.columns == want.columns == ["epoch_0", "epoch_1"]
+        for col in want.columns:
+            np.testing.assert_allclose(got[col], want[col], rtol=1e-3, atol=1e-5,
+                                       err_msg=f"{m} {col}")
+    payloads = [torch.load(str(r / "checkpoints" / "checkpoint_latest_epoch"),
+                           weights_only=True) for r in (single, dp)]
+    assert payloads[0]["step"] == payloads[1]["step"] == 2
+    np.testing.assert_allclose(payloads[1]["roi_weights"].numpy(),
+                               payloads[0]["roi_weights"].numpy(), rtol=1e-3)
+    assert not any(k.startswith("module.") for k in payloads[1]["model"])
+    files = [f for f in _tree(dp) if not f.endswith(".png")]
+    assert files == [f for f in _tree(single) if not f.endswith(".png")]
+
+
+def test_data_parallel_validate_matches_validate(cohort, dp_runs, capsys):
+    """`validate --data_parallel 2` from the data-parallel run's checkpoint
+    prints the single-process `validate`'s metrics (8 subjects, 2 batches
+    of 4), and only rank 0's lines."""
+    latest = str(dp_runs["dp"] / "checkpoints" / "checkpoint_latest_epoch")
+    lines = {}
+    for tag, extra in (("single", []), ("dp", ["--data_parallel", "2"])):
+        capsys.readouterr()
+        assert main(["validate", "--config", dp_runs["cfg"], "--device", "cpu",
+                     "--test_lookup", cohort["lookup"], "-checkpoint_path", latest,
+                     "-save_path", str(dp_runs["root"] / f"val_{tag}")]
+                    + _tables(cohort) + extra) == 0
+        printed = capsys.readouterr().out
+        assert printed.count("[overall] MAE=") == 1
+        lines[tag] = next(json.loads(s) for s in printed.splitlines()
+                          if s.startswith('{"validate"'))["validate"]
+    assert lines["dp"]["num_samples"] == lines["single"]["num_samples"] == 8
+    for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
+        np.testing.assert_allclose(lines["dp"][key], lines["single"][key],
+                                   rtol=1e-3, atol=1e-5, err_msg=key)
+    assert (dp_runs["root"] / "val_dp" / "pred_means.csv").exists()
+
+
+def test_data_parallel_checkpoint_resumes_single_process(cohort, dp_runs,
+                                                         monkeypatch):
+    """A data-parallel run's checkpoint (the inner model's state dict, no
+    prefix) resumes in a single-process `train`, at epoch 2 and step 2."""
+    monkeypatch.setattr(ploop, "loss_graph", lambda *a, **k: None)
+    monkeypatch.setattr(MetricRecorder, "plot", lambda self: None)
+    cfg = _config_file(dp_runs["root"] / "config3.json", batch_size=4, epochs=3,
+                       checkpoint_iter=1)
+    latest = str(dp_runs["dp"] / "checkpoints" / "checkpoint_latest_epoch")
+    run = _train(cohort, cfg, dp_runs["root"] / "resumed",
+                 ["-resume_training", "-checkpoint_path", latest])
+    assert run.name == f"native_target_finetune_{dp_runs['dp'].name}"
+    assert [e["epoch"] for e in ploop.LAST_RUN["epochs"]] == [2]
+    payload = torch.load(str(run / "checkpoints" / "checkpoint_epoch_2"),
+                         weights_only=True)
+    assert payload["epoch"] == 2 and payload["step"] == 3
+
+
+@pytest.mark.parametrize("how", ["batch", "cards"])
+def test_data_parallel_refusals_exit_2_before_writing(cohort, tmp_path, capsys,
+                                                      how):
+    """`--data_parallel 2` with a batch of 3, or on CUDA beyond the visible
+    cards (here none), exits with status 2 before anything is written."""
+    if how == "batch":
+        argv = ["--device", "cpu", "-batch_size", "3"]
+    else:
+        argv = ["--device", "cuda", "--compute_dtype", "bfloat16"]
+    for cmd, extra in (("train", ["--splits_dir", cohort["splits"]]),
+                       ("validate", ["--test_lookup", cohort["lookup"]])):
+        assert main([cmd, "--data_parallel", "2", "-save_path",
+                     str(tmp_path / "results")] + extra + argv
+                    + _tables(cohort)) == 2
+        err = capsys.readouterr().err
+        assert ("divisible" if how == "batch" else "CUDA devices") in err
+    assert not (tmp_path / "results").exists()
+
+
+def test_a_failing_rank_fails_the_command(cohort, tmp_path, capsys):
+    """A rank that raises (here: a training lookup that does not exist)
+    ends the data-parallel run with status 1 and the rank's error."""
+    cfg = _config_file(tmp_path / "config.json", batch_size=2)
+    rc = main(["train", "--config", cfg, "--device", "cpu", "--data_parallel",
+               "2", "--train_lookup", str(tmp_path / "missing.csv")]
+              + _tables(cohort))
+    assert rc == 1
+    assert "missing.csv" in capsys.readouterr().err
+
+
+def test_infer_with_data_parallel_runs_the_plain_forward(cohort, tmp_path):
+    """`infer --data_parallel 2` synthesizes in this process, as the JAX
+    CLI's `infer` does with `--spatial_parallel 1`."""
+    cfg = _config_file(tmp_path / "config.json")
+    out = tmp_path / "synth"
+    assert main(["infer", "--config", cfg, "--device", "cpu", "--input_lookup",
+                 cohort["lookup"], "--data_parallel", "2", "--out_dir", str(out)]
+                + _tables(cohort)) == 0
+    assert len(list(out.glob("*_synth_tau.nii"))) == 8
 
 
 _REFUSE = """

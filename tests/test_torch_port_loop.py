@@ -475,12 +475,13 @@ def test_loop_refuses_paths_not_ported(cohort):
     model = ContraAttnUNet(pconfig.ModelConfig(**MODEL), device="cpu")
     loader, _ = _loaders(cohort, port=True)
     base = _config(pconfig, epochs=1)
-    for cfg, what in (
-        (dataclasses.replace(base, train=dataclasses.replace(base.train,
-                                                             data_parallel=2)),
-         "parallelism"),
+    for train_cfg, error, what in (
+        (dict(spatial_parallel=2), NotImplementedError, "queue 1 item 5"),
+        (dict(data_parallel=2), ValueError, "process group of 2"),
     ):
-        with pytest.raises(NotImplementedError, match=what):
+        cfg = dataclasses.replace(base, train=dataclasses.replace(base.train,
+                                                                  **train_cfg))
+        with pytest.raises(error, match=what):
             ploop.train(model, cfg, loader, device="cpu")
     with pytest.raises(ValueError, match="model is on cpu"):
         ploop.train(model, base, loader, device="meta")

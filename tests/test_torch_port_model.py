@@ -243,9 +243,9 @@ def test_port_source_imports_no_jax():
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    # the native runtime and the analysis modules are scanned too, and the
-    # registry and its baselines
-    assert {"runtime", "analysis"} <= {p.parent.name for p in files}
+    # the native runtime, the analysis modules and data parallelism are
+    # scanned too, and the registry and its baselines
+    assert {"runtime", "analysis", "parallel"} <= {p.parent.name for p in files}
     assert {"baselines.py", "swin.py", "registry.py"} <= {
         p.name for p in files if p.parent.name == "models"}
     for path in files:
