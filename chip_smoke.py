@@ -39,7 +39,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               sizes and channel counts off the path (shared weights), K4 also
               at the 216^3 eval's b=2 and K4 and KB3 at odd sizes off the
               path (N % 8 = 6), also with x 2 bytes off 16 (the kernels'
-              2-byte loads). K1, K2, K3, KB1, KB2, K4 and KB3 cases run
+              2-byte loads); K4's two slab halves, `norm_stats` (its f64
+              (count, mean, M2) within KERNEL_TOL of max|plain| a column)
+              and `norm_apply`, at phase 14's half-slab shapes [1, 32, 64,
+              128, 128] and [1, 1, 64, 128, 128] and at the odd sizes. K1, K2, K3, KB1, KB2, K4 and KB3 cases run
               twice and must be bit-identical; each prints the cut
               `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
               `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
@@ -167,9 +170,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               Prints the second step's time beside one process's b=4 step:
               the cost of two ranks sharing a card, not a data-parallel
               speed.
+  14. spatial: `parallel/spatial.py`'s `make_spatial_infer_fn` on two rank
+              processes sharing the one card over gloo, each holding a depth
+              slab (64 of 128 planes) of a 128^3 b=1 volume of the default
+              ModelConfig (weights from seed 0, the volume from `_batch`),
+              against one process's `make_infer_fn`: rank 0's assembled
+              `out` within max(SPATIAL_TOL, SPATIAL_RATIO x what the same
+              slab route reads on one rank holding the whole volume) rel
+              L2 (in bf16 the random-weight model moves `out` by 3e-2 for a
+              last-bit change of one statistic, so no route whose
+              statistics are summed in another order reads under 1e-2);
+              two planted faults (every halo read as zeros; each rank's own
+              norm statistics unmerged) above that limit, each with its
+              factor; every merged (mean, rstd)
+              bit-identical on both ranks; each rank launched K1, K2, K3 and
+              K4's two slab halves (`norm_stats`, `norm_apply`) and not the
+              whole-row K4, and no plain version on the GPU
+              (`launches_by_path["spatial"]`); each rank's activation peak
+              (the most allocated during the call less what was allocated
+              before it) at most SP_PEAK_RATIO x one process's. Prints the
+              median of SP_CALLS sharded forwards beside one process's, the
+              share of a call spent in the halo and statistics collectives,
+              each rank's peak and the phase's seconds.
 The last two lines are a JSON summary of the kernels (`launches` from the
-tCDS train of phase 11; `launches_by_path` for every path) and
-{"ok": true, "device": {...}}. There is no CPU path.
+tCDS train of phase 11, and for K4's slab halves from phase 14;
+`launches_by_path` for every path) and {"ok": true, "device": {...}}. There
+is no CPU path.
 """
 
 from __future__ import annotations
@@ -244,6 +270,12 @@ SOURCES = {
                      "coma_unet_tpu/ops/pallas/norm_act.py:220 _norm_act_bwd_impl"),
     "phase_split": ("hsplit", "coma_unet_tpu_torch/csrc/phase_split.cu",
                     "coma_unet_tpu/ops/pallas/phase_split.py:65 pallas_hsplit"),
+    "norm_stats": ("norm_stats", "coma_unet_tpu_torch/csrc/norm_act.cu",
+                   "coma_unet_tpu/ops/pallas/norm_act.py:105 _stats_kernel "
+                   "(launched at :191)"),
+    "norm_apply": ("norm_apply", "coma_unet_tpu_torch/csrc/norm_act.cu",
+                   "coma_unet_tpu/ops/pallas/norm_act.py:120 _apply_kernel "
+                   "(launched at :207)"),
 }
 # kernels whose device time the profile prints by name, in or below its top
 # 8: K2, K3, KB2, K1's (and K2's and K3's) weight packing, KB1/KB2's
@@ -447,6 +479,18 @@ def _kernel_cases():
                (act, False, 0), "instance_norm")
               for act in ("none", "relu", "leakyrelu")]
     cases.append(("phase_split", "hsplit 216", (1, 32) + t0, None, None, "hsplit"))
+    # K4's slab halves at the shapes of phase 14's half slabs (a rank's 64 of
+    # 128 planes), and off the path at odd sizes, also with x 2 bytes off 16
+    # (the scalar loads)
+    half = (64, 128, 128)
+    slabs = [("half slab head.conv1", 1, 32, "relu", True, half),
+             ("half slab gate0.psi", 1, 1, "none", False, half),
+             ("half slab final_pred_head", 1, 1, "prelu", False, half),
+             ("odd sizes", 2, 24, "prelu", True, (27, 18, 45)),
+             ("odd sizes, x 2 bytes off 16", 2, 24, "prelu", True, (27, 18, 45))]
+    for family in ("norm_stats", "norm_apply"):
+        cases += [(family, site, (b, c) + sp, None, (act, film, int("off 16" in site)), None)
+                  for site, b, c, act, film, sp in slabs]
     return cases
 
 
@@ -499,6 +543,26 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         return dict(kernel=lambda: ops.hsplit(x), ref=lambda: ops.hsplit_plain(x),
                     plain=lambda: ops.hsplit_plain(x), library=None, inputs=(x,),
                     ops=0, rate=PEAK_F32)
+    if family in ("norm_stats", "norm_apply"):
+        from coma_unet_tpu_torch.ops.norm_act import mean_rstd, row_partials, slab_plan
+
+        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
+        act = extra[0]
+        if family == "norm_stats":  # (count, mean, M2) of each row, f64
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            return dict(kernel=lambda: ops.norm_stats(x).unbind(1),
+                        ref=lambda: ops.norm_stats_plain(x.float()).unbind(1),
+                        plain=lambda: ops.norm_stats_plain(x), library=None,
+                        inputs=(x,), ops=3 * x.numel(), rate=PEAK_F32,
+                        plan=slab_plan(xshape[0] * xshape[1], _voxels(xshape), sms))
+        stats = mean_rstd(row_partials(x))
+        film = tuple(t for t in (scale, shift) if t is not None)
+        return dict(kernel=lambda: ops.norm_apply(x, stats, alpha, act, scale, shift),
+                    ref=lambda: ops.norm_apply_plain(x.float(), stats, alpha, act, scale,
+                                                     shift),
+                    plain=lambda: ops.norm_apply_plain(x, stats, alpha, act, scale, shift),
+                    library=None, inputs=(x, stats) + film, ops=6 * x.numel(),
+                    rate=PEAK_F32, plan=None)
     if family in ("norm_act", "norm_act_bwd"):
         from coma_unet_tpu_torch.ops.norm_act import na_plan
 
@@ -661,16 +725,32 @@ def _norm_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
             f"bulk={plan.bulk}; two calls bit-identical")
 
 
-def phase_kernels(summary: dict) -> None:
+def _slab_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
+    """One of K4's slab halves at one site: a second call must be
+    bit-identical to the first in every output. Returns a line with the cut
+    `slab_plan` chose (the statistics half)."""
+    again = case["kernel"]()
+    again = again if isinstance(again, tuple) else (again,)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(again, got)),
+          f"{kernel} {site}: two calls differ")
+    plan = case["plan"]
+    cut = f"segs={plan.segs} seg={plan.seg}; " if plan else ""
+    return f"  {kernel} {site}: {cut}two calls bit-identical"
+
+
+def phase_kernels(summary: dict, families=None) -> None:
+    """Phase 3, over the cases of `families` (every family when None)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     dev = torch.device(DEVICE)
     # rel: max error over max|plain| of the bf16 outputs and of the f32 ones
     print(f"{'family':12s} {'site':34s} {'input':24s} {'max_abs_err':>11s} "
-          f"{'rel bf16':>9s} {'rel f32':>9s} {'ms':>9s} {'plain_ms':>9s} "
+          f"{'rel bf16':>9s} {'rel f32':>9s} {'rel f64':>9s} {'ms':>9s} {'plain_ms':>9s} "
           f"{'lib_ms':>9s} {'bound_ms':>9s} bound_by")
     for family, site, xshape, wshape, extra, entry in _kernel_cases():
+        if families is not None and family not in families:
+            continue
         case = _case_calls(family, xshape, wshape, extra, entry, gen, dev)
         exact = family == "phase_split"
         with torch.no_grad():
@@ -678,7 +758,8 @@ def phase_kernels(summary: dict) -> None:
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            err, rel = 0.0, {torch.bfloat16: None, torch.float32: None}
+            err = 0.0
+            rel = {torch.bfloat16: None, torch.float32: None, torch.float64: None}
             for a, r in zip(got, ref):
                 check(a.shape == r.shape, f"{family} {site}: shape "
                       f"{tuple(a.shape)} vs {tuple(r.shape)}")
@@ -687,7 +768,8 @@ def phase_kernels(summary: dict) -> None:
                 if exact:
                     check(a.dtype == r.dtype and bool(torch.equal(a, r)),
                           f"{family} {site}: not bit-equal to the plain version")
-                tol = KERNEL_TOL if a.dtype == torch.bfloat16 else F32_TOL
+                # K4's slab statistics (f64) are held to the bf16 outputs' limit
+                tol = F32_TOL if a.dtype == torch.float32 else KERNEL_TOL
                 e = (a.float() - r.float()).abs().max().item()
                 scale_ref = r.abs().max().item()
                 check(e <= tol * scale_ref or e == 0.0,
@@ -701,6 +783,8 @@ def phase_kernels(summary: dict) -> None:
             elif family in ("norm_act", "norm_act_bwd"):
                 note = _norm_checks(case, got, {"norm_act": "K4", "norm_act_bwd": "KB3"}[family],
                                     site)
+            elif family in ("norm_stats", "norm_apply"):
+                note = _slab_checks(case, got, f"K4 slab {family}", site)
             elif family in ("s1", "s2", "t2"):
                 note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2", "t2": "K3"}[family],
                                     site)
@@ -2395,6 +2479,209 @@ def phase_data_parallel() -> dict:
     return launches
 
 
+SPATIAL_TOL = 1e-2   # rel L2 of the depth-sharded 128^3 `out` against one process's, or
+SPATIAL_RATIO = 1.25  # SPATIAL_RATIO x what the same slab route reads on one rank, where
+                      # that is larger: the random-weight flagship in bf16 moves `out` by
+                      # 3.1e-2 when one statistic of its first norm moves by 2^-22
+SP_RANKS = 2
+SP_PEAK_RATIO = 0.65  # a rank's activation peak against one process's
+SP_CALLS = 3
+
+
+def _sp_setup():
+    """Phase 14's model (the default ModelConfig, weights from seed 0) and
+    its b=1 128^3 inputs, as numpy."""
+    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+
+    model = ContraAttnUNet(ModelConfig(), device=DEVICE,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    batch = _batch(np.random.default_rng(0), b=1, s=128)
+    return model, tuple(batch[k] for k in ("mri", "covars", "roi_loc", "roi_std",
+                                           "roi_compact"))
+
+
+def _peak_call(fn) -> tuple:
+    """fn()'s result and its activation peak: the most memory allocated
+    during the call less what was allocated before it, in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _sp_rank(rank: int, init_method: str, tmp: str) -> None:
+    """One rank of phase 14 on the one card (gloo): a warm-up call, then the
+    main path -- one depth-sharded forward with the launches counted from 0,
+    its activation peak and every merged (mean, rstd) recorded -- then
+    SP_CALLS timed calls, one call with the halo and statistics collectives
+    timed, and the two planted faults. Saves what it saw to rank<r>.pt."""
+    import os
+
+    from coma_unet_tpu_torch import ops
+    from coma_unet_tpu_torch.ops.norm_act import mean_rstd
+    from coma_unet_tpu_torch.parallel import mesh as pmesh
+    from coma_unet_tpu_torch.parallel import spatial
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // SP_RANKS))
+    mesh = pmesh.make_mesh(rank, SP_RANKS, f"{DEVICE}:0", init_method)
+    good_halo, good_merge = spatial.Slab.halo, spatial.Slab.merge
+    try:
+        model, args = _sp_setup()
+        infer = spatial.make_spatial_infer_fn(model, mesh)
+        infer(*args)
+        seen = []
+
+        def recording(self, partials):
+            merged = good_merge(self, partials)
+            seen.append(mean_rstd(merged).cpu())
+            return merged
+
+        spatial.Slab.merge = recording
+        ops.reset_counts()
+        out, peak = _peak_call(lambda: infer(*args))
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        spatial.Slab.merge = good_merge
+        times = []
+        for _ in range(SP_CALLS):
+            times.append(_timed(lambda: infer(*args)))
+        spent = [0.0]
+
+        def timed(fn):
+            def call(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*a)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+                return result
+            return call
+
+        spatial.Slab.halo, spatial.Slab.merge = timed(good_halo), timed(good_merge)
+        timed_ms = _timed(lambda: infer(*args))
+        spatial.Slab.halo, spatial.Slab.merge = good_halo, good_merge
+
+        def zeros(self, x, below, above):
+            lower, upper = good_halo(self, x, below, above)
+            return torch.zeros_like(lower), torch.zeros_like(upper)
+
+        spatial.Slab.halo = zeros
+        zero_halo = infer(*args)
+        spatial.Slab.halo = good_halo
+        spatial.Slab.merge = lambda self, partials: partials
+        unmerged = infer(*args)
+        spatial.Slab.merge = good_merge
+        cpu = (lambda t: None if t is None else t.float().cpu())
+        torch.save({"out": cpu(out), "zero_halo": cpu(zero_halo),
+                    "unmerged": cpu(unmerged), "stats": seen, "peak": peak,
+                    "launches": launches, "plain_cuda": plain_cuda, "times": times,
+                    "collective_ms": 1e3 * spent[0], "timed_ms": timed_ms},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        spatial.Slab.halo, spatial.Slab.merge = good_halo, good_merge
+        pmesh.destroy_mesh()
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def phase_spatial() -> dict:
+    """Phase 14: `make_spatial_infer_fn` on two gloo ranks sharing the one
+    card, each on a depth slab of a 128^3 volume, against one process's
+    `make_infer_fn`. Returns rank 0's launches over its main-path call."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from coma_unet_tpu_torch import ops
+    from coma_unet_tpu_torch.infer import make_infer_fn
+    from coma_unet_tpu_torch.parallel import mesh as pmesh
+    from coma_unet_tpu_torch.parallel.spatial import make_spatial_infer_fn
+
+    t_phase = time.perf_counter()
+    model, args = _sp_setup()
+    infer = make_infer_fn(model)
+    infer(*args)
+    want, peak_one = _peak_call(lambda: infer(*args))
+    want = want.float().cpu()
+    one_ms = statistics.median(_timed(lambda: infer(*args)) for _ in range(SP_CALLS))
+    check(tuple(want.shape) == (1, 1, 128, 128, 128) and bool(torch.isfinite(want).all()),
+          f"spatial: one process's out {tuple(want.shape)}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        # the floor: the slab route (K4's two halves, the merged f64
+        # statistics) on one rank that holds the whole volume
+        mesh = pmesh.make_mesh(0, 1, f"{DEVICE}:0", "file://" + os.path.join(tmp, "one"))
+        try:
+            floor = _rel_l2(make_spatial_infer_fn(model, mesh)(*args).float().cpu(), want)
+        finally:
+            pmesh.destroy_mesh()
+        limit = max(SPATIAL_TOL, SPATIAL_RATIO * floor)
+        del model, infer
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        mp.start_processes(_sp_rank, args=("file://" + os.path.join(tmp, "store"), tmp),
+                           nprocs=SP_RANKS, join=True, start_method="spawn")
+        ranks_s = time.perf_counter() - t_ranks
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+               for r in range(SP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = got[0]["out"]
+    check(all(g["out"] is None for g in got[1:]), "spatial: a rank other than 0 holds out")
+    check(tuple(out.shape) == tuple(want.shape) and bool(torch.isfinite(out).all()),
+          f"spatial: out {tuple(out.shape)}")
+    err = _rel_l2(out, want)
+    check(err <= limit, f"spatial: out rel L2 {err} from one process's > {limit} "
+          f"(max({SPATIAL_TOL}, {SPATIAL_RATIO} x the one-rank slab route's {floor}))")
+    faults = {name: _rel_l2(got[0][name], want) for name in ("zero_halo", "unmerged")}
+    for name, e in faults.items():
+        check(e > limit, f"spatial: the planted fault {name} reads {e} <= {limit}")
+    stats = [g["stats"] for g in got]
+    check(len(stats[0]) > 0 and all(
+        len(s) == len(stats[0]) and all(torch.equal(a, b) for a, b in zip(s, stats[0]))
+        for s in stats[1:]), "spatial: the merged statistics differ between the ranks")
+    need = ("s1", "s2", "t2") + ops.SLAB_FAMILIES
+    for r, g in enumerate(got):
+        print(f"spatial rank {r} launches: {g['launches']}; plain on cuda: "
+              f"{g['plain_cuda']}")
+        for family in need:
+            check(g["launches"].get(family, 0) > 0,
+                  f"spatial: {family}: no launch on rank {r}")
+        check(g["launches"].get("norm_act", 0) == 0,
+              f"spatial: the whole-row K4 launched on rank {r}")
+        check(sum(g["plain_cuda"].values()) == 0,
+              f"spatial: plain versions ran on the GPU on rank {r}: {g['plain_cuda']}")
+        check(g["peak"] <= SP_PEAK_RATIO * peak_one, f"spatial: rank {r}'s activation "
+              f"peak {g['peak'] / 2**30:.3f} GiB > {SP_PEAK_RATIO} x one process's "
+              f"{peak_one / 2**30:.3f} GiB")
+    sharded_ms = statistics.median(got[0]["times"])
+    print(f"spatial 128^3 b=1 on {SP_RANKS} gloo ranks sharing the one card, depth slabs "
+          f"of 64 planes: out rel L2 {err:.3e} from one process's, the slab route on one "
+          f"rank {floor:.3e} (limit {limit:.3e}: max({SPATIAL_TOL}, {SPATIAL_RATIO} x it)); "
+          f"planted faults: halos zeroed {faults['zero_halo']:.3e} "
+          f"({faults['zero_halo'] / limit:.1f}x the limit), each rank's statistics "
+          f"unmerged {faults['unmerged']:.3e} ({faults['unmerged'] / limit:.1f}x); "
+          f"{len(stats[0])} merged (mean, rstd) bit-identical on every rank")
+    print(f"spatial forward: median of {SP_CALLS} {sharded_ms:.2f} ms on rank 0 "
+          f"({[round(t, 2) for t in got[0]['times']]}) vs one process's {one_ms:.2f} ms; "
+          f"halo and statistics collectives {got[0]['collective_ms']:.2f} ms of a "
+          f"{got[0]['timed_ms']:.2f} ms call with them timed "
+          f"({got[0]['collective_ms'] / got[0]['timed_ms']:.1%}); activation peaks "
+          + ", ".join(f"rank {r} {g['peak'] / 2**30:.3f} GiB ({g['peak'] / peak_one:.3f}x)"
+                      for r, g in enumerate(got))
+          + f" vs one process's {peak_one / 2**30:.3f} GiB (limit {SP_PEAK_RATIO}x); "
+          f"ranks {ranks_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    return got[0]["launches"]
+
+
 def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2431,12 +2718,16 @@ def main() -> int:
     paths["baselines"] = phase_baselines()
     torch.cuda.empty_cache()
     paths["data_parallel"] = phase_data_parallel()
+    torch.cuda.empty_cache()
+    paths["spatial"] = phase_spatial()
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]
+        # K4's slab halves run on the depth-sharded path alone
+        main_path = "spatial" if family in ("norm_stats", "norm_apply") else "tcds"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths["tcds"].get(family, 0),
+            "launches": paths[main_path].get(family, 0),
             "launches_by_path": {p: n.get(family, 0) for p, n in paths.items()},
             "max_abs_err": entry["max_abs_err"],
             "ms": round(entry["ms"], 4), "plain_ms": round(entry["plain_ms"], 4),

@@ -13,7 +13,8 @@ backward runs through hand-written kernels too, and its eval step with the
 metric suite (`metrics/`), at 128^3 and in template space at 216^3; the
 loop, the data pipeline and the CLI; the model registry and the seven
 baselines (`models/registry.py`, `baselines.py`, `swin.py`); data
-parallelism over a `torch.distributed` group (`parallel/`). Models build
+parallelism and depth-sharded (spatial) inference over a
+`torch.distributed` group (`parallel/`). Models build
 on the GPU unless asked for the CPU (`device="cpu"`).
 """
 

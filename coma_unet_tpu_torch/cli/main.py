@@ -26,9 +26,22 @@ batch, and the run gives the single-process numbers on the concatenated
 batch; rank 0 writes the files and prints. The command exits with status 2
 before anything is written where N exceeds the visible cards
 (`--device cuda`) or does not divide the batch size, and fails where a rank
-fails. `infer` with `--data_parallel` runs the plain forward, as the JAX
-CLI's does. Spatial parallelism is not ported yet: it raises
-NotImplementedError, naming its `ROADMAP.md` item.
+fails. `infer` with `--data_parallel` alone runs the plain forward, as the
+JAX CLI's does.
+
+`infer --spatial_parallel S` > 1 (without `--sliding_window`, which ignores
+it, as the JAX CLI does) synthesizes each volume on D x S ranks, D the
+data-parallel size: each rank holds a depth slab of the volume and its
+activations (`parallel/spatial.py`), and rank 0 writes the volumes. It
+exits with status 2 before anything is written where D x S exceeds the
+visible cards (`--device cuda`), where some level of the volume does not
+split evenly over the ranks, for a `-model_type` other than ContraAttnUNET
+(the reference's spatial forward passes `with_projections=False`, which no
+baseline takes) and with `--save_attention`, whose export needs the whole
+forward in one process. A config's `train.spatial_parallel` S trains with
+the numbers of `data_parallel` D alone, on D ranks, as the reference's
+spatial axis only replicates its step; D x S beyond the visible cards
+exits with status 2 there too.
 
 The results directory is the reference's: <save>/<run>/checkpoints/,
 <save>/<run>/validation_metric_results/, <save>/<run>/<epoch>_output_samples/.
@@ -236,46 +249,73 @@ def _refuse_dtype(args, config) -> bool:
     return False
 
 
-def _check_ported(args, config) -> None:
-    """Raise NotImplementedError for spatial parallelism, which is not
-    ported yet, naming its ROADMAP.md item."""
-    if max(int(config.train.spatial_parallel),
-           int(getattr(args, "spatial_parallel", 1) or 1)) > 1:
-        raise NotImplementedError(
-            "--spatial_parallel > 1 is not ported yet (ROADMAP.md, queue 1 "
-            "item 5)")
+def _cards_why(args, data: int, spatial: int) -> Optional[str]:
+    """Why a mesh of data x spatial devices cannot be had, or None: on CUDA
+    it needs as many visible cards (the JAX `make_mesh`'s ValueError)."""
+    n = data * spatial
+    if (n > 1 and torch.device(args.device).type == "cuda"
+            and n > torch.cuda.device_count()):
+        return (f"data_parallel {data} x spatial_parallel {spatial} runs one "
+                f"rank a card, and {torch.cuda.device_count()} CUDA devices "
+                f"are visible")
+    return None
 
 
-def _refuse_parallel(args, config) -> bool:
+def _refuse_parallel(args, config, spatial: int = 1) -> bool:
     """The data-parallel decision, made before anything is written: N ranks
-    need N visible cards on CUDA (one a rank) and must split the batch."""
+    must split the batch, and N x `spatial` need as many visible cards on
+    CUDA."""
     n = int(config.train.data_parallel)
-    if n <= 1:
-        return False
     why = None
-    if config.train.batch_size % n:
+    if n > 1 and config.train.batch_size % n:
         why = (f"batch_size {config.train.batch_size} must be divisible by "
                f"data_parallel {n}")
-    elif (torch.device(args.device).type == "cuda"
-          and n > torch.cuda.device_count()):
-        why = (f"data_parallel {n} runs one rank a card, and "
-               f"{torch.cuda.device_count()} CUDA devices are visible")
+    else:
+        why = _cards_why(args, n, spatial)
     if why:
         print(why, file=sys.stderr)
     return why is not None
 
 
-def _prepare(args, mesh=None, parallel: bool = True):
-    """The normalized config and the device, or None where the dtype or the
-    data-parallel layout is refused; raises for an option not ported and
-    for a missing card. A rank of a data-parallel run takes its mesh's
-    device."""
+def _refuse_spatial(args, config, spatial: int) -> bool:
+    """The spatial-inference decision, made before anything is written."""
+    from coma_unet_tpu_torch.parallel.spatial import level_strides, plan_slabs
+
+    data = max(int(config.train.data_parallel), 1)
+    why = _cards_why(args, data, spatial)
+    if why is None and config.model_type != "ContraAttnUNET":
+        why = (f"--spatial_parallel runs ContraAttnUNET only, not "
+               f"{config.model_type}: the reference's spatial forward passes "
+               f"with_projections=False, which no baseline takes")
+    if why is None and args.save_attention:
+        why = ("--save_attention exports from the whole forward in one "
+               "process; it does not run with --spatial_parallel")
+    if why is None:
+        try:
+            plan_slabs(config.data.volume_shape[0], level_strides(config.model),
+                       data * spatial)
+        except ValueError as e:
+            why = f"--spatial_parallel {spatial} (x data_parallel {data}): {e}"
+    if why:
+        print(why, file=sys.stderr)
+    return why is not None
+
+
+def _prepare(args, mesh=None, parallel: bool = True, spatial: bool = False,
+             refuse=None):
+    """The normalized config and the device, or None where the dtype, the
+    data-parallel layout (with `spatial`, the config's
+    `train.spatial_parallel` devices to each data-parallel rank, as the
+    reference's training mesh has) or `refuse(config)` refuses; raises for
+    a missing card. A rank of a parallel run takes its mesh's device."""
     from coma_unet_tpu_torch.train.loop import require_device
 
     config = _experiment_config(args).normalized()
-    if _refuse_dtype(args, config) or (parallel and _refuse_parallel(args, config)):
+    sp = max(int(config.train.spatial_parallel), 1) if spatial else 1
+    if (_refuse_dtype(args, config)
+            or (parallel and _refuse_parallel(args, config, sp))
+            or (refuse is not None and refuse(config))):
         return None, None
-    _check_ported(args, config)
     if mesh is not None:
         return config, mesh.device
     return config, require_device(args.device)
@@ -395,12 +435,12 @@ def cmd_train(args, mesh=None) -> int:
     from coma_unet_tpu_torch.train.loop import train
     from coma_unet_tpu_torch.utils.logging import setup_logging
 
-    config, device = _prepare(args, mesh)
+    config, device = _prepare(args, mesh, spatial=True)
     if config is None:
         return 2
     if config.train.data_parallel > 1 and mesh is None:
         args.run_dir_name = _run_dir_name(args)
-        return _launch(cmd_train, args, config)
+        return _launch(cmd_train, args, config.train.data_parallel)
     writer = mesh is None or mesh.rank == 0
     run_dir = os.path.join(config.save_path, _run_dir_name(args))
     if writer:
@@ -449,7 +489,7 @@ def cmd_validate(args, mesh=None) -> int:
     if config is None:
         return 2
     if config.train.data_parallel > 1 and mesh is None:
-        return _launch(cmd_validate, args, config)
+        return _launch(cmd_validate, args, config.train.data_parallel)
     if mesh is not None and mesh.rank != 0:
         setup_logging(None, level=logging.WARNING)
     else:
@@ -492,7 +532,7 @@ def cmd_validate(args, mesh=None) -> int:
     return 0
 
 
-def cmd_infer(args) -> int:
+def cmd_infer(args, mesh=None) -> int:
     from coma_unet_tpu_torch.data import (
         CovariateTable, DataLoader, InferenceVolumeDataset, PredictionTable,
         batch_to_device, pin_batch,
@@ -501,17 +541,26 @@ def cmd_infer(args) -> int:
     from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
     from coma_unet_tpu_torch.utils.logging import setup_logging
 
-    # --data_parallel runs the plain forward here, as in the JAX CLI
-    config, device = _prepare(args, parallel=False)
+    # --data_parallel alone runs the plain forward here, as in the JAX CLI;
+    # so does --sliding_window, whatever --spatial_parallel says
+    sp = max(int(args.spatial_parallel or 1), 1)
+    spatial = sp > 1 and not args.sliding_window
+    config, device = _prepare(
+        args, mesh, parallel=False,
+        refuse=lambda c: spatial and mesh is None and _refuse_spatial(args, c, sp))
     if config is None:
         return 2
-    setup_logging(None)
+    writer = mesh is None or mesh.rank == 0
+    setup_logging(None, level=logging.INFO if writer else logging.WARNING)
     if args.cohort and not args.cohort_dir:
         print("--cohort requires --cohort_dir", file=sys.stderr)
         return 2
     if not args.cohort and not args.input_lookup:
         print("--input_lookup is required without --cohort", file=sys.stderr)
         return 2
+    if spatial and mesh is None:
+        return _launch(cmd_infer, args,
+                       max(int(config.train.data_parallel), 1) * sp)
     model = _build_model(config, device)
     if args.save_attention:
         from coma_unet_tpu_torch.models.registry import has_attention_maps
@@ -532,20 +581,31 @@ def cmd_infer(args) -> int:
         ds = InferenceVolumeDataset(
             args.input_lookup, CovariateTable(config.data.covariate_csv),
             meta_tau_table=preds, pad_dims=config.data.volume_shape)
+    pin = device.type == "cuda" and not spatial
     loader = DataLoader(ds, 1, predictions=preds,
-                        device_put=pin_batch if device.type == "cuda" else None)
+                        device_put=pin_batch if pin else None)
     _load_weights(model, args.checkpoint_path)
-    infer = make_infer_fn(model)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if spatial:
+        from coma_unet_tpu_torch.parallel.spatial import make_spatial_infer_fn
+
+        infer = make_spatial_infer_fn(model, mesh)
+    else:
+        infer = make_infer_fn(model)
+    if writer:
+        os.makedirs(args.out_dir, exist_ok=True)
     keys = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
     for bi, batch in enumerate(loader):
         if args.sliding_window:
             out = sliding_window_inference(
                 infer, *(np.asarray(batch[k]) for k in keys),
                 patch_size=(args.patch_size,) * 3, overlap=args.overlap)
+        elif spatial:  # every rank takes its slab; rank 0 gets the volume
+            out = infer(*(batch[k] for k in keys))
         else:
             db = batch_to_device(batch, device)
             out = infer(*(db[k] for k in keys))
+        if not writer:
+            continue
         sid = batch["sample_ids"][0].replace("/", "_") or f"sample_{bi}"
         path = os.path.join(args.out_dir, f"{sid}_synth_tau.nii")
         write_tensor_to_nii(out[0], path)
@@ -561,7 +621,7 @@ def cmd_infer(args) -> int:
 
 def _rank_main(rank: int, command, args, world: int, init_method: str,
                out_path: str) -> None:
-    """One rank of a data-parallel `command`: joins the group on its device
+    """One rank of a parallel `command`: joins the group on its device
     (`cuda:<rank>` or the CPU), runs the command with its mesh and exits
     with its status; rank 0's standard output goes to `out_path`, which the
     launcher prints."""
@@ -583,8 +643,8 @@ def _rank_main(rank: int, command, args, world: int, init_method: str,
         sys.exit(rc)
 
 
-def _launch(command, args, config) -> int:
-    """Run `command` on `config.train.data_parallel` rank processes and wait
+def _launch(command, args, world: int) -> int:
+    """Run `command` on `world` rank processes and wait
     for them: 0 when every rank succeeded, else 1 (a rank that fails ends
     the others). The kernels are built here first, so the ranks load one
     library and none rebuilds it. The ranks are forked from a fork server
@@ -597,7 +657,6 @@ def _launch(command, args, config) -> int:
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
 
-    world = int(config.train.data_parallel)
     if torch.device(args.device).type == "cuda":
         from coma_unet_tpu_torch.ops._build import build
 
@@ -616,7 +675,7 @@ def _launch(command, args, config) -> int:
                 pass
             rc = 0
         except ProcessException as e:
-            print(f"data-parallel {args.command} failed: {e}", file=sys.stderr)
+            print(f"{world}-rank {args.command} failed: {e}", file=sys.stderr)
             rc = 1
         if os.path.exists(out_path):
             with open(out_path) as f:

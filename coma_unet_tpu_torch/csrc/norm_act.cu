@@ -603,3 +603,176 @@ COMA_API int coma_norm_act_bwd(const void* x, const void* g, const void* stats, 
   a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * NSUM);
   return launch_act<true>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
 }
+
+// ------------------------------------------------------- K4's slab form
+// Where a volume's depth is split over ranks (parallel/spatial.py), a rank
+// holds only its slab of each row, and the row's statistics are merged
+// across the ranks between K4's two halves. So the halves are two entries
+// here, the counterparts of the Pallas kernel's own two:
+//   coma_norm_stats: each row's partial of the slab, (count, mean, M2) in
+//     f64. Replaces norm_act.py `_stats_kernel` (its launch in
+//     `_norm_act_fwd_impl`). A first kernel takes one segment of one row a
+//     CTA and writes K4's shifted f32 partial (count, mean and M2 of x - s,
+//     s the row's first voxel of the slab); a second, one warp a row, merges
+//     the row's partials in f64 in segment order, as K4's rows do.
+//   coma_norm_apply: y = act(scale * (x - mean) * rstd + shift) from the
+//     given per-row f32 mean and rstd, stored as bf16. Replaces `_apply_kernel`.
+// Both read x once (apply writes y once): bound by memory. They are simple
+// grid-stride kernels, 16-byte vectors where the rows allow; no float
+// atomics, so two calls give the same bits.
+namespace {
+
+constexpr int SLAB_THREADS = 256;
+
+__device__ __forceinline__ bool slab_vec(const NaArgs& a) { return a.vec && a.n % 8 == 0; }
+
+// One CTA: segment blockIdx.x of row blockIdx.y.
+__global__ void __launch_bounds__(SLAB_THREADS) slab_partial_kernel(const NaArgs a) {
+  __shared__ float red[2][SLAB_THREADS / 32];
+  const int64_t row = blockIdx.y;
+  const int64_t e0 = blockIdx.x * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
+  const bf16* const xr = a.x + row * a.n;
+  const float shift0 = __bfloat162float(xr[0]);
+  float s = 0.f, q = 0.f;
+  if (slab_vec(a)) {  // e0 and e1 are multiples of 8 (seg is; n is)
+    for (int64_t k = e0 / 8 + threadIdx.x; k < e1 / 8; k += SLAB_THREADS) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + 8 * k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float t = bf(v, j) - shift0;
+        s += t;
+        q = fmaf(t, t, q);
+      }
+    }
+  } else {
+    for (int64_t e = e0 + threadIdx.x; e < e1; e += SLAB_THREADS) {
+      const float t = __bfloat162float(xr[e]) - shift0;
+      s += t;
+      q = fmaf(t, t, q);
+    }
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    q += __shfl_xor_sync(0xffffffffu, q, o);
+  }
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s = q = 0.f;
+    for (int w = 0; w < SLAB_THREADS / 32; ++w) {
+      s += red[0][w];
+      q += red[1][w];
+    }
+    const float cnt = (float)(e1 - e0), m = s / cnt;
+    float* const p = a.part + (row * a.segs + blockIdx.x) * 3;
+    p[0] = cnt;
+    p[1] = m;
+    p[2] = fmaxf(q - s * m, 0.f);
+  }
+}
+
+// One warp a row: the row's partials merged in f64 in segment order into
+// (count, mean, M2), K4's merge (`run`, step 3).
+__global__ void slab_merge_kernel(const NaArgs a, double* out) {
+  const int64_t row = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float* const part = a.part + row * a.segs * 3;
+  const double nd = (double)a.n;
+  double sn = 0.0;
+  for (int i = lane; i < a.segs; i += 32) sn += (double)part[3 * i] * (double)part[3 * i + 1];
+  const double mt = warp_total(sn) / nd;
+  double m2 = 0.0;
+  for (int i = lane; i < a.segs; i += 32) {
+    const double d = (double)part[3 * i + 1] - mt;
+    m2 += (double)part[3 * i + 2] + (double)part[3 * i] * d * d;
+  }
+  m2 = warp_total(m2);
+  if (lane == 0) {
+    out[3 * row] = nd;
+    out[3 * row + 1] = (double)__bfloat162float(a.x[row * a.n]) + mt;
+    out[3 * row + 2] = m2;
+  }
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs a) {
+  const float alpha = ACT == 3 ? a.alpha[0] : 0.f;
+  const int64_t stride = (int64_t)gridDim.x * SLAB_THREADS;
+  const int64_t first = (int64_t)blockIdx.x * SLAB_THREADS + threadIdx.x;
+  const auto u_of = [&](int64_t row, float x) {
+    const float sc = a.scale ? a.scale[row] : 1.f, sh = a.shift ? a.shift[row] : 0.f;
+    return activate<ACT>(sc * ((x - a.stats[2 * row]) * a.stats[2 * row + 1]) + sh, alpha);
+  };
+  if (slab_vec(a)) {  // a group of 8 lies in one row
+    for (int64_t k = first; k < a.rows * a.n / 8; k += stride) {
+      const int64_t row = 8 * k / a.n;
+      const uint4 v = reinterpret_cast<const uint4*>(a.x)[k];
+      uint4 ov;
+      bf16* const o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(u_of(row, bf(v, j)));
+      reinterpret_cast<uint4*>(a.out)[k] = ov;
+    }
+  } else {
+    for (int64_t e = first; e < a.rows * a.n; e += stride)
+      a.out[e] = __float2bfloat16(u_of(e / a.n, __bfloat162float(a.x[e])));
+  }
+}
+
+}  // namespace
+
+// x [rows, n] bf16 (a slab of each row). stats receives [rows, 3] f64:
+// (count, mean, M2) of each row. scratch: rows * segs * 3 floats of
+// partials. Each of the segs segments of a row is seg voxels (a multiple of
+// 8; the last may be shorter); the cut comes from ops/norm_act.py:slab_plan.
+COMA_API int coma_norm_stats(const void* x, void* scratch, void* stats, int64_t rows, int64_t n,
+                             int64_t seg, int64_t segs, void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || seg < 8 || seg % 8 != 0 || segs < 1 ||
+      (segs - 1) * seg >= n || segs * seg < n || segs > (1 << 30))
+    return cudaErrorInvalidValue;
+  NaArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.part = static_cast<float*>(scratch);
+  a.rows = rows;
+  a.n = n;
+  a.seg = seg;
+  a.segs = (int)segs;
+  a.vec = aligned16(x);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  slab_partial_kernel<<<dim3((unsigned)segs, (unsigned)rows), SLAB_THREADS, 0, s>>>(a);
+  slab_merge_kernel<<<(unsigned)rows, 32, 0, s>>>(a, static_cast<double*>(stats));
+  return cudaGetLastError();
+}
+
+// x, y [rows, n] bf16; stats [rows, 2] f32 (mean, rstd); scale, shift [rows]
+// f32 or null; alpha [1] f32 (read for prelu only); act as coma_norm_act's.
+COMA_API int coma_norm_apply(const void* x, const void* stats, const void* scale,
+                             const void* shift, const void* alpha, void* y, int64_t rows,
+                             int64_t n, int64_t act, int64_t blocks, void* stream) {
+  if (rows < 1 || n < 1 || act < 0 || act > 3 || blocks < 1 || blocks > (1 << 30))
+    return cudaErrorInvalidValue;
+  NaArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<bf16*>(y);
+  a.rows = rows;
+  a.n = n;
+  a.vec = aligned16(x) && aligned16(y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks);
+  switch (act) {
+    case 1: slab_apply_kernel<1><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    case 2: slab_apply_kernel<2><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    case 3: slab_apply_kernel<3><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    default: slab_apply_kernel<0><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+  }
+  return cudaGetLastError();
+}

@@ -12,6 +12,12 @@ they connect. Blocks of levels 0 and 1 (and the reduce conv) run through the
 kernel families' wrappers; deeper blocks use PyTorch's built-in ops, as the
 JAX package leaves them to XLA. The rule does not look at tensor shapes, so
 a small test configuration takes the same routes as the 128^3 flagship.
+
+Under `depth_sharded` (`parallel/spatial.py`) the forward runs as it is on
+one rank's depth slab: the blocks take the halos and the merged norm
+statistics. The upsample's crop to its skip never cuts depth there: the
+slab plan splits every level evenly, so an upsample of a slab of n planes
+gives 2n, the skip's slab; a crop of H or W is the same on every plane.
 """
 
 from __future__ import annotations

@@ -19,10 +19,21 @@ models set `kernels` by U-Net level (`models/attention_unet.py`), never by
 tensor shape. Blocks, like the
 models, build on the GPU unless `device` names another device
 (`resolve_device`).
+
+Inside `depth_sharded(slab)` the blocks run on one rank's depth slab of the
+volume (`parallel/spatial.py`): `conv3d` takes the neighbours' planes around
+every conv that reaches across the slab's ends, whichever route it takes
+(`slab.conv`), and instance norm merges its statistics over the ranks
+(`slab.mean_rstd`): where `kernels` sends the chain to K4, K4's slab form
+(`norm_stats`, then `norm_apply`) takes it, otherwise plain ops. Batch
+norm in eval mode normalizes with its running statistics, which need no
+merge. The context is a `ContextVar` that `depth_sharded` sets and restores.
 """
 
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,7 +47,32 @@ from coma_unet_tpu_torch.ops.conv3d_strided import (
     conv3d_t2,
     conv_transpose3d_ref,
 )
-from coma_unet_tpu_torch.ops.norm_act import ACTS, apply_act, norm_act
+from coma_unet_tpu_torch.ops.norm_act import ACTS, apply_act, norm_act, norm_apply
+
+# the rank's depth slab (`parallel/spatial.py:Slab`) while a forward runs
+# inside `depth_sharded`, else None
+_SLAB: ContextVar = ContextVar("coma_depth_slab", default=None)
+
+
+@contextlib.contextmanager
+def depth_sharded(slab):
+    """Run the blocks (and the modulator's prompts) on `slab`'s depth slab
+    of the volume until the block ends, then restore the context that was
+    there before. Inference only: the convs write their boundary planes in
+    place."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("the depth-sharded forward runs without gradients "
+                           "(torch.no_grad)")
+    token = _SLAB.set(slab)
+    try:
+        yield slab
+    finally:
+        _SLAB.reset(token)
+
+
+def current_slab():
+    """The depth slab the forward runs on, or None."""
+    return _SLAB.get()
 
 
 def gelu(u: torch.Tensor) -> torch.Tensor:
@@ -136,7 +172,15 @@ class PReLU(nn.Module):
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel normalization over the spatial dims (torch
     InstanceNorm3d defaults). Stats in f32; the normalize step runs in x's
-    dtype, as the JAX package's `InstanceNorm` does."""
+    dtype, as the JAX package's `InstanceNorm` does. Inside
+    `depth_sharded` the statistics are those of the whole volume, merged
+    over the ranks."""
+    slab = _SLAB.get()
+    if slab is not None:
+        shape = x.shape[:2] + (1,) * (x.dim() - 2)
+        mean, rstd = (s.reshape(shape) for s in
+                      slab.mean_rstd(x, kernels=False, eps=eps).unbind(1))
+        return (x - mean.to(x.dtype)) * rstd.to(x.dtype)
     dims = tuple(range(2, x.dim()))
     xf = x.float()
     mean = xf.mean(dims, keepdim=True)
@@ -265,7 +309,18 @@ def conv3d(x: torch.Tensor, w: torch.Tensor,
     shared `[Cout, Cin, k, k, k]` or per-sample `[B, Cout, Cin, k, k, k]`
     weights. `kernels` routes to the kernel families' wrappers (stride-1
     k in {1, 3}, stride-2 k=3, transposed stride-2 k=3); otherwise PyTorch's
-    built-in convs."""
+    built-in convs. Inside `depth_sharded`, x is the rank's slab and so is
+    the result: the slab takes the neighbours' planes (`Slab.conv`)."""
+    slab = _SLAB.get()
+    if slab is not None:
+        return slab.conv(
+            x, lambda t: _conv3d(t, w, bias, stride, transposed, kernels),
+            w.shape[-1], stride, transposed)
+    return _conv3d(x, w, bias, stride, transposed, kernels)
+
+
+def _conv3d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+            stride: int, transposed: bool, kernels: bool) -> torch.Tensor:
     if not kernels:
         if transposed:
             return conv_transpose3d_ref(x, w, bias, stride)
@@ -290,9 +345,14 @@ def norm_film_act(y: torch.Tensor, norm: Norm, act: Optional[str],
     """norm -> FiLM (`scale`, `shift` [B, C] f32, or None) -> dropout ->
     act. K4 (`norm_act`) takes the chain where `kernels` is set, the norm is
     instance norm, there is no dropout and K4 has the activation; otherwise
-    plain ops, as JAX's `_norm_act_ok` decides."""
+    plain ops, as JAX's `_norm_act_ok` decides. Inside `depth_sharded`, K4's
+    slab form takes it with the statistics merged over the ranks."""
     if (kernels and norm.kind == "instance" and dropout is None
             and (act or "none") in ACTS):
+        slab = _SLAB.get()
+        if slab is not None:
+            return norm_apply(y, slab.mean_rstd(y, kernels=True), alpha, act,
+                              scale, shift)
         return norm_act(y, alpha, act, scale, shift)
     y = norm(y)
     if scale is not None:

@@ -27,6 +27,7 @@ from coma_unet_tpu_torch.models.blocks import (
     Convolution,
     ProjectionHead,
     StackedFusionConvLayers,
+    current_slab,
     dense_init_,
     resolve_device,
 )
@@ -119,20 +120,31 @@ class ContraAttnUNet(nn.Module):
                              encoder=feats.encoder, attention=feats.attention)
 
     def _modulator(self, x, out, covariate, roi_loc, roi_std, roi_compact):
+        """The modulator head. Inside `depth_sharded` x is the rank's depth
+        slab: the prompts are checked against the whole volume and the rank
+        takes its slab of each; the brain mask and the painting are
+        voxel-local."""
         cfg, dtype = self.config, self.dtype
         b = x.shape[0]
-        if tuple(cfg.prompt_shape) != tuple(x.shape[2:5]):
+        slab = current_slab()
+        volume = tuple(x.shape[2:5])
+        prompts = (self.pos_dynamic_prompt, self.neg_dynamic_prompt,
+                   self.general_dynamic_prompt)
+        if slab is not None:
+            volume = (volume[0] * slab.world,) + volume[1:]
+            prompts = tuple(slab.local(p) for p in prompts)
+        if tuple(cfg.prompt_shape) != volume:
             raise ValueError(
                 f"modulator prompts are {tuple(cfg.prompt_shape)} but input "
-                f"spatial dims are {tuple(x.shape[2:5])}; set "
+                f"spatial dims are {volume}; set "
                 f"ModelConfig.prompt_shape accordingly")
+        pos_prompt, neg_prompt, general_prompt = prompts
         if covariate is not None:
             abeta = covariate.reshape(b, -1)[:, 0]
         else:
             abeta = torch.zeros((b,), dtype=torch.float32, device=x.device)
         is_pos = (abeta == 1.0).reshape(b, 1, 1, 1, 1)
-        prompt = torch.where(is_pos, self.pos_dynamic_prompt,
-                             self.neg_dynamic_prompt).to(dtype)
+        prompt = torch.where(is_pos, pos_prompt, neg_prompt).to(dtype)
 
         if roi_loc is None or roi_compact is None:
             suvr = torch.zeros_like(out)
@@ -149,7 +161,7 @@ class ContraAttnUNet(nn.Module):
 
         mod_in = torch.cat([prompt.expand_as(out), saliency.to(dtype),
                             suvr.to(dtype)], dim=1)
-        modulated = (self.general_dynamic_prompt.to(dtype)
+        modulated = (general_prompt.to(dtype)
                      + self.deep_modulator_3c(mod_in))
         fused = self.fusion_layer(torch.cat([modulated, out.to(dtype)], dim=1))
         final = self.final_pred_head(torch.cat([out.to(dtype), fused], dim=1))

@@ -2,8 +2,9 @@
 hand-written CUDA kernel for a CUDA tensor and runs the plain PyTorch
 version for a CPU tensor: the forward families `s1`, `s2`, `t2`,
 `norm_act` (`FWD_FAMILIES`), the backward families `s1_dw`,
-`strided_dw`, `norm_act_bwd` (`BWD_FAMILIES`) and the standalone
-`phase_split` (`ENTRY_FAMILIES`). `conv3d_s1`, `conv3d_s2`, `conv3d_t2`
+`strided_dw`, `norm_act_bwd` (`BWD_FAMILIES`), K4's two halves
+`norm_stats` and `norm_apply` for the depth-sharded forward
+(`SLAB_FAMILIES`) and the standalone `phase_split` (`ENTRY_FAMILIES`). `conv3d_s1`, `conv3d_s2`, `conv3d_t2`
 and `norm_act` are autograd Functions whose backward runs kernels too;
 `instance_norm` and `conv3d_w64` are entry points over K4 and K1. The
 per-ROI sums and SSIM of the metric suite are PyTorch built-ins, as the JAX
@@ -18,6 +19,7 @@ from coma_unet_tpu_torch.ops._build import (  # noqa: F401
     PLAIN_ON_CPU,
     PLAIN_ON_CUDA,
     PATH_FAMILIES,
+    SLAB_FAMILIES,
     reset_counts,
 )
 from coma_unet_tpu_torch.ops.conv3d import (  # noqa: F401
@@ -37,11 +39,16 @@ from coma_unet_tpu_torch.ops.conv3d_strided import (  # noqa: F401
 )
 from coma_unet_tpu_torch.ops.norm_act import (  # noqa: F401
     instance_norm,
+    merge_partials,
     norm_act,
     norm_act_bwd,
     norm_act_bwd_plain,
     norm_act_forward,
     norm_act_plain,
+    norm_apply,
+    norm_apply_plain,
+    norm_stats,
+    norm_stats_plain,
 )
 from coma_unet_tpu_torch.ops.phase_split import (  # noqa: F401
     hsplit,

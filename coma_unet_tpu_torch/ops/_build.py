@@ -14,7 +14,9 @@ and `PLAIN_ON_CUDA` / `PLAIN_ON_CPU` count calls of a family's plain PyTorch
 version by the device of its input. `FWD_FAMILIES` are the kernels a
 forward runs, `BWD_FAMILIES` those only a backward runs (a backward also
 launches forward families for its input gradients); `PATH_FAMILIES` is
-both, the kernels of the model's paths. `ENTRY_FAMILIES` are kernels that
+both, the kernels of the model's paths. `SLAB_FAMILIES` are K4's two
+halves, which only the depth-sharded forward runs (`parallel/spatial.py`)
+in place of K4. `ENTRY_FAMILIES` are kernels that
 only a standalone entry point runs (`phase_split`, as in the JAX package);
 `FAMILIES` is every family.
 """
@@ -35,8 +37,9 @@ import torch
 FWD_FAMILIES = ("s1", "s2", "t2", "norm_act")
 BWD_FAMILIES = ("s1_dw", "strided_dw", "norm_act_bwd")
 PATH_FAMILIES = FWD_FAMILIES + BWD_FAMILIES
+SLAB_FAMILIES = ("norm_stats", "norm_apply")
 ENTRY_FAMILIES = ("phase_split",)
-FAMILIES = PATH_FAMILIES + ENTRY_FAMILIES
+FAMILIES = PATH_FAMILIES + SLAB_FAMILIES + ENTRY_FAMILIES
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 PLAIN_ON_CPU: Counter = Counter()
@@ -58,6 +61,8 @@ _SIGNATURES = {
     "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 13 + [_P],
     "coma_norm_act_bwd": [_P] * 10 + [_I] * 11 + [_P],
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
+    "coma_norm_stats": [_P] * 3 + [_I] * 4 + [_P],
+    "coma_norm_apply": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -13,6 +13,12 @@ The kernels' source is `coma_unet_tpu_torch/csrc/norm_act.cu`.
 launches K4 and keeps its per-row (mean, rstd) for KB3, which returns dx,
 dscale and dshift ([B, C] f32) and dalpha (one slope, summed over all rows);
 on a CPU tensor both directions run the plain versions.
+
+K4's slab form, for a rank that holds only a depth slab of each row
+(`parallel/spatial.py`), is K4's two halves as two entries of the same
+source: `norm_stats` (each row's (count, mean, M2) of the slab, f64; the
+Pallas `_stats_kernel`), `merge_partials` across the ranks, then
+`norm_apply` (the Pallas `_apply_kernel`). Forward only.
 """
 
 from __future__ import annotations
@@ -191,13 +197,18 @@ def _rows(x: torch.Tensor):
 _SMS: dict = {}
 
 
-def _plan(x: torch.Tensor, kept_bytes_per_voxel: int) -> NaPlan:
-    """`na_plan` for x's rows on x's device (its own SM count, cached)."""
+def _sms(x: torch.Tensor) -> int:
+    """The SM count of x's device (cached)."""
     index = x.device.index
     if index not in _SMS:
         props = torch.cuda.get_device_properties(x.device)
         _SMS[index] = props.multi_processor_count
-    return na_plan(*_rows(x), kept_bytes_per_voxel, _SMS[index])
+    return _SMS[index]
+
+
+def _plan(x: torch.Tensor, kept_bytes_per_voxel: int) -> NaPlan:
+    """`na_plan` for x's rows on x's device (its own SM count)."""
+    return na_plan(*_rows(x), kept_bytes_per_voxel, _sms(x))
 
 
 def _plan_args(plan: NaPlan):
@@ -325,6 +336,138 @@ def norm_act(x: torch.Tensor, alpha: Optional[torch.Tensor],
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"norm_act: unsupported device {x.device}")
     return NormAct.apply(x, alpha, scale, shift, act, eps)
+
+
+# --- K4's slab form: statistics, a merge between them, then the apply -------
+#
+# Where the depth of a volume is split over ranks (`parallel/spatial.py`),
+# each rank holds a slab of every row: `norm_stats` gives each row's
+# partial of the slab, `merge_partials` merges the ranks' partials, and
+# `norm_apply` normalizes with the merged statistics. K4 itself, which
+# needs whole rows, runs wherever a rank holds them.
+
+SLAB_MIN_SEG = 8192      # voxels a CTA of `coma_norm_stats` takes at least
+
+
+class SlabPlan(NamedTuple):
+    """How `coma_norm_stats` cuts `rows` rows of `n` voxels: each row into
+    `segs` segments of `seg` voxels (a multiple of 8; the last one may be
+    shorter), one a CTA."""
+    segs: int
+    seg: int
+
+
+def slab_plan(rows: int, n: int, sms: int = NA_SMS) -> SlabPlan:
+    """About four CTAs an SM in all, none with fewer than SLAB_MIN_SEG
+    voxels unless the row is shorter."""
+    segs = max(1, min(_cdiv(n, SLAB_MIN_SEG), _cdiv(4 * sms, rows)))
+    seg = 8 * _cdiv(_cdiv(n, segs), 8)
+    return SlabPlan(_cdiv(n, seg), seg)
+
+
+def row_partials(x: torch.Tensor) -> torch.Tensor:
+    """Each row's (count, mean, M2) over x's spatial dims, in f64:
+    [B * C, 3]."""
+    rows, n = _rows(x)
+    xd = x.detach().reshape(rows, n).double()
+    mean = xd.mean(1)
+    m2 = (xd - mean[:, None]).square().sum(1)
+    return torch.stack([torch.full_like(mean, n), mean, m2], 1)
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """Partials [S, rows, 3] (count, mean, M2) of S slabs merged in slab
+    order into the rows' [rows, 3] (Chan's pairwise update). Every rank
+    that merges the same gathered buffer gets the same bits."""
+    count, mean, m2 = parts[0].unbind(1)
+    for part in parts[1:]:
+        n_b, mean_b, m2_b = part.unbind(1)
+        total = count + n_b
+        delta = mean_b - mean
+        mean = mean + delta * (n_b / total)
+        m2 = m2 + m2_b + delta * delta * (count * n_b / total)
+        count = total
+    return torch.stack([count, mean, m2], 1)
+
+
+def mean_rstd(partials: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """[rows, 2] f32 (mean, rstd) from merged [rows, 3] partials, as K4
+    takes them: rstd = rsqrt(f32(M2 / count) + eps)."""
+    count, mean, m2 = partials.unbind(1)
+    return torch.stack([mean.float(), torch.rsqrt((m2 / count).float() + eps)], 1)
+
+
+def norm_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `coma_norm_stats` (two-pass f64)."""
+    _build.count_plain("norm_stats", x)
+    return row_partials(x)
+
+
+def norm_apply_plain(x: torch.Tensor, stats: torch.Tensor,
+                     alpha: Optional[torch.Tensor], act: Optional[str],
+                     scale: Optional[torch.Tensor] = None,
+                     shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of `coma_norm_apply`: `norm_act_plain` with the
+    given per-row (mean, rstd) [B * C, 2]."""
+    _build.count_plain("norm_apply", x)
+    b, c = x.shape[:2]
+    bshape = (b, c) + (1,) * (x.dim() - 2)
+    mean, rstd = (s.float().reshape(bshape) for s in stats.unbind(1))
+    u = (x.float() - mean) * rstd
+    if scale is not None:
+        u = u * scale.float().reshape(bshape)
+    if shift is not None:
+        u = u + shift.float().reshape(bshape)
+    return apply_act(u, act or "none", alpha).to(x.dtype)
+
+
+def norm_stats(x: torch.Tensor) -> torch.Tensor:
+    """Each row's (count, mean, M2) over x's spatial dims, [B * C, 3] f64:
+    `coma_norm_stats` on a CUDA tensor (bf16 only), the plain version on a
+    CPU tensor."""
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"norm_stats: unsupported device {x.device}")
+        return norm_stats_plain(x)
+    _build.check_cuda_input("x", x, x.dim(), x.device)
+    rows, n = _rows(x)
+    plan = slab_plan(rows, n, _sms(x))
+    scratch = torch.empty(rows * plan.segs * 3, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty((rows, 3), dtype=torch.float64, device=x.device)
+    _build.launch("norm_stats", "coma_norm_stats", x.device, x.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), rows, n, plan.seg,
+                  plan.segs)
+    return out
+
+
+def norm_apply(x: torch.Tensor, stats: torch.Tensor,
+               alpha: Optional[torch.Tensor], act: Optional[str],
+               scale: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(scale * (x - mean) * rstd + shift) with the per-row (mean, rstd)
+    `stats` [B * C, 2] f32: `coma_norm_apply` on a CUDA tensor (bf16 only),
+    the plain version on a CPU tensor."""
+    act = act or "none"
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"norm_apply: unsupported device {x.device}")
+        return norm_apply_plain(x, stats, alpha, act, scale, shift)
+    alpha32, scale32, shift32 = _cuda_params(x, alpha, act, scale, shift)
+    _build.check_cuda_input("x", x, x.dim(), x.device)
+    rows, n = _rows(x)
+    if tuple(stats.shape) != (rows, 2):
+        raise ValueError(f"norm_apply: stats {tuple(stats.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    _build.check_cuda_input("stats", stats, 2, x.device, torch.float32)
+    y = torch.empty_like(x)
+    blocks = min(4 * _sms(x), _cdiv(rows * n, 8 * 256))
+    _build.launch("norm_apply", "coma_norm_apply", x.device, x.data_ptr(),
+                  stats.data_ptr(), _build.ptr(scale32), _build.ptr(shift32),
+                  _build.ptr(alpha32), y.data_ptr(), rows, n, ACTS[act], blocks)
+    return y
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,

@@ -23,7 +23,7 @@ global batch, as a `shard_map` shard does:
 A collective on a bf16 or bool tensor travels as f32 or uint8; a gather is
 an all-reduce of zero-padded rows, which the NCCL and the gloo backend both
 run on CPU and CUDA tensors. Spatial parallelism (the JAX mesh's `spatial`
-axis, `make_spatial_infer_fn`) is not here.
+axis, `make_spatial_infer_fn`) is `parallel/spatial.py`, on the same group.
 """
 
 from __future__ import annotations

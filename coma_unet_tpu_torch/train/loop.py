@@ -27,9 +27,16 @@ on its rows of each global batch (the loaders are built with its `shard`):
 the step and the validation are the sharded ones, whose metrics are global,
 so every rank books the same losses and every rank's plateau controller
 and adaptive weights decide alike (checked each epoch by one all-reduce);
-only rank 0 writes checkpoints, CSVs, charts, samples and `LAST_RUN`. The
-JAX package's spatial parallelism, split step and AOT precompile are TPU
-paths and are not here.
+only rank 0 writes checkpoints, CSVs, charts, samples and `LAST_RUN`.
+`train.spatial_parallel` S keeps the reference's meaning: its training mesh
+has S devices to each data-parallel shard, but its sharded step maps every
+batch entry over the `data` axis alone (`coma_unet_tpu/parallel/mesh.py:88-90`,
+`shard_map` with `P("data")` specs and a `psum` over `data`), so the
+spatial axis only replicates each shard's work; the loop runs on the D
+ranks of `data_parallel` and computes what the run without S computes. It
+refuses D x S beyond the visible cards, as the reference's `make_mesh`
+does. The JAX package's split step and AOT precompile are TPU paths and
+are not here.
 """
 
 from __future__ import annotations
@@ -193,11 +200,16 @@ def train(model: torch.nn.Module, config: ExperimentConfig, train_loader,
                          f"training was asked on {device}")
     device = _model_device(model)
     tcfg, lcfg = config.train, config.loss
-    if max(int(tcfg.spatial_parallel), 1) > 1:
-        raise NotImplementedError(
-            "spatial parallelism is not ported yet (ROADMAP.md, queue 1 "
-            "item 5)")
     dp = max(int(tcfg.data_parallel), 1)
+    sp = max(int(tcfg.spatial_parallel), 1)
+    if sp > 1:
+        if device.type == "cuda" and dp * sp > torch.cuda.device_count():
+            raise ValueError(f"mesh {dp}x{sp} > {torch.cuda.device_count()} "
+                             f"devices")
+        if mesh is None or mesh.rank == 0:
+            log.info("spatial_parallel %d: the reference's training step maps "
+                     "its batches over the data axis alone, so the spatial "
+                     "axis adds no work; training on %d rank(s)", sp, dp)
     if (mesh.size if mesh is not None else 1) != dp:
         raise ValueError(
             f"data_parallel {dp} needs an initialized process group of {dp} "

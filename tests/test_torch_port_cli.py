@@ -8,8 +8,11 @@ run's last validation CSV holds, a resume writes to
 trains one fold directory per fold. The device and dtype rules: `--device
 cuda` without a card raises and names `--device cpu`; a compute dtype
 other than bfloat16 on CUDA exits with status 2 before a model is built;
-spatial parallelism, whose path is not ported, raises NotImplementedError,
-and the baselines and `--norm batch` run. `train` and `validate` with
+the baselines and `--norm batch` run. `infer --spatial_parallel 2` on two
+gloo ranks writes the volumes of the single-process `infer`, a config's
+`train.spatial_parallel` trains as the run without it, and a baseline,
+`--save_attention`, a volume the ranks cannot split or more ranks than
+cards exit with status 2 before writing. `train` and `validate` with
 `--data_parallel 2` on two gloo ranks give the single-process numbers, the
 run's checkpoint resumes in one process, a batch the ranks cannot split or
 more ranks than cards exit with status 2 before writing, and a rank that
@@ -218,31 +221,52 @@ def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("cmd,flag,item", [
     ("train", "spatial_parallel", "queue 1 item 5"),
-    ("infer", ["--spatial_parallel", "4"], "queue 1 item 5"),
+    ("infer", ["--spatial_parallel", "2"], "queue 1 item 5"),
     ("validate", ["-model_type", "UNET"], "queue 1 item 4"),
     ("train", ["--norm", "batch"], "queue 1 item 4"),
 ])
 def test_deferred_options_raise(cohort, tmp_path, monkeypatch, capsys, cmd,
                                 flag, item):
-    """An option whose path is not ported (queue 1 item 5: spatial
-    parallelism, from `infer --spatial_parallel` or a config's
-    `train.spatial_parallel`) raises NotImplementedError naming its
-    ROADMAP.md item and writes nothing. Queue 1 item 4 (the baselines, batch
-    norm) is ported: its cases run the command from the flags alone, the
-    default ModelConfig and DataConfig shrunk to the test's widths and
-    16^3, and check what it writes."""
+    """The options that once waited on their ROADMAP.md item run. Queue 1
+    item 5, spatial parallelism: `infer --spatial_parallel 2` (two gloo
+    ranks, each on a depth slab) writes the volumes that `infer` in one
+    process writes, within 1e-5 of their max; a config's
+    `train.spatial_parallel = 2` trains to the validation CSVs of the run
+    without it, bit for bit, since the reference's spatial axis only
+    replicates its step. Queue 1 item 4 (the baselines, batch norm): its
+    cases run the command from the flags alone, the default ModelConfig and
+    DataConfig shrunk to the test's widths and 16^3, and check what it
+    writes."""
     extra = {"train": ["--splits_dir", cohort["splits"]],
              "validate": ["--test_lookup", cohort["lookup"]],
              "infer": ["--input_lookup", cohort["lookup"]]}[cmd]
-    if flag == "spatial_parallel":
-        flag = ["--config", _config_file(tmp_path / "sp.json", spatial_parallel=2)]
+    if item == "queue 1 item 5":
+        monkeypatch.setattr(ploop, "loss_graph", lambda *a, **k: None)
+        monkeypatch.setattr(MetricRecorder, "plot", lambda self: None)
+        if cmd == "train":
+            runs = [_train(cohort, _config_file(tmp_path / f"{tag}.json", **sp),
+                           tmp_path / tag)
+                    for tag, sp in (("plain", {}), ("sp", dict(spatial_parallel=2)))]
+            for m in ("mae", "mape", "avg_corr", "roi_maes"):
+                got, want = (read_csv(str(r / "validation_metric_results" / f"{m}.csv"))
+                             for r in runs[::-1])
+                assert got.columns == want.columns and got.rows() == want.rows(), m
+            return
+        cfg = _config_file(tmp_path / "config.json")
+        vols = []
+        for tag, sp in (("one", []), ("sp", flag)):
+            out = tmp_path / tag
+            assert main([cmd, "--config", cfg, "--device", "cpu", "--out_dir",
+                         str(out)] + extra + sp + _tables(cohort)) == 0
+            vols.append({p.name: load_nifti_vol(str(p))
+                         for p in sorted(out.glob("*_synth_tau.nii"))})
+        assert sorted(vols[1]) == sorted(vols[0]) and len(vols[0]) == 8
+        for name, want in vols[0].items():
+            err = float(np.abs(vols[1][name] - want).max())
+            assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
+        return
     argv = ([cmd, "--device", "cpu", "--compute_dtype", "float32"] + extra
             + flag + _tables(cohort))
-    if item != "queue 1 item 4":
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
-        assert not (tmp_path / "results").exists()
-        return
     import functools
 
     from coma_unet_tpu_torch import config as pconfig
@@ -371,6 +395,45 @@ def test_data_parallel_checkpoint_resumes_single_process(cohort, dp_runs,
     payload = torch.load(str(run / "checkpoints" / "checkpoint_epoch_2"),
                          weights_only=True)
     assert payload["epoch"] == 2 and payload["step"] == 3
+
+
+@pytest.mark.parametrize("how", ["baseline", "attention", "uneven", "cards"])
+def test_spatial_refusals_exit_2_before_writing(cohort, tmp_path, capsys,
+                                               monkeypatch, how):
+    """`infer --spatial_parallel` with a baseline (the reference's spatial
+    forward passes with_projections=False, which none takes), with
+    `--save_attention`, with 3 ranks (16 planes do not split) or on CUDA
+    beyond the visible cards (here none), and `train` with a config's
+    `train.spatial_parallel` 2 on CUDA, exit with status 2 before any rank
+    starts and before anything is written."""
+    import importlib
+
+    cli = importlib.import_module("coma_unet_tpu_torch.cli.main")
+    monkeypatch.setattr(cli, "_launch", lambda *a, **k: pytest.fail("launched"))
+    argv = ["infer", "--config", _config_file(tmp_path / "config.json"),
+            "--input_lookup", cohort["lookup"], "--out_dir", str(tmp_path / "out"),
+            "--spatial_parallel", "3" if how == "uneven" else "2"]
+    device, why = ["--device", "cpu"], {
+        "baseline": "ContraAttnUNET only", "attention": "--save_attention",
+        "uneven": "level 0 holds 16 planes", "cards": "CUDA devices"}[how]
+    if how == "baseline":
+        argv += ["-model_type", "UNET"]
+    elif how == "attention":
+        argv += ["--save_attention"]
+    elif how == "cards":
+        raw = json.loads(json.dumps(TINY))
+        raw["model"]["compute_dtype"] = "bfloat16"
+        raw["train"]["spatial_parallel"] = 2
+        raw["save_path"] = str(tmp_path / "results")
+        (tmp_path / "bf16.json").write_text(json.dumps(raw))
+        argv[2] = str(tmp_path / "bf16.json")
+        device = ["--device", "cuda"]
+        assert main(["train", "--config", argv[2], "--splits_dir",
+                     cohort["splits"]] + device + _tables(cohort)) == 2
+        assert why in capsys.readouterr().err
+    assert main(argv + device + _tables(cohort)) == 2
+    assert why in capsys.readouterr().err
+    assert not (tmp_path / "out").exists() and not (tmp_path / "results").exists()
 
 
 @pytest.mark.parametrize("how", ["batch", "cards"])

@@ -46,6 +46,7 @@ from coma_unet_tpu.losses import roi_losses as j_roi_losses  # noqa: E402
 from coma_unet_tpu.losses.roi_losses import update_roi_weights as j_update  # noqa: E402
 from coma_unet_tpu.models import ContraAttnUNet as FlaxContra  # noqa: E402
 from coma_unet_tpu.train import make_optimizer as j_make_optimizer  # noqa: E402
+from coma_unet_tpu.train import make_eval_step as j_make_eval_step  # noqa: E402
 from coma_unet_tpu.train import make_train_step as j_make_train_step  # noqa: E402
 from coma_unet_tpu.train.checkpoint import CheckpointManager as JCheckpoints  # noqa: E402
 from coma_unet_tpu.train.optim import ReduceLROnPlateau as JPlateau  # noqa: E402
@@ -70,6 +71,7 @@ from coma_unet_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
 )
 from coma_unet_tpu_torch.train.recorder import MetricRecorder as PRecorder  # noqa: E402
+from jax_fast import fast  # noqa: E402
 
 S = 16
 MODEL = dict(channels=(4, 8, 16), strides=(2, 2, 2), latent_spaces=(32,) * 3,
@@ -132,7 +134,7 @@ def variables():
                np.zeros((2, R), np.float32), np.zeros((2, R), np.float32),
                np.zeros((2, S, S, S), np.int32))
     model = FlaxContra(jconfig.ModelConfig(**MODEL))
-    init = jax.jit(lambda key, *a: model.init(key, *a, train=True))
+    init = fast(jax.jit(lambda key, *a: model.init(key, *a, train=True)))
     return jax.device_get(init(jax.random.PRNGKey(0), *example))
 
 
@@ -149,7 +151,7 @@ def jax_run(cohort, variables):
     model = FlaxContra(jconfig.ModelConfig(**MODEL))
     cfg = _config(jconfig, epochs=3)
     losses = []
-    base = j_make_train_step(model, cfg.loss, donate=True)
+    base = fast(j_make_train_step(model, cfg.loss, donate=True))
 
     def step(state, batch, roi_w, rng, *rest):
         state, aux = base(state, batch, roi_w, rng, *rest)
@@ -167,7 +169,8 @@ def jax_run(cohort, variables):
         _no_charts(mp)
         mp.setattr(jloop, "create_train_state", create_state)
         jloop.train(model, cfg, train_loader, val_loader=val_loader,
-                    save_path=save, train_step=step)
+                    save_path=save, train_step=step,
+                    eval_step=fast(j_make_eval_step(model, R)))
     template = j_create_state(model, j_make_optimizer(cfg.train.lr),
                               jax.random.PRNGKey(0), None, variables=variables)
     ckpts = {}
@@ -388,7 +391,7 @@ def test_grad_acc_matches_optax_multisteps(cohort, variables):
     model = FlaxContra(cfg.model)
     state = j_create_state(model, j_make_optimizer(LR, grad_acc=2),
                            jax.random.PRNGKey(0), None, variables=variables)
-    step = j_make_train_step(model, cfg.loss, donate=False)
+    step = fast(j_make_train_step(model, cfg.loss, donate=False))
     roi_w = jnp.full((R,), 225.0, jnp.float32)
     for b in batches:
         state, _ = step(state, {k: jnp.asarray(v) for k, v in b.items()}, roi_w,
@@ -472,11 +475,16 @@ def test_multisteps_state_round_trips_mid_accumulation(tmp_path):
 
 
 def test_loop_refuses_paths_not_ported(cohort):
+    """The loop refuses a data-parallel config without its process group
+    and a model on another device. With `spatial_parallel` 2 beside
+    `data_parallel` 2 it asks for a group of 2 ranks, not 4: the reference's
+    spatial axis only replicates each data shard's step."""
     model = ContraAttnUNet(pconfig.ModelConfig(**MODEL), device="cpu")
     loader, _ = _loaders(cohort, port=True)
     base = _config(pconfig, epochs=1)
     for train_cfg, error, what in (
-        (dict(spatial_parallel=2), NotImplementedError, "queue 1 item 5"),
+        (dict(spatial_parallel=2, data_parallel=2), ValueError,
+         "process group of 2 ranks"),
         (dict(data_parallel=2), ValueError, "process group of 2"),
     ):
         cfg = dataclasses.replace(base, train=dataclasses.replace(base.train,

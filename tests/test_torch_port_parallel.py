@@ -73,6 +73,7 @@ from coma_unet_tpu_torch.data import covariates as pcov  # noqa: E402
 from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort  # noqa: E402
 from coma_unet_tpu_torch.data.table import read_csv, write_rows  # noqa: E402
 from coma_unet_tpu_torch.parallel.mesh import Mesh, shard_batch  # noqa: E402
+from jax_fast import FAST  # noqa: E402
 from test_torch_port_baselines import (  # noqa: E402
     ARGS,
     JAX_ONLY,
@@ -92,7 +93,6 @@ FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=2e-3, atol=2e-5)
-FAST = {"xla_backend_optimization_level": 0}
 KINK_MARGIN = 3e-5    # the port's output differs from the compiled JAX one's by <= 1.2e-5
 
 

@@ -32,6 +32,7 @@ from coma_unet_tpu import data as jdata  # noqa: E402
 from coma_unet_tpu.data import covariates as jcov  # noqa: E402
 from coma_unet_tpu.data import orchestration as jorch  # noqa: E402
 from coma_unet_tpu.models import ContraAttnUNet as FlaxContra  # noqa: E402
+from coma_unet_tpu.train import make_eval_step as j_make_eval_step  # noqa: E402
 from coma_unet_tpu.train import make_train_step as j_make_train_step  # noqa: E402
 from coma_unet_tpu.train.recorder import MetricRecorder as JRecorder  # noqa: E402
 from coma_unet_tpu.train.state import create_train_state as j_create_state  # noqa: E402
@@ -48,6 +49,7 @@ from coma_unet_tpu_torch.data import orchestration as porch  # noqa: E402
 from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort  # noqa: E402
 from coma_unet_tpu_torch.data.table import read_csv, write_rows  # noqa: E402
 from coma_unet_tpu_torch.train.recorder import MetricRecorder as PRecorder  # noqa: E402
+from jax_fast import fast  # noqa: E402
 
 S = 16
 MODEL = dict(channels=(4, 8, 16), strides=(2, 2, 2), latent_spaces=(32,) * 3,
@@ -387,7 +389,7 @@ def loop_runs(cohort):
                np.zeros((2, R), np.float32), np.zeros((2, R), np.float32),
                np.zeros((2, S, S, S), np.int32))
     flax_model = FlaxContra(jconfig.ModelConfig(**MODEL))
-    init = jax.jit(lambda key, *a: flax_model.init(key, *a, train=True))
+    init = fast(jax.jit(lambda key, *a: flax_model.init(key, *a, train=True)))
     variables = jax.device_get(init(jax.random.PRNGKey(0), *example))
 
     def loaders(port):
@@ -403,7 +405,7 @@ def loop_runs(cohort):
         return (like if port else InOrder(train, preds, like)), val_loader
 
     losses = []
-    base = j_make_train_step(flax_model, _config(jconfig, 2).loss, donate=True)
+    base = fast(j_make_train_step(flax_model, _config(jconfig, 2).loss, donate=True))
 
     def step(state, batch, roi_w, rng, *rest):
         state, aux = base(state, batch, roi_w, rng, *rest)
@@ -421,7 +423,8 @@ def loop_runs(cohort):
         mp.setattr(jloop, "create_train_state", create_state)
         train_loader, val_loader = loaders(False)
         jloop.train(flax_model, _config(jconfig, 2), train_loader,
-                    val_loader=val_loader, save_path=out["jax"], train_step=step)
+                    val_loader=val_loader, save_path=out["jax"], train_step=step,
+                    eval_step=fast(j_make_eval_step(flax_model, R)))
         model = ContraAttnUNet(_config(pconfig, 2).model, device="cpu")
         model.load_state_dict(from_flax(variables["params"], model))
         train_loader, val_loader = loaders(True)
