@@ -46,10 +46,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               twice and must be bit-identical; each prints the cut
               `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
               `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
-              share of its byte bound.
+              share of its byte bound. Then the float32 forms (`<family>_f32`:
+              F1 and F2, csrc/conv3d_f32.cu; FB1, csrc/conv3d_dw_f32.cu; K4,
+              KB3, the slab halves and KS templated) at the F32_SITES of the
+              same shapes, on f32 inputs: within F32_TOL of max|plain| (KS bit
+              for bit), two calls bit-identical, each printing the cut
+              `f1_plan`, `f2_plan`, `fb1_plan` or `na_plan` at element size 4
+              chose; the library is cuDNN in f32 with TF32 off
+              (`F.instance_norm` for `instance_norm`, `torch.var_mean` for
+              `norm_stats`, in both dtypes) and the convs' bound counts their
+              operations at the f32 rate outside the tensor cores.
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
+              Then the same weights in float32 on the GPU (the float32
+              kernels, TF32 off) against the same CPU forward, within
+              F32_PARITY_TOL, with two planted faults above it: F1's tap 0
+              zeroed and F2's output parity class (1, 1, 1) dropped.
   5. gradients: one train-step loss and backward of the same model on the
               GPU (kernels, bf16), on the CPU in f32 and on the CPU in bf16
               (plain versions; the rounding baseline): the loss difference
@@ -58,7 +71,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               with a CPU gradient must get a finite one on the GPU. At b=2,
               then at b=3, where RnC's loss must be non-zero, so its
               gradient reaches the projection heads and, through K2's
-              input-gradient role, the encoder.
+              input-gradient role, the encoder. At b=3 also the float32 route
+              on the GPU against the CPU f32: the loss within F32_LOSS_TOL,
+              each group within max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor,
+              the CPU f32 route moved by an MRI one ulp up), the two planted
+              faults over a limit.
   6. serving: the default ModelConfig at 128^3: three b=2 full-volume
               requests through `make_infer_fn` and one 216^3 sliding-window
               request; every forward kernel family must have launched and no
@@ -191,15 +208,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               before it) at most SP_PEAK_RATIO x one process's. Prints the
               median of SP_CALLS sharded forwards beside one process's, the
               share of a call spent in the halo and statistics collectives,
-              each rank's peak and the phase's seconds.
-The last two lines are a JSON summary of the kernels (`launches` from the
-tCDS train of phase 11, and for K4's slab halves from phase 14;
-`launches_by_path` for every path) and {"ok": true, "device": {...}}. There
-is no CPU path.
+              each rank's peak and the phase's seconds. Then all of it again
+              with the model in float32 (TF32 off): within SPATIAL_TOL_F32,
+              the float32 families launched and no bf16 one, and a third
+              planted fault, one level's halo read one plane too far
+              (SP_OFF_LEVEL), above the limit.
+  15. float32: the default ModelConfig in float32, widths uncut, weights from
+              seed 0, TF32 off: the 128^3 b=2 forward (median of
+              F32_FWD_CALLS, CUDA events), F32_STEPS RnC train steps at 128^3
+              b=2 (median of steps 2 on; finite non-zero losses), the
+              template-space 216^3 b=1 forward (`make_infer_fn`), and
+              `cli.main infer --compute_dtype float32` on a synthetic
+              6-subject 128^3 cohort with both TF32 flags set True before it
+              (the CLI must turn them off). Each path counted from 0: every
+              float32 family it reaches launches, no bf16 family and no plain
+              version on the GPU; times, peaks, launches and the flags.
+The last two lines are a JSON summary of the kernels, each with its
+`dtype` (`launches` from the tCDS train of phase 11 for bf16 and from phase
+15's train steps for float32, and for K4's slab halves from phase 14 in
+each dtype; `launches_by_path` for every path) and {"ok": true, "device":
+{...}}. There is no CPU path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -222,6 +255,17 @@ GRAD_RATIO = 1.25     # a group's gradient error may reach max(GRAD_RATIO x the 
 GRAD_FLOOR = 2e-2     # route's, GRAD_FLOOR): sound kernels read <= 1.14x over four seeds
                       # and targets, half the batch left out of one KB1 call >= 1.44x
 METRIC_TOL = 1e-4     # |card - cpu f64| <= METRIC_TOL * |cpu f64| (+ 1e-6 of the key's max)
+# float32 on the card against float32 on the CPU: the CPU parity limits of
+# tests/test_e2e_torch_parity.py (the port against JAX), since both sides sum
+# in f32 and differ only in order
+F32_PARITY_TOL = 1e-4  # rel L2 of `out` (phase 4)
+F32_LOSS_TOL = 1e-5    # relative loss difference (phase 5)
+F32_GRAD_TOL = 2e-3    # rel L2 of each gradient group (phase 5), or F32_GRAD_RATIO x the
+F32_GRAD_RATIO = 6.0   # group's floor where that is larger: the CPU f32 route moved by an
+                       # MRI one ulp up, which moves every activation by f32 rounding, as
+                       # the kernels' other summation orders do at every layer (sound
+                       # kernels read 1.3-2.8x the floor where it sets the limit; F1's
+                       # zeroed tap and F2's dropped class >= 100x the limit)
 DEVICE = "cuda"       # every phase runs on the card; there is no CPU path
 READINGS: dict = {}   # numbers one phase prints beside another's
 TRAIN_STEPS = 6
@@ -276,6 +320,41 @@ SOURCES = {
     "norm_apply": ("norm_apply", "coma_unet_tpu_torch/csrc/norm_act.cu",
                    "coma_unet_tpu/ops/pallas/norm_act.py:120 _apply_kernel "
                    "(launched at :207)"),
+}
+# the float32 forms (`<family>_f32`): F1 and F2 are one SIMT kernel's three
+# maps, FB1 another's two; K4, KB3, their slab halves and KS are templated
+F32_SOURCES = {"s1": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
+               "s2": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
+               "t2": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
+               "s1_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu",
+               "strided_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu"}
+SOURCES.update({family + "_f32": (name, F32_SOURCES.get(family, source), replaces)
+                for family, (name, source, replaces) in list(SOURCES.items())})
+# the sites of `_kernel_cases` that phase 3 also runs in float32
+F32_SITES = {
+    "s1": ("head.conv0", "head.conv1", "merge0", "deep_modulator_3c.conv1",
+           "deep_modulator_3c.conv2", "gate0.W_g", "gate0.psi", "final_pred_head",
+           "down0.conv1", "merge1", "216 head.conv1", "216 merge0", "216 gate0.psi",
+           "216 down0.conv1", "conv3d_w64 64->64", "head.conv1 dx 32->32",
+           "merge0 dx 32->64", "merge1 dx 64->128", "216 head.conv1 dx 32->32"),
+    "s2": ("down0.conv0", "216 down0.conv0", "up0 dx 32->64", "odd sizes 24->40"),
+    "t2": ("up0", "216 up0", "down0.conv0 dx 64->32", "odd sizes 24->40"),
+    "s1_dw": ("head.conv0", "head.conv1", "merge0", "deep_modulator_3c.conv2",
+              "gate0.W_g", "gate0.psi", "down0.conv1", "merge1", "216 head.conv1",
+              "216 merge0", "odd W k=3 (scalar loads)", "odd W k=1 (scalar loads)"),
+    "strided_dw": ("down0.conv0 (s2: full=x, half=g)", "up0 (t2: full=g, half=x)",
+                   "216 down0.conv0 (s2: full=x, half=g)", "216 up0 (t2: full=g, half=x)",
+                   "odd sizes 24, 40 (shared)"),
+    "norm_act": ("head.conv1", "merge0", "gate0.psi", "final_pred_head", "down0.conv1",
+                 "216 head.conv1", "odd sizes", "odd sizes, x 2 bytes off 16",
+                 "instance_norm none 216"),
+    "norm_act_bwd": ("head.conv1", "merge0", "gate0.psi", "down0.conv1", "216 head.conv1",
+                     "odd sizes", "odd sizes, x 2 bytes off 16"),
+    "norm_stats": ("half slab head.conv1", "half slab gate0.psi",
+                   "half slab final_pred_head", "odd sizes", "odd sizes, x 2 bytes off 16"),
+    "norm_apply": ("half slab head.conv1", "half slab gate0.psi",
+                   "half slab final_pred_head", "odd sizes", "odd sizes, x 2 bytes off 16"),
+    "phase_split": ("hsplit 216",),
 }
 # kernels whose device time the profile prints by name, in or below its top
 # 8: K2, K3, KB2, K1's (and K2's and K3's) weight packing, KB1/KB2's
@@ -494,11 +573,31 @@ def _kernel_cases():
     return cases
 
 
-def _norm_inputs(xshape, act, film, offset, gen, dev):
+def _kernel_cases_f32():
+    """Phase 3's float32 cases: the sites of F32_SITES at `_kernel_cases`'
+    shapes, each family as its float32 form (`<family>_f32`). The off-16
+    cases start x one f32 element, 4 bytes, into its allocation."""
+    return [(family + "_f32", site.replace("2 bytes off", "4 bytes off"), xshape, wshape,
+             extra, entry)
+            for family, site, xshape, wshape, extra, entry in _kernel_cases()
+            if site in F32_SITES.get(family, ())]
+
+
+def _base(family: str) -> tuple:
+    """(the bf16 family, the dtype) of a phase-3 family."""
+    if family.endswith("_f32"):
+        return family[:-4], torch.float32
+    return family, torch.bfloat16
+
+
+def _norm_inputs(xshape, act, film, offset, gen, dev, dtype=torch.bfloat16):
     # a mean large against the spread exercises the shifted stats; x starts
-    # `offset` elements into its allocation
+    # `offset` elements into its allocation. x holds bf16 values in either
+    # dtype: two f32 computations of u differ in the last bits, and where u
+    # lies that close to an activation's kink (u = 0) they take act'(u) from
+    # its two sides; on bf16's coarser grid of x no voxel lies that close
     size = int(np.prod(xshape))
-    x = (3.0 + torch.randn(size + offset, generator=gen, device=dev)).bfloat16()
+    x = (3.0 + torch.randn(size + offset, generator=gen, device=dev)).bfloat16().to(dtype)
     x = x[offset:].view(xshape)
     b, c = xshape[:2]
     alpha = torch.full((1,), 0.25, device=dev)
@@ -518,25 +617,35 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     f32 upcast inputs (`ref`), the plain call on the kernel's own inputs,
     the one PyTorch call that computes the same function (`library`, or
     None), the inputs, and the operations and their peak rate for the
-    bound. Each call returns a tensor or a tuple of tensors."""
+    bound. Each call returns a tensor or a tuple of tensors. A float32
+    family (`<family>_f32`) takes f32 inputs, its plain version on the
+    kernel's own inputs is its reference, and its convs' operations count
+    at the f32 rate outside the tensor cores."""
     import torch.nn.functional as F
 
     from coma_unet_tpu_torch import ops
     from coma_unet_tpu_torch.ops.conv3d import (
         conv3d_s1_dx,
         conv3d_weight_ref,
+        f1_plan,
+        fb1_plan,
         flip_t,
         s1_plan,
     )
     from coma_unet_tpu_torch.ops.conv3d_strided import (
         conv3d_s2_dx,
         conv3d_t2_dx,
+        f2_plan,
         s2_plan,
         t2_plan,
     )
 
+    family, dtype = _base(family)
+    f32 = dtype == torch.float32
+    conv_rate = PEAK_F32 if f32 else PEAK_BF16
+
     def randn(shape):
-        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     if family == "phase_split":
         x = randn(xshape)
@@ -546,13 +655,15 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     if family in ("norm_stats", "norm_apply"):
         from coma_unet_tpu_torch.ops.norm_act import mean_rstd, row_partials, slab_plan
 
-        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
+        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev, dtype)
         act = extra[0]
         if family == "norm_stats":  # (count, mean, M2) of each row, f64
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            rows = xshape[0] * xshape[1]
             return dict(kernel=lambda: ops.norm_stats(x).unbind(1),
                         ref=lambda: ops.norm_stats_plain(x.float()).unbind(1),
-                        plain=lambda: ops.norm_stats_plain(x), library=None,
+                        plain=lambda: ops.norm_stats_plain(x),
+                        library=lambda: torch.var_mean(x.reshape(rows, -1), dim=1),
                         inputs=(x,), ops=3 * x.numel(), rate=PEAK_F32,
                         plan=slab_plan(xshape[0] * xshape[1], _voxels(xshape), sms))
         stats = mean_rstd(row_partials(x))
@@ -567,10 +678,11 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         from coma_unet_tpu_torch.ops.norm_act import na_plan
 
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        elem = 4 if f32 else 2
         plan = na_plan(xshape[0] * xshape[1], _voxels(xshape),
-                       2 if family == "norm_act" else 4, sms)
+                       elem * (1 if family == "norm_act" else 2), sms, elem=elem)
     if family == "norm_act":
-        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
+        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev, dtype)
         act = extra[0]
         common = dict(inputs=(x,), ops=8 * x.numel(), rate=PEAK_F32, plan=plan)
         if entry == "instance_norm":
@@ -584,7 +696,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                     plain=lambda: ops.norm_act_plain(x, alpha, act, scale, shift),
                     library=None, **common)
     if family == "norm_act_bwd":
-        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev)
+        x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev, dtype)
         act = extra[0]
         g = randn(xshape)
         _, stats = ops.norm_act_forward(x, alpha, act, scale, shift)
@@ -601,11 +713,13 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         b, ci = xshape[:2]
         x, g = randn(xshape), randn((b, co) + xshape[2:])
         flops = 2 * b * co * ci * k ** 3 * _voxels(xshape)
+        plan = (fb1_plan("s1", b, ci, co, *xshape[2:], k) if f32
+                else dw_plan(b, ci, co, *xshape[2:], k))
         return dict(kernel=lambda: ops.conv3d_s1_dw(x, g, k, ps),
                     ref=lambda: ops.conv3d_s1_dw_plain(x.float(), g.float(), k, ps),
                     plain=lambda: ops.conv3d_s1_dw_plain(x, g, k, ps),
                     library=lambda: conv3d_weight_ref(x, g, k, ps), inputs=(x, g),
-                    ops=flops, rate=PEAK_BF16, plan=dw_plan(b, ci, co, *xshape[2:], k))
+                    ops=flops, rate=conv_rate, plan=plan)
     if family == "strided_dw":
         from coma_unet_tpu_torch.ops.conv3d_strided import sdw_plan
 
@@ -616,8 +730,9 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                                                             extra),
                     plain=lambda: ops.conv3d_strided_dw_plain(full, half, extra),
                     library=lambda: conv3d_weight_ref(full, half, 3, extra, 2),
-                    inputs=(full, half), ops=flops, rate=PEAK_BF16,
-                    plan=sdw_plan(xshape[0], xshape[1], wshape[1], *xshape[2:]))
+                    inputs=(full, half), ops=flops, rate=conv_rate,
+                    plan=(fb1_plan("s2", xshape[0], xshape[1], wshape[1], *xshape[2:]) if f32
+                          else sdw_plan(xshape[0], xshape[1], wshape[1], *xshape[2:])))
     kernel, plain = {"s1": (ops.conv3d_s1, ops.conv3d_s1_plain),
                      "s2": (ops.conv3d_s2, ops.conv3d_s2_plain),
                      "t2": (ops.conv3d_t2, ops.conv3d_t2_plain)}[family]
@@ -625,7 +740,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     if extra:  # per-sample weights
         wshape = (xshape[0],) + wshape
     fan_in = wshape[-4] * wshape[-1] ** 3
-    w = (torch.randn(wshape, generator=gen, device=dev) / fan_in ** 0.5).bfloat16()
+    w = (torch.randn(wshape, generator=gen, device=dev) / fan_in ** 0.5).to(dtype)
     bias = 0.1 * torch.randn((wshape[-5],), generator=gen, device=dev)
     # the plain version of a forward conv is PyTorch's built-in conv: the
     # library call and the plain version on the kernel's inputs are one call
@@ -653,8 +768,13 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     case = dict(kernel=call, ref=lambda: plain(x.float(), w.float(), bias),
                 plain=lambda: plain(x, w, bias), library=library,
                 inputs=(x, w) + (() if bias is None else (bias,)),
-                ops=flops, rate=PEAK_BF16)
-    if family == "s1":
+                ops=flops, rate=conv_rate)
+    if f32:
+        cout = w.shape[-5]
+        case["plan"] = (f1_plan(xshape[0], xshape[1], cout, *xshape[2:], w.shape[-1])
+                        if family == "s1" else f2_plan(family, xshape[0], xshape[1], cout,
+                                                        *xshape[2:]))
+    elif family == "s1":
         case["plan"] = s1_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], w.shape[-1],
                                bool(extra))
     elif family == "s2":
@@ -692,24 +812,31 @@ def bound_ms(ops_count: float, rate: float, nbytes: int):
 
 
 def _conv_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
-    """K1, K2 or K3 at one site: a second call must be bit-identical to the
-    first. Returns a line with the cut `s1_plan`, `s2_plan` or `t2_plan`
-    chose."""
+    """K1, K2 or K3 (F1, F2) at one site: a second call must be
+    bit-identical to the first. Returns a line with the cut `s1_plan`,
+    `s2_plan` or `t2_plan` (`f1_plan`, `f2_plan`) chose."""
     again = case["kernel"]()
     check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
-    return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
-            f"grid={plan.grid}; two calls bit-identical")
+    if hasattr(plan, "tile"):
+        cut = (f"tile={plan.tile} ci={plan.ci} q={plan.q} grid={plan.grid} "
+               f"smem={plan.smem}")
+    else:
+        cut = f"brick={plan.brick} ct={plan.ct} at={plan.at} grid={plan.grid}"
+    return f"  {kernel} {site}: {cut}; two calls bit-identical"
 
 
 def _dw_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
-    """KB1 or KB2 at one site: a second call must be bit-identical to the
-    first. Returns a line with the cut `dw_plan` or `sdw_plan` chose."""
+    """KB1 or KB2 (FB1) at one site: a second call must be bit-identical to
+    the first. Returns a line with the cut `dw_plan` or `sdw_plan`
+    (`fb1_plan`) chose."""
     again = case["kernel"]()
     check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
+    extra = (f" threads={plan.threads} smem={plan.smem}" if hasattr(plan, "threads")
+             else "")
     return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
-            f"bricks/split={plan.bps} splits={plan.splits}; two calls bit-identical")
+            f"bricks/split={plan.bps} splits={plan.splits}{extra}; two calls bit-identical")
 
 
 def _norm_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
@@ -748,11 +875,12 @@ def phase_kernels(summary: dict, families=None) -> None:
     print(f"{'family':12s} {'site':34s} {'input':24s} {'max_abs_err':>11s} "
           f"{'rel bf16':>9s} {'rel f32':>9s} {'rel f64':>9s} {'ms':>9s} {'plain_ms':>9s} "
           f"{'lib_ms':>9s} {'bound_ms':>9s} bound_by")
-    for family, site, xshape, wshape, extra, entry in _kernel_cases():
+    for family, site, xshape, wshape, extra, entry in _kernel_cases() + _kernel_cases_f32():
         if families is not None and family not in families:
             continue
         case = _case_calls(family, xshape, wshape, extra, entry, gen, dev)
-        exact = family == "phase_split"
+        base, dtype = _base(family)
+        exact = base == "phase_split"
         with torch.no_grad():
             got, ref = case["kernel"](), case["ref"]()
             torch.cuda.synchronize()
@@ -768,8 +896,8 @@ def phase_kernels(summary: dict, families=None) -> None:
                 if exact:
                     check(a.dtype == r.dtype and bool(torch.equal(a, r)),
                           f"{family} {site}: not bit-equal to the plain version")
-                # K4's slab statistics (f64) are held to the bf16 outputs' limit
-                tol = F32_TOL if a.dtype == torch.float32 else KERNEL_TOL
+                # K4's slab statistics (f64) are held to their input's limit
+                tol = (F32_TOL if torch.float32 in (a.dtype, dtype) else KERNEL_TOL)
                 e = (a.float() - r.float()).abs().max().item()
                 scale_ref = r.abs().max().item()
                 check(e <= tol * scale_ref or e == 0.0,
@@ -777,17 +905,19 @@ def phase_kernels(summary: dict, families=None) -> None:
                 err = max(err, e)
                 rel[a.dtype] = max(rel[a.dtype] or 0.0, e / scale_ref if scale_ref else 0.0)
             note = None
-            if family in ("s1_dw", "strided_dw"):
-                note = _dw_checks(case, got[0], {"s1_dw": "KB1", "strided_dw": "KB2"}[family],
-                                  site)
-            elif family in ("norm_act", "norm_act_bwd"):
-                note = _norm_checks(case, got, {"norm_act": "K4", "norm_act_bwd": "KB3"}[family],
-                                    site)
-            elif family in ("norm_stats", "norm_apply"):
+            f32 = dtype == torch.float32
+            if base in ("s1_dw", "strided_dw"):
+                name = "FB1" if f32 else {"s1_dw": "KB1", "strided_dw": "KB2"}[base]
+                note = _dw_checks(case, got[0], name, site)
+            elif base in ("norm_act", "norm_act_bwd"):
+                name = {"norm_act": "K4", "norm_act_bwd": "KB3"}[base] + (" f32" if f32 else "")
+                note = _norm_checks(case, got, name, site)
+            elif base in ("norm_stats", "norm_apply"):
                 note = _slab_checks(case, got, f"K4 slab {family}", site)
-            elif family in ("s1", "s2", "t2"):
-                note = _conv_checks(case, got[0], {"s1": "K1", "s2": "K2", "t2": "K3"}[family],
-                                    site)
+            elif base in ("s1", "s2", "t2"):
+                name = ({"s1": "F1", "s2": "F2", "t2": "F2"} if f32
+                        else {"s1": "K1", "s2": "K2", "t2": "K3"})[base]
+                note = _conv_checks(case, got[0], name, site)
             ms = median_ms(case["kernel"])
             plain_ms = median_ms(case["plain"])
             library = case["library"]
@@ -795,7 +925,8 @@ def phase_kernels(summary: dict, families=None) -> None:
                       else median_ms(library) if library else None)
         nbytes = _nbytes(case["inputs"]) + _nbytes(got)
         b_ms, b_by = bound_ms(case["ops"], case["rate"], nbytes)
-        if family in ("t2", "strided_dw"):
+        if base in ("t2", "strided_dw") or (dtype == torch.float32 and base in (
+                "s1", "s2", "s1_dw")):
             note += (f"; {case['ops'] / ms / 1e9:.1f} TFLOP/s, "
                      f"{1e3 * nbytes / HBM_BYTES / ms:.1%} of its byte bound")
         del got, ref, case
@@ -841,13 +972,59 @@ def _args(batch: dict, device) -> tuple:
                  ("mri", "covars", "roi_loc", "roi_std", "roi_compact"))
 
 
-def phase_parity(s: int = 64, b: int = 2, template: bool = False, seed: int = 0) -> float:
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off in cuDNN and in matmul, as the CLI sets it for float32 on
+    the card (the reference's Precision.HIGHEST); restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+F32_FAULTS = ("F1 tap 0 zeroed", "F2 parity class 7 dropped")
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """A planted fault in the float32 convs: F1's forward with tap 0 of its
+    k=3 weights zeroed, or F2's transposed map with the output's parity
+    class (1, 1, 1) dropped (zeroed)."""
+    import coma_unet_tpu_torch.ops.conv3d as conv
+    import coma_unet_tpu_torch.ops.conv3d_strided as strided
+
+    module = conv if fault == F32_FAULTS[0] else strided
+    good = module.conv_f32
+
+    def bad(plan, x, w, bias32, per_sample, flip):
+        if fault == F32_FAULTS[0] and plan.mode == 0 and plan.k == 3 and not flip:
+            w = w.clone()
+            w[..., 0, 0, 0] = 0.0
+        y = good(plan, x, w, bias32, per_sample, flip)
+        if fault == F32_FAULTS[1] and plan.mode == 2 and not flip:
+            y[..., 1::2, 1::2, 1::2] = 0.0
+        return y
+
+    module.conv_f32 = bad
+    try:
+        yield
+    finally:
+        module.conv_f32 = good
+
+
+def phase_parity(s: int = 64, b: int = 2, template: bool = False, seed: int = 0,
+                 f32: bool = False) -> float:
     """The full-width model at s^3, batch b, on the GPU through the kernels
     in bf16 against the CPU in f32 through the plain versions; weights from
     `seed`, inputs from `seed + 1`. `template` builds the template-space
     configuration (prompts at s^3, 8 ROIs) and holds it to
     max(PARITY_RATIO x the plain bf16 route's error, PARITY_TOL); otherwise
-    the limit is PARITY_TOL."""
+    the limit is PARITY_TOL. With `f32`, the same model in float32 on the
+    GPU through the float32 kernels (TF32 off) against the same CPU
+    forward, within F32_PARITY_TOL, and with each of F32_FAULTS planted
+    above it."""
     import dataclasses
 
     from coma_unet_tpu_torch import (
@@ -898,7 +1075,50 @@ def phase_parity(s: int = 64, b: int = 2, template: bool = False, seed: int = 0)
           f"max|ref| {ref.abs().max().item():.4f}; gpu {gpu_s:.2f} s, cpu f32 {cpu_s:.1f} s")
     check(bool(torch.isfinite(got).all()), "parity: non-finite GPU output")
     check(rel <= limit, f"parity: rel L2 {rel} > {limit}")
+    if f32:
+        _parity_f32(ref_model, cpu_cfg, batch, ref, rel_l2)
     return rel
+
+
+def _parity_f32(ref_model, cpu_cfg, batch: dict, ref: torch.Tensor, rel_l2) -> None:
+    """Phase 4 in float32: the CPU f32 model's weights in a float32 model
+    on the card, its `out` against the CPU's `ref`; then each planted
+    fault."""
+    from coma_unet_tpu_torch import ContraAttnUNet
+    from coma_unet_tpu_torch import ops
+
+    model = ContraAttnUNet(cpu_cfg, device=DEVICE).eval()
+    model.load_state_dict(ref_model.state_dict())
+    args = _args(batch, DEVICE)
+
+    def forward():
+        with torch.inference_mode():
+            return model(*args, with_projections=False).out.float().cpu()
+
+    with _no_tf32():
+        ops.reset_counts()
+        got = forward()
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        faults = {}
+        for fault in F32_FAULTS:
+            with _planted(fault):
+                faults[fault] = rel_l2(forward(), ref)
+    rel = rel_l2(got, ref)
+    s, b = ref.shape[-1], ref.shape[0]
+    print(f"parity {s}^3 b={b} float32: rel L2(out) = {rel:.4e} (limit {F32_PARITY_TOL}); "
+          f"planted faults: " + ", ".join(f"{k} {v:.4e} ({v / F32_PARITY_TOL:.1f}x)"
+                                          for k, v in faults.items())
+          + f"; launches {launches}; plain on cuda {plain_cuda}")
+    check(bool(torch.isfinite(got).all()), "parity float32: non-finite GPU output")
+    check(rel <= F32_PARITY_TOL, f"parity float32: rel L2 {rel} > {F32_PARITY_TOL}")
+    for fault, e in faults.items():
+        check(e > F32_PARITY_TOL, f"parity float32: the planted fault {fault} reads {e}")
+    for family in ops.FWD_FAMILIES_F32:
+        check(launches.get(family, 0) > 0, f"parity float32: {family} did not launch")
+    check(not any(launches.get(f, 0) for f in ops.FWD_FAMILIES),
+          f"parity float32: a bf16 kernel launched: {launches}")
+    check(sum(plain_cuda.values()) == 0, f"parity float32: plain on the GPU: {plain_cuda}")
+    del model
 
 
 def phase_serving() -> dict:
@@ -993,12 +1213,16 @@ def _with_partners(batch: dict, rng: np.random.Generator) -> dict:
     return batch
 
 
-def phase_gradients(b: int = 2, tcds: bool = False) -> None:
+def phase_gradients(b: int = 2, tcds: bool = False, f32: bool = False) -> None:
     """Phase 5 at batch b: at b=2 RnC is identically 0 (one pair, ranked
     against itself); at b >= 3 it must be non-zero on every route. With
     `tcds` (phase 11), the tCDS loss on (anchor, positive, negative)
     triplets whose partners differ from the anchors: three forwards and
-    their backward, the tCDS term non-zero on every route."""
+    their backward, the tCDS term non-zero on every route. With `f32`, also
+    the float32 route on the card (the float32 kernels, TF32 off) against
+    the CPU f32: the loss within F32_LOSS_TOL, each gradient group within
+    max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor), and each of F32_FAULTS
+    above one of them."""
     import dataclasses
 
     from coma_unet_tpu_torch import ContraAttnUNet, LossConfig, ModelConfig
@@ -1072,6 +1296,73 @@ def phase_gradients(b: int = 2, tcds: bool = False) -> None:
     check(not failed, f"{tag}: groups over their limit: {failed}")
     print(f"{tag}: loss rel diff {rel_loss:.3e}; {len(groups)} groups within "
           f"limits ({len(skip)} norm-fed conv biases excluded)")
+    if f32:
+        _gradients_f32(ref_model, batch, loss_config, loss_ref, rnc_ref, g_ref, groups,
+                       rel_l2_to, tag)
+
+
+def _gradients_f32(ref_model, batch: dict, loss_config, loss_ref: float, rnc_ref: float,
+                   g_ref: dict, groups: dict, rel_l2_to, tag: str) -> None:
+    """Phase 5 in float32: the CPU f32 model's weights in a float32 model on
+    the card, one loss and backward against the CPU f32's, then each planted
+    fault."""
+    import dataclasses
+
+    from coma_unet_tpu_torch import ContraAttnUNet
+    from coma_unet_tpu_torch import ops
+
+    cfg = dataclasses.replace(ref_model.config, compute_dtype="float32")
+    model = ContraAttnUNet(cfg, device=DEVICE)
+    model.load_state_dict(ref_model.state_dict())
+
+    def reading():
+        loss, rnc, grads, _ = _loss_and_grads(model, batch, DEVICE, loss_config)
+        errs = {group: rel_l2_to(grads, g_ref, names) for group, names in groups.items()}
+        return abs(loss - loss_ref) / abs(loss_ref), rnc, grads, errs
+
+    # the floor: the CPU f32 route with the MRI one ulp up
+    nudged = dict(batch, mri=np.nextafter(batch["mri"], np.float32(np.inf)))
+    _, _, g_nudge, _ = _loss_and_grads(ref_model, nudged, "cpu", loss_config)
+    floors = {group: rel_l2_to(g_nudge, g_ref, names) for group, names in groups.items()}
+    limits = {group: max(F32_GRAD_TOL, F32_GRAD_RATIO * f) for group, f in floors.items()}
+
+    with _no_tf32():
+        ops.reset_counts()
+        rel_loss, rnc, grads, errs = reading()
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        faults = {}
+        for fault in F32_FAULTS:
+            with _planted(fault):
+                f_loss, _, _, f_errs = reading()
+            worst = max(f_errs, key=f_errs.get)
+            faults[fault] = (f_loss, worst, f_errs[worst])
+    worst = max(errs, key=lambda g: errs[g] / limits[g])
+    print(f"{tag} float32: loss rel diff {rel_loss:.3e} (limit {F32_LOSS_TOL}), RnC "
+          f"{rnc:.6f} vs cpu f32 {rnc_ref:.6f}; worst of {len(errs)} gradient groups "
+          f"against its limit {worst} {errs[worst]:.3e} (limit {limits[worst]:.3e}, floor "
+          f"{floors[worst]:.3e}); planted faults: "
+          + "; ".join(f"{k}: loss {v[0]:.3e} ({v[0] / F32_LOSS_TOL:.1f}x), {v[1]} "
+                      f"{v[2]:.3e} ({v[2] / limits[v[1]]:.1f}x its limit)"
+                      for k, v in faults.items()))
+    print(f"{'group':28s} {'kernels':>10s} {'floor':>10s} {'limit':>10s}")
+    for group, e in errs.items():
+        print(f"{group:28s} {e:10.3e} {floors[group]:10.3e} {limits[group]:10.3e}")
+    for name, g in g_ref.items():
+        if g is not None:
+            check(grads[name] is not None and bool(torch.isfinite(grads[name]).all()),
+                  f"{tag} float32: {name} has no finite gradient on the GPU")
+    check(rel_loss <= F32_LOSS_TOL, f"{tag} float32: loss differs by {rel_loss}")
+    over = [g for g, e in errs.items() if e > limits[g]]
+    check(not over, f"{tag} float32: groups over their limits: {over}")
+    for fault, (f_loss, group, f_err) in faults.items():
+        check(f_loss > F32_LOSS_TOL or f_err > limits[group],
+              f"{tag} float32: the planted fault {fault} reads within the limits")
+    for family in ops.PATH_FAMILIES_F32:
+        check(launches.get(family, 0) > 0, f"{tag} float32: {family} did not launch")
+    check(not any(launches.get(f, 0) for f in ops.PATH_FAMILIES),
+          f"{tag} float32: a bf16 kernel launched: {launches}")
+    check(sum(plain_cuda.values()) == 0, f"{tag} float32: plain on the GPU: {plain_cuda}")
+    del model
 
 
 def phase_training() -> dict:
@@ -2483,17 +2774,21 @@ SPATIAL_TOL = 1e-2   # rel L2 of the depth-sharded 128^3 `out` against one proce
 SPATIAL_RATIO = 1.25  # SPATIAL_RATIO x what the same slab route reads on one rank, where
                       # that is larger: the random-weight flagship in bf16 moves `out` by
                       # 3.1e-2 when one statistic of its first norm moves by 2^-22
+SPATIAL_TOL_F32 = 1e-4  # the same in float32, where the CPU reads 3e-6 (no floor: f32
+                        # moves `out` by about 1e-6 for a last-bit change of a statistic)
 SP_RANKS = 2
 SP_PEAK_RATIO = 0.65  # a rank's activation peak against one process's
 SP_CALLS = 3
+SP_OFF_LEVEL = 32     # the slab depth (of 64 planes a rank at level 0) of the one level
+                      # whose halo the off-by-one fault reads a plane too far
 
 
-def _sp_setup():
-    """Phase 14's model (the default ModelConfig, weights from seed 0) and
-    its b=1 128^3 inputs, as numpy."""
+def _sp_setup(dtype: str = "bfloat16"):
+    """Phase 14's model (the default ModelConfig in `dtype`, weights from
+    seed 0) and its b=1 128^3 inputs, as numpy."""
     from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
 
-    model = ContraAttnUNet(ModelConfig(), device=DEVICE,
+    model = ContraAttnUNet(ModelConfig(compute_dtype=dtype), device=DEVICE,
                            generator=torch.Generator().manual_seed(0)).eval()
     batch = _batch(np.random.default_rng(0), b=1, s=128)
     return model, tuple(batch[k] for k in ("mri", "covars", "roi_loc", "roi_std",
@@ -2511,12 +2806,13 @@ def _peak_call(fn) -> tuple:
     return out, torch.cuda.max_memory_allocated() - base
 
 
-def _sp_rank(rank: int, init_method: str, tmp: str) -> None:
+def _sp_rank(rank: int, init_method: str, tmp: str, dtype: str = "bfloat16") -> None:
     """One rank of phase 14 on the one card (gloo): a warm-up call, then the
     main path -- one depth-sharded forward with the launches counted from 0,
     its activation peak and every merged (mean, rstd) recorded -- then
     SP_CALLS timed calls, one call with the halo and statistics collectives
-    timed, and the two planted faults. Saves what it saw to rank<r>.pt."""
+    timed, and the planted faults (in float32 also the off-by-one halo).
+    Saves what it saw to rank<r>.pt."""
     import os
 
     from coma_unet_tpu_torch import ops
@@ -2525,10 +2821,12 @@ def _sp_rank(rank: int, init_method: str, tmp: str) -> None:
     from coma_unet_tpu_torch.parallel import spatial
 
     torch.set_num_threads(max(1, torch.get_num_threads() // SP_RANKS))
+    if dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     mesh = pmesh.make_mesh(rank, SP_RANKS, f"{DEVICE}:0", init_method)
     good_halo, good_merge = spatial.Slab.halo, spatial.Slab.merge
     try:
-        model, args = _sp_setup()
+        model, args = _sp_setup(dtype)
         infer = spatial.make_spatial_infer_fn(model, mesh)
         infer(*args)
         seen = []
@@ -2566,15 +2864,26 @@ def _sp_rank(rank: int, init_method: str, tmp: str) -> None:
             lower, upper = good_halo(self, x, below, above)
             return torch.zeros_like(lower), torch.zeros_like(upper)
 
+        def off_by_one(self, x, below, above):
+            # at one level only: the plane one further from the slab
+            if x.shape[2] != SP_OFF_LEVEL:
+                return good_halo(self, x, below, above)
+            lower, upper = good_halo(self, x, 2 * below, 2 * above)
+            return lower[:, :, :below], upper[:, :, above:2 * above]
+
         spatial.Slab.halo = zeros
         zero_halo = infer(*args)
         spatial.Slab.halo = good_halo
         spatial.Slab.merge = lambda self, partials: partials
         unmerged = infer(*args)
         spatial.Slab.merge = good_merge
+        spatial.Slab.halo = off_by_one
+        off_halo = infer(*args)
+        spatial.Slab.halo = good_halo
         cpu = (lambda t: None if t is None else t.float().cpu())
         torch.save({"out": cpu(out), "zero_halo": cpu(zero_halo),
-                    "unmerged": cpu(unmerged), "stats": seen, "peak": peak,
+                    "unmerged": cpu(unmerged), "off_by_one_halo": cpu(off_halo),
+                    "stats": seen, "peak": peak,
                     "launches": launches, "plain_cuda": plain_cuda, "times": times,
                     "collective_ms": 1e3 * spent[0], "timed_ms": timed_ms},
                    os.path.join(tmp, f"rank{rank}.pt"))
@@ -2587,10 +2896,21 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-def phase_spatial() -> dict:
+def phase_spatial(dtype: str = "bfloat16") -> dict:
     """Phase 14: `make_spatial_infer_fn` on two gloo ranks sharing the one
     card, each on a depth slab of a 128^3 volume, against one process's
-    `make_infer_fn`. Returns rank 0's launches over its main-path call."""
+    `make_infer_fn`; the model in `dtype`. Returns rank 0's launches over
+    its main-path call. In float32 (TF32 off) the limit is SPATIAL_TOL_F32,
+    and a third planted fault, one level's halo off by one plane, must read
+    above it."""
+    t_phase = time.perf_counter()
+    f32 = dtype == "float32"
+    guard = _no_tf32() if f32 else contextlib.nullcontext()
+    with guard:
+        return _spatial(dtype, f32, t_phase)
+
+
+def _spatial(dtype: str, f32: bool, t_phase: float) -> dict:
     import gc
     import os
     import shutil
@@ -2603,15 +2923,15 @@ def phase_spatial() -> dict:
     from coma_unet_tpu_torch.parallel import mesh as pmesh
     from coma_unet_tpu_torch.parallel.spatial import make_spatial_infer_fn
 
-    t_phase = time.perf_counter()
-    model, args = _sp_setup()
+    tag = "spatial float32" if f32 else "spatial"
+    model, args = _sp_setup(dtype)
     infer = make_infer_fn(model)
     infer(*args)
     want, peak_one = _peak_call(lambda: infer(*args))
     want = want.float().cpu()
     one_ms = statistics.median(_timed(lambda: infer(*args)) for _ in range(SP_CALLS))
     check(tuple(want.shape) == (1, 1, 128, 128, 128) and bool(torch.isfinite(want).all()),
-          f"spatial: one process's out {tuple(want.shape)}")
+          f"{tag}: one process's out {tuple(want.shape)}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
     try:
         # the floor: the slab route (K4's two halves, the merged f64
@@ -2621,12 +2941,12 @@ def phase_spatial() -> dict:
             floor = _rel_l2(make_spatial_infer_fn(model, mesh)(*args).float().cpu(), want)
         finally:
             pmesh.destroy_mesh()
-        limit = max(SPATIAL_TOL, SPATIAL_RATIO * floor)
+        limit = SPATIAL_TOL_F32 if f32 else max(SPATIAL_TOL, SPATIAL_RATIO * floor)
         del model, infer
         gc.collect()
         torch.cuda.empty_cache()
         t_ranks = time.perf_counter()
-        mp.start_processes(_sp_rank, args=("file://" + os.path.join(tmp, "store"), tmp),
+        mp.start_processes(_sp_rank, args=("file://" + os.path.join(tmp, "store"), tmp, dtype),
                            nprocs=SP_RANKS, join=True, start_method="spawn")
         ranks_s = time.perf_counter() - t_ranks
         got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
@@ -2635,42 +2955,49 @@ def phase_spatial() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     out = got[0]["out"]
-    check(all(g["out"] is None for g in got[1:]), "spatial: a rank other than 0 holds out")
+    check(all(g["out"] is None for g in got[1:]), f"{tag}: a rank other than 0 holds out")
     check(tuple(out.shape) == tuple(want.shape) and bool(torch.isfinite(out).all()),
-          f"spatial: out {tuple(out.shape)}")
+          f"{tag}: out {tuple(out.shape)}")
     err = _rel_l2(out, want)
-    check(err <= limit, f"spatial: out rel L2 {err} from one process's > {limit} "
-          f"(max({SPATIAL_TOL}, {SPATIAL_RATIO} x the one-rank slab route's {floor}))")
-    faults = {name: _rel_l2(got[0][name], want) for name in ("zero_halo", "unmerged")}
+    rule = (f"{SPATIAL_TOL_F32}" if f32 else
+            f"max({SPATIAL_TOL}, {SPATIAL_RATIO} x the one-rank slab route's {floor})")
+    check(err <= limit, f"{tag}: out rel L2 {err} from one process's > {limit} ({rule})")
+    names = ("zero_halo", "unmerged") + (("off_by_one_halo",) if f32 else ())
+    faults = {name: _rel_l2(got[0][name], want) for name in names}
     for name, e in faults.items():
-        check(e > limit, f"spatial: the planted fault {name} reads {e} <= {limit}")
+        check(e > limit, f"{tag}: the planted fault {name} reads {e} <= {limit}")
     stats = [g["stats"] for g in got]
     check(len(stats[0]) > 0 and all(
         len(s) == len(stats[0]) and all(torch.equal(a, b) for a, b in zip(s, stats[0]))
-        for s in stats[1:]), "spatial: the merged statistics differ between the ranks")
+        for s in stats[1:]), f"{tag}: the merged statistics differ between the ranks")
     need = ("s1", "s2", "t2") + ops.SLAB_FAMILIES
+    if f32:
+        need = tuple(f + "_f32" for f in need)
     for r, g in enumerate(got):
-        print(f"spatial rank {r} launches: {g['launches']}; plain on cuda: "
+        print(f"{tag} rank {r} launches: {g['launches']}; plain on cuda: "
               f"{g['plain_cuda']}")
         for family in need:
             check(g["launches"].get(family, 0) > 0,
-                  f"spatial: {family}: no launch on rank {r}")
-        check(g["launches"].get("norm_act", 0) == 0,
-              f"spatial: the whole-row K4 launched on rank {r}")
+                  f"{tag}: {family}: no launch on rank {r}")
+        for family in ("norm_act", "norm_act_f32"):
+            check(g["launches"].get(family, 0) == 0,
+                  f"{tag}: the whole-row K4 ({family}) launched on rank {r}")
+        if f32:
+            check(not any(g["launches"].get(f, 0) for f in ops.FWD_FAMILIES + ops.SLAB_FAMILIES),
+                  f"{tag}: a bf16 kernel launched on rank {r}: {g['launches']}")
         check(sum(g["plain_cuda"].values()) == 0,
-              f"spatial: plain versions ran on the GPU on rank {r}: {g['plain_cuda']}")
-        check(g["peak"] <= SP_PEAK_RATIO * peak_one, f"spatial: rank {r}'s activation "
+              f"{tag}: plain versions ran on the GPU on rank {r}: {g['plain_cuda']}")
+        check(g["peak"] <= SP_PEAK_RATIO * peak_one, f"{tag}: rank {r}'s activation "
               f"peak {g['peak'] / 2**30:.3f} GiB > {SP_PEAK_RATIO} x one process's "
               f"{peak_one / 2**30:.3f} GiB")
     sharded_ms = statistics.median(got[0]["times"])
-    print(f"spatial 128^3 b=1 on {SP_RANKS} gloo ranks sharing the one card, depth slabs "
+    print(f"{tag} 128^3 b=1 on {SP_RANKS} gloo ranks sharing the one card, depth slabs "
           f"of 64 planes: out rel L2 {err:.3e} from one process's, the slab route on one "
-          f"rank {floor:.3e} (limit {limit:.3e}: max({SPATIAL_TOL}, {SPATIAL_RATIO} x it)); "
-          f"planted faults: halos zeroed {faults['zero_halo']:.3e} "
-          f"({faults['zero_halo'] / limit:.1f}x the limit), each rank's statistics "
-          f"unmerged {faults['unmerged']:.3e} ({faults['unmerged'] / limit:.1f}x); "
-          f"{len(stats[0])} merged (mean, rstd) bit-identical on every rank")
-    print(f"spatial forward: median of {SP_CALLS} {sharded_ms:.2f} ms on rank 0 "
+          f"rank {floor:.3e} (limit {limit:.3e}: {rule}); planted faults: "
+          + ", ".join(f"{name} {e:.3e} ({e / limit:.1f}x the limit)"
+                      for name, e in faults.items())
+          + f"; {len(stats[0])} merged (mean, rstd) bit-identical on every rank")
+    print(f"{tag} forward: median of {SP_CALLS} {sharded_ms:.2f} ms on rank 0 "
           f"({[round(t, 2) for t in got[0]['times']]}) vs one process's {one_ms:.2f} ms; "
           f"halo and statistics collectives {got[0]['collective_ms']:.2f} ms of a "
           f"{got[0]['timed_ms']:.2f} ms call with them timed "
@@ -2689,6 +3016,188 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+F32_FWD_CALLS = 5
+F32_STEPS = 4
+
+
+def _tf32() -> tuple:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def _f32_path(name: str, launches: dict, plain_cuda: dict, families, tf32: tuple) -> None:
+    """A float32 path's launches: every family of `families` launched, no
+    bf16 family and no plain version on the card; `tf32`, the two TF32
+    flags while it ran, both False."""
+    from coma_unet_tpu_torch import ops
+
+    print(f"float32 {name}: launches {launches}; plain on cuda {plain_cuda}; "
+          f"cudnn.allow_tf32={tf32[0]}, cuda.matmul.allow_tf32={tf32[1]}")
+    check(tf32 == (False, False), f"float32 {name}: TF32 on: {tf32}")
+    for family in families:
+        check(launches.get(family, 0) > 0, f"float32 {name}: {family} did not launch")
+    bf16 = {f: n for f, n in launches.items() if f in ops.FAMILIES and not f.endswith("_f32")}
+    check(not bf16, f"float32 {name}: bf16 kernels launched: {bf16}")
+    check(sum(plain_cuda.values()) == 0, f"float32 {name}: plain on the GPU: {plain_cuda}")
+
+
+def phase_float32() -> dict:
+    """Phase 15, the float32 paths: the default ModelConfig in float32,
+    widths uncut, weights from seed 0, TF32 off. The 128^3 b=2 forward
+    (median of F32_FWD_CALLS CUDA-event calls), F32_STEPS RnC train steps at
+    128^3 b=2 (median of steps 2 on), the template-space 216^3 b=1 forward,
+    and `cli.main infer --compute_dtype float32` on a synthetic 6-subject
+    128^3 cohort (phase 10's), with the TF32 flags set True before it: the
+    CLI must turn both off. Each path is counted from 0: every float32
+    family it reaches launches, no bf16 family and no plain version runs on
+    the card. Returns the launches by path."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from coma_unet_tpu_torch import (
+        ContraAttnUNet,
+        DataConfig,
+        ExperimentConfig,
+        LossConfig,
+        ModelConfig,
+        ROI_INDICES,
+        TEMPLATE_ROI_INDICES,
+        ops,
+    )
+    from coma_unet_tpu_torch.data.synthetic import make_synthetic_cohort
+    from coma_unet_tpu_torch.infer import make_infer_fn
+    from coma_unet_tpu_torch.data.table import read_csv, write_rows
+    from coma_unet_tpu_torch.io import load_nifti_vol
+    from coma_unet_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    with _no_tf32():
+        model = ContraAttnUNet(ModelConfig(compute_dtype="float32"), device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+        batch = _batch(np.random.default_rng(0), b=2, s=128)
+        args = _args(batch, DEVICE)
+        model.eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        with torch.inference_mode():
+            out = model(*args, with_projections=False).out
+            torch.cuda.synchronize()
+            paths["float32 forward"] = dict(ops.LAUNCHES)
+            plain = dict(ops.PLAIN_ON_CUDA)
+            check(tuple(out.shape) == (2, 1, 128, 128, 128) and out.dtype == torch.float32
+                  and bool(torch.isfinite(out).all()), f"float32 forward: out {out.shape}")
+            fwd_ms = median_ms(lambda: model(*args, with_projections=False),
+                               reps=F32_FWD_CALLS, warmup=1)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        _f32_path("forward 128^3 b=2", paths["float32 forward"], plain, ops.FWD_FAMILIES_F32,
+                  _tf32())
+        print(f"float32 forward b=2 128^3: median of {F32_FWD_CALLS} {fwd_ms:.2f} ms "
+              f"({fwd_ms / 2:.2f} ms/volume; phase 6's bf16 forward is the same model); peak "
+              f"memory {fwd_peak:.2f} GiB")
+        del out
+
+        model.train()
+        state = create_train_state(model, 1e-3)
+        step = make_train_step(model, LossConfig(), state.optimizer)
+        tb = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+        roi_w = torch.full((36,), 225.0, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        losses, step_ms = [], []
+        for _ in range(F32_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(tb, roi_w)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        paths["float32 train"] = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_ON_CUDA)
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        _f32_path("train step 128^3 b=2", paths["float32 train"], plain, ops.PATH_FAMILIES_F32,
+                  _tf32())
+        check(all(np.isfinite(losses)) and all(v != 0.0 for v in losses),
+              f"float32 train: losses {losses}")
+        check(state.step == F32_STEPS, f"float32 train: {state.step} updates")
+        med = statistics.median(step_ms[1:])
+        print(f"float32 train losses {[round(v, 6) for v in losses]}, grad_norm "
+              f"{float(metrics['grad_norm']):.4f}; step b=2 128^3: median {med:.2f} ms over "
+              f"steps 2-{F32_STEPS} ({[round(t, 2) for t in step_ms]}); peak memory "
+              f"{train_peak:.2f} GiB")
+        del model, state, step, metrics, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = ExperimentConfig(data=DataConfig(template_space=True)).normalized().model
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        model = ContraAttnUNet(cfg, device=DEVICE,
+                               generator=torch.Generator().manual_seed(0)).eval()
+        infer = make_infer_fn(model)
+        big_args = _args(_batch(np.random.default_rng(3), b=1, s=216,
+                                r=len(TEMPLATE_ROI_INDICES)), DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        out = infer(*big_args)
+        torch.cuda.synchronize()
+        paths["float32 216 forward"] = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_ON_CUDA)
+        check(tuple(out.shape) == (1, 1, 216, 216, 216) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"float32 216^3 forward: out {out.shape}")
+        big_ms = median_ms(lambda: infer(*big_args), reps=3, warmup=0)
+        big_peak = torch.cuda.max_memory_allocated() / 2**30
+        _f32_path("forward 216^3 b=1", paths["float32 216 forward"], plain,
+                  ops.FWD_FAMILIES_F32, _tf32())
+        print(f"float32 forward b=1 216^3 (template space, make_infer_fn): median of 3 "
+              f"{big_ms:.2f} ms; peak memory {big_peak:.2f} GiB")
+        del model, infer, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the CLI, from TF32 on: it must turn both flags off for float32
+    tmp = tempfile.mkdtemp(prefix="coma_f32_")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        t0 = time.perf_counter()
+        cohort = make_synthetic_cohort(os.path.join(tmp, "cohort"), n_subjects=6, size=128,
+                                       num_rois=len(ROI_INDICES))
+        cohort_s = time.perf_counter() - t0
+        lookup = os.path.join(tmp, "infer_lookup.csv")
+        write_rows(lookup, read_csv(cohort["lookup"]).rows()[4:])
+        tables = ["--covariate_csv", cohort["cov"], "--quartile_csv", cohort["quart"],
+                  "--predictions_json", cohort["preds"]]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        peaks: dict = {}
+        ops.reset_counts()
+        rc, _, infer_s = _cli(["infer", "--compute_dtype", "float32", "--input_lookup", lookup,
+                               "--out_dir", os.path.join(tmp, "synth")] + tables, peaks)
+        paths["float32 infer (CLI)"] = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_ON_CUDA)
+        flags = _tf32()
+        check(rc == 0, f"float32 infer returned {rc}")
+        synth = sorted(os.listdir(os.path.join(tmp, "synth")))
+        check(len(synth) == 2 and all(f.endswith("_synth_tau.nii") for f in synth),
+              f"float32 infer wrote {synth}")
+        for f in synth:
+            vol = load_nifti_vol(os.path.join(tmp, "synth", f), resize=False)
+            check(vol.shape == (1, 128, 128, 128) and bool(np.isfinite(vol).all()),
+                  f"float32 infer: {f} {vol.shape}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"float32 infer (CLI): cohort {cohort_s:.2f} s, infer {infer_s:.2f} s for 2 "
+          f"volumes, peak memory {peaks['infer']:.2f} GiB; the TF32 flags were True "
+          f"before it, the CLI turned them off")
+    _f32_path("infer (CLI)", paths["float32 infer (CLI)"], plain, ops.FWD_FAMILIES_F32,
+              flags)
+    print(f"float32 paths: phase {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2703,9 +3212,9 @@ def main() -> int:
         return 0
     summary: dict = {}
     phase_kernels(summary)
-    phase_parity()
+    phase_parity(f32=True)
     phase_gradients()
-    phase_gradients(b=3)
+    phase_gradients(b=3, f32=True)
     paths = {"serving": phase_serving(), "training": phase_training()}
     torch.cuda.empty_cache()
     phase_parity(s=88, b=1, template=True)
@@ -2720,13 +3229,23 @@ def main() -> int:
     paths["data_parallel"] = phase_data_parallel()
     torch.cuda.empty_cache()
     paths["spatial"] = phase_spatial()
+    torch.cuda.empty_cache()
+    paths["float32 spatial"] = phase_spatial("float32")
+    torch.cuda.empty_cache()
+    paths.update(phase_float32())
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]
-        # K4's slab halves run on the depth-sharded path alone
-        main_path = "spatial" if family in ("norm_stats", "norm_apply") else "tcds"
+        base, dtype = _base(family)
+        # K4's slab halves run on the depth-sharded path alone; the float32
+        # forms' main path is phase 15's train steps
+        if base in ("norm_stats", "norm_apply"):
+            main_path = "float32 spatial" if dtype == torch.float32 else "spatial"
+        else:
+            main_path = "float32 train" if dtype == torch.float32 else "tcds"
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "dtype": str(dtype).replace("torch.", ""), "route": "cuda",
+            "source": source, "replaces": replaces,
             "launches": paths[main_path].get(family, 0),
             "launches_by_path": {p: n.get(family, 0) for p, n in paths.items()},
             "max_abs_err": entry["max_abs_err"],

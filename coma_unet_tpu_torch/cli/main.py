@@ -7,9 +7,12 @@
 
 The parser has the JAX CLI's options with the same defaults, and one of its
 own: `--device` (default `cuda`). Without a card, `--device cuda` raises
-and names `--device cpu`. The Hopper kernels take bf16: with a CUDA device
-and a `compute_dtype` other than bfloat16 (flag or `--config`) the CLI
-exits with status 2 before it builds a model; `--device cpu` runs float32.
+and names `--device cpu`. The Hopper kernels take bfloat16 and float32:
+with a CUDA device and any other `compute_dtype` (flag or `--config`) the
+CLI exits with status 2 before it builds a model; `--device cpu` runs any.
+Float32 on CUDA turns TF32 off in cuDNN and in matmul before the model is
+built, so that the convs and matmuls outside the kernels (levels 2-4, the
+baselines) sum in full f32 too, as the reference's Precision.HIGHEST does.
 The training objective is the config's: `"loss": {"rnc": false}` in
 `--config` trains with tCDS on (anchor, positive, negative) triplets.
 Every `-model_type` of the registry runs (`models/registry.py`), with
@@ -103,8 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="subjects excluded from training: comma-separated"
                              " ids or a file with one id per line")
         sp.add_argument("--device", default="cuda",
-                        help="torch device: cuda (the Hopper kernels, bf16) "
-                             "or cpu (the plain versions, any dtype)")
+                        help="torch device: cuda (the Hopper kernels, bf16 "
+                             "or f32) or cpu (the plain versions, any dtype)")
 
     t = sub.add_parser("train", help="train a model on fold lookups")
     common(t)
@@ -234,18 +237,26 @@ def _experiment_config(args):
     )
 
 
+KERNEL_DTYPES = ("bfloat16", "float32")  # the compute dtypes with Hopper kernels
+
+
 def _refuse_dtype(args, config) -> bool:
-    """The float32 decision: on CUDA the Hopper kernels take bf16 only, so
-    any other compute dtype is refused (status 2) before a model is built;
-    the CPU's plain versions run any dtype."""
-    if (torch.device(args.device).type == "cuda"
-            and config.model.compute_dtype != "bfloat16"):
-        print(f"compute_dtype {config.model.compute_dtype!r} on "
-              f"{args.device}: the port's Hopper kernels take bfloat16 only; "
-              f"use --compute_dtype bfloat16, or --device cpu to run "
-              f"{config.model.compute_dtype} through the plain versions",
-              file=sys.stderr)
+    """The dtype decision: on CUDA the Hopper kernels take bfloat16 and
+    float32, so any other compute dtype is refused (status 2) before a model
+    is built; the CPU's plain versions run any dtype. Float32 on CUDA turns
+    TF32 off in cuDNN and in matmul."""
+    dtype = config.model.compute_dtype
+    if torch.device(args.device).type != "cuda":
+        return False
+    if dtype not in KERNEL_DTYPES:
+        print(f"compute_dtype {dtype!r} on {args.device}: the port's Hopper "
+              f"kernels take bfloat16 or float32; use --compute_dtype "
+              f"bfloat16 or float32, or --device cpu to run {dtype} through "
+              f"the plain versions", file=sys.stderr)
         return True
+    if dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return False
 
 

@@ -2,12 +2,12 @@
 // is one persistent kernel launch that reads every byte of x (and g) from
 // device memory once.
 //
-// x [B, C, D, H, W] bf16 is taken as B*C rows of N = D*H*W voxels. Per row
+// x [B, C, D, H, W] bf16 or f32 is taken as B*C rows of N = D*H*W voxels. Per row
 // (b, c) the forward takes mean and variance in f32 (eps inside the rsqrt),
 // then
 //   u = scale[b, c] * (x - mean) * rsqrt(var + eps) + shift[b, c]
 //   y = act(u)   act: 0 none, 1 relu, 2 leakyrelu (slope 0.01), 3 prelu (alpha[0])
-// in f32, stored as bf16, and keeps the row's (mean, rstd) in `stats` for
+// in f32, stored in x's type, and keeps the row's (mean, rstd) in `stats` for
 // the backward. scale, shift and alpha are device pointers and may be null
 // (identity FiLM; alpha is read only for prelu). Replaces row #18 of the
 // kernel table in PERF.md (its forward half) and row #20:
@@ -24,7 +24,8 @@
 // `_norm_act_bwd_impl` (`_bwd_reduce_kernel` then `_bwd_apply_kernel`).
 //
 // What bounds them on the H100: memory. The forward must read x and write
-// y (4 bytes a voxel), the backward read x and g and write dx (6 bytes),
+// y (4 bytes a voxel in bf16, 8 in f32), the backward read x and g and
+// write dx (6 bytes, 12 in f32),
 // with a few flops a voxel. Both need a whole row's sums before they can
 // write a voxel, and a row of the 216^3 path is 20 MB. So the grid is
 // persistent and co-resident (cudaLaunchCooperativeKernel), about one CTA
@@ -46,7 +47,7 @@
 //      itself (the partials read by as many threads, then added by one
 //      warp) and gets the same bits, and segment 0 stores the row's (mean,
 //      rstd), for KB3 its five sums;
-//   5. applies from shared memory and stores bf16 in 16-byte vectors;
+//   5. applies from shared memory and stores in 16-byte vectors;
 //   6. issues the next round's copy of each chunk as soon as this round has
 //      consumed it, so that one round's stores overlap the next one's loads.
 // What does not fit is read from device memory where it is needed: KB3
@@ -56,6 +57,10 @@
 // to store its row's sums (one more counter) adds the rows' third sums in
 // row order in f64. No float atomics: two calls give the same bits. The C
 // entry zeroes the counters before the launch. Element offsets are 64-bit.
+// Every kernel here is templated on the element type T, bf16 or f32 (its
+// float32 form): a 16-byte group holds EPG = 16 / sizeof(T) values, so an
+// f32 CTA keeps half as many voxels (na_plan takes the element size), and
+// the sums, the f64 merge and its order are the same for both.
 //
 // Measured on the H100 (PERF.md): a round costs the row's bytes at
 // about 2.2-2.8 TB/s plus 4-6 us of meeting, in which the device's memory
@@ -67,6 +72,25 @@ namespace {
 using coma::bf16;
 using coma::cdiv;
 
+// The element types: values a 16-byte group, and the conversions to and
+// from the f32 the arithmetic runs in.
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr int EPG = 8;
+  __device__ static float load(bf16 v) { return __bfloat162float(v); }
+  __device__ static bf16 store(float v) { return __float2bfloat16(v); }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int EPG = 4;
+  __device__ static float load(float v) { return v; }
+  __device__ static float store(float v) { return v; }
+};
+
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 2048;              // 16-byte groups a chunk of one tensor (32 KB)
@@ -76,13 +100,14 @@ constexpr int MAX_CHUNKS = (MAX_SMEM / 16 + CHUNK - 1) / CHUNK;
 constexpr int MAX_SEGS = 160;            // segments a row (at most one a CTA)
 constexpr int NSUM = 5;
 
+template <class T>
 struct NaArgs {
-  const bf16* x;
-  const bf16* g;        // KB3: the cotangent of y
+  const T* x;
+  const T* g;           // KB3: the cotangent of y
   const float* scale;   // [rows] or null
   const float* shift;   // [rows] or null
   const float* alpha;   // [1], read for prelu
-  bf16* out;            // y (K4) or dx (KB3)
+  T* out;               // y (K4) or dx (KB3)
   float* stats;         // [rows, 2] (mean, rstd): K4 writes them, KB3 reads them
   float* sums;          // KB3: [rows, 5]
   float* dalpha;        // KB3: [1]
@@ -94,8 +119,8 @@ struct NaArgs {
 };
 
 // One CTA's segment of one row, in the row's aligned coordinates (element
-// e of the row is element o + e there; o = (row * N) % 8 when the pointers
-// are 16-byte aligned, so groups of 8 are 16-byte vectors).
+// e of the row is element o + e there; o = (row * N) % EPG when the pointers
+// are 16-byte aligned, so groups of EPG are 16-byte vectors).
 struct Seg {
   int64_t base;   // offset of the aligned row: row * N - o
   int64_t lo, hi; // the segment: [o + e0, o + e1)
@@ -104,65 +129,74 @@ struct Seg {
   int kg, kx;     // groups of g and of x kept in shared memory
 };
 
-__device__ __forceinline__ Seg segment(const NaArgs& a, int64_t row, int sidx, bool two) {
-  const int64_t o = a.vec ? (row * a.n) & 7 : 0;
+template <class T>
+__device__ __forceinline__ Seg segment(const NaArgs<T>& a, int64_t row, int sidx, bool two) {
+  constexpr int EPG = Elem<T>::EPG;
+  const int64_t o = a.vec ? (row * a.n) % EPG : 0;
   const int64_t e0 = sidx * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
   Seg s;
   s.base = row * a.n - o;
   s.lo = o + e0;
   s.hi = o + e1;
-  s.g0 = s.lo >> 3;
-  s.groups = (int)(((s.hi + 7) >> 3) - s.g0);
+  s.g0 = s.lo / EPG;
+  s.groups = (int)((s.hi + EPG - 1) / EPG - s.g0);
   s.kg = two ? min(s.groups, a.keep_groups) : 0;
   s.kx = min(s.groups, a.keep_groups - s.kg);
   return s;
 }
 
+template <int EPG>
 __device__ __forceinline__ bool whole(int64_t e, const Seg& s) {
-  return e >= s.lo && e + 8 <= s.hi;
+  return e >= s.lo && e + EPG <= s.hi;
 }
 
 // Group k of an aligned row: one 16-byte load when it lies inside the
 // segment (and the pointers allow it), else the elements inside, one at a
 // time, the rest 0.
-__device__ __forceinline__ uint4 load_group(const bf16* row, int64_t k, const Seg& s, int vec) {
-  const int64_t e = 8 * k;
-  if (vec && whole(e, s)) return *reinterpret_cast<const uint4*>(row + e);
+template <class T>
+__device__ __forceinline__ uint4 load_group(const T* row, int64_t k, const Seg& s, int vec) {
+  constexpr int EPG = Elem<T>::EPG;
+  const int64_t e = EPG * k;
+  if (vec && whole<EPG>(e, s)) return *reinterpret_cast<const uint4*>(row + e);
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  bf16* pv = reinterpret_cast<bf16*>(&v);
+  T* pv = reinterpret_cast<T*>(&v);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < EPG; ++j)
     if (e + j >= s.lo && e + j < s.hi) pv[j] = row[e + j];
   return v;
 }
 
-__device__ __forceinline__ void store_group(bf16* row, int64_t k, const Seg& s, int vec,
+template <class T>
+__device__ __forceinline__ void store_group(T* row, int64_t k, const Seg& s, int vec,
                                             const uint4& v) {
-  const int64_t e = 8 * k;
-  if (vec && whole(e, s)) {
+  constexpr int EPG = Elem<T>::EPG;
+  const int64_t e = EPG * k;
+  if (vec && whole<EPG>(e, s)) {
     *reinterpret_cast<uint4*>(row + e) = v;
     return;
   }
-  const bf16* pv = reinterpret_cast<const bf16*>(&v);
+  const T* pv = reinterpret_cast<const T*>(&v);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < EPG; ++j)
     if (e + j >= s.lo && e + j < s.hi) row[e + j] = pv[j];
 }
 
-__device__ __forceinline__ float bf(const uint4& v, int j) {
-  return __bfloat162float(reinterpret_cast<const bf16*>(&v)[j]);
+// Value j of a 16-byte group of T, as f32.
+template <class T>
+__device__ __forceinline__ float val(const uint4& v, int j) {
+  return Elem<T>::load(reinterpret_cast<const T*>(&v)[j]);
 }
 
 // Calls f(j) for each element j of group k that lies in the segment.
-template <class F>
+template <int EPG, class F>
 __device__ __forceinline__ void for_each(int64_t k, const Seg& s, F&& f) {
-  const int64_t e = 8 * k;
-  if (whole(e, s)) {
+  const int64_t e = EPG * k;
+  if (whole<EPG>(e, s)) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) f(j);
+    for (int j = 0; j < EPG; ++j) f(j);
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < EPG; ++j)
       if (e + j >= s.lo && e + j < s.hi) f(j);
   }
 }
@@ -198,9 +232,10 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 
 // Chunk c of the segment (its kept groups of g and of x) into shared
 // memory, completing on bar. Issued by one thread.
+template <class T>
 __device__ __forceinline__ void issue_chunk(uint32_t bar, const uint4* sg, const uint4* sx,
-                                            const bf16* gr, const bf16* xr, const Seg& s,
-                                            int c) {
+                                            const T* gr, const T* xr, const Seg& s, int c) {
+  constexpr int EPG = Elem<T>::EPG;
   const int k = c * CHUNK;
   const int ng = max(0, min(CHUNK, s.kg - k)), nx = max(0, min(CHUNK, s.kx - k));
   // the async proxy next writes what the generic proxy read
@@ -208,8 +243,8 @@ __device__ __forceinline__ void issue_chunk(uint32_t bar, const uint4* sg, const
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(16 * (ng + nx))
                : "memory");
-  if (ng > 0) bulk_copy(smem_u32(sg + k), gr + 8 * (s.g0 + k), 16 * ng, bar);
-  if (nx > 0) bulk_copy(smem_u32(sx + k), xr + 8 * (s.g0 + k), 16 * nx, bar);
+  if (ng > 0) bulk_copy(smem_u32(sg + k), gr + EPG * (s.g0 + k), 16 * ng, bar);
+  if (nx > 0) bulk_copy(smem_u32(sx + k), xr + EPG * (s.g0 + k), 16 * nx, bar);
 }
 
 // Thread 0: publish this CTA's partial (stored before) with release order
@@ -272,8 +307,9 @@ __device__ __forceinline__ float act_deriv(float u, float alpha) {
 
 // ---------------------------------------------------------------- kernel
 // BWD false: K4; true: KB3.
-template <bool BWD, int ACT>
-__device__ __forceinline__ void run(const NaArgs& a) {
+template <class T, bool BWD, int ACT>
+__device__ __forceinline__ void run(const NaArgs<T>& a) {
+  constexpr int EPG = Elem<T>::EPG;
   constexpr int NA = BWD ? NSUM : 2;  // f32 sums a thread carries
   constexpr int NP = BWD ? NSUM : 3;  // floats a partial
   extern __shared__ __align__(128) uint4 buf[];
@@ -313,16 +349,16 @@ __device__ __forceinline__ void run(const NaArgs& a) {
     }
     const uint4* const sg = buf;
     const uint4* const sx = buf + s.kg;
-    const bf16* const xr = a.x + s.base;
-    const bf16* const gr = a.g + s.base;
-    bf16* const outr = a.out + s.base;
+    const T* const xr = a.x + s.base;
+    const T* const gr = a.g + s.base;
+    T* const outr = a.out + s.base;
     const float sc = a.scale ? a.scale[row] : 1.f, sh = a.shift ? a.shift[row] : 0.f;
     float mean = 0.f, rstd = 0.f, shift0 = 0.f;
     if constexpr (BWD) {
       mean = a.stats[2 * row];
       rstd = a.stats[2 * row + 1];
     } else {
-      shift0 = __bfloat162float(a.x[row * a.n]);
+      shift0 = Elem<T>::load(a.x[row * a.n]);
     }
     const int chunks = cdiv(s.groups, CHUNK);
     // a chunk's x for this thread, all loads first; g is read where it is used
@@ -353,10 +389,10 @@ __device__ __forceinline__ void run(const NaArgs& a) {
         if (kl >= s.groups) continue;
         if constexpr (BWD) {
           const uint4 gv = gval(kl);
-          for_each(s.g0 + kl, s, [&](int j) {
-            const float yhat = (bf(xv[i], j) - mean) * rstd;
+          for_each<EPG>(s.g0 + kl, s, [&](int j) {
+            const float yhat = (val<T>(xv[i], j) - mean) * rstd;
             const float u = sc * yhat + sh;
-            const float gj = bf(gv, j);
+            const float gj = val<T>(gv, j);
             const float gt = gj * act_deriv<ACT>(u, alpha);
             const float gy = gt * sc;
             acc[0] += gy;
@@ -366,8 +402,8 @@ __device__ __forceinline__ void run(const NaArgs& a) {
             acc[4] += gt;
           });
         } else {
-          for_each(s.g0 + kl, s, [&](int j) {
-            const float t = bf(xv[i], j) - shift0;
+          for_each<EPG>(s.g0 + kl, s, [&](int j) {
+            const float t = val<T>(xv[i], j) - shift0;
             acc[0] += t;
             acc[1] = fmaf(t, t, acc[1]);
           });
@@ -462,19 +498,19 @@ __device__ __forceinline__ void run(const NaArgs& a) {
         const int kl = c * CHUNK + i * THREADS + tid;
         if (kl >= s.groups) continue;
         uint4 ov = make_uint4(0u, 0u, 0u, 0u);
-        bf16* const o = reinterpret_cast<bf16*>(&ov);
+        T* const o = reinterpret_cast<T*>(&ov);
         if constexpr (BWD) {
           const uint4 gv = gval(kl);
-          for_each(s.g0 + kl, s, [&](int j) {
-            const float yhat = (bf(xv[i], j) - mean) * rstd;
+          for_each<EPG>(s.g0 + kl, s, [&](int j) {
+            const float yhat = (val<T>(xv[i], j) - mean) * rstd;
             const float u = sc * yhat + sh;
-            const float gy = bf(gv, j) * act_deriv<ACT>(u, alpha) * sc;
-            o[j] = __float2bfloat16(rstd * (gy - p0 - yhat * p1));
+            const float gy = val<T>(gv, j) * act_deriv<ACT>(u, alpha) * sc;
+            o[j] = Elem<T>::store(rstd * (gy - p0 - yhat * p1));
           });
         } else {
-          for_each(s.g0 + kl, s, [&](int j) {
-            const float u = sc * ((bf(xv[i], j) - p0) * p1) + sh;
-            o[j] = __float2bfloat16(activate<ACT>(u, alpha));
+          for_each<EPG>(s.g0 + kl, s, [&](int j) {
+            const float u = sc * ((val<T>(xv[i], j) - p0) * p1) + sh;
+            o[j] = Elem<T>::store(activate<ACT>(u, alpha));
           });
         }
         store_group(outr, s.g0 + kl, s, a.vec, ov);
@@ -487,65 +523,111 @@ __device__ __forceinline__ void run(const NaArgs& a) {
   }
 }
 
-template <int ACT>
-__global__ void __launch_bounds__(THREADS, 1) norm_act_kernel(const NaArgs a) {
-  run<false, ACT>(a);
+template <class T, int ACT>
+__global__ void __launch_bounds__(THREADS, 1) norm_act_kernel(const NaArgs<T> a) {
+  run<T, false, ACT>(a);
 }
 
-template <int ACT>
-__global__ void __launch_bounds__(THREADS, 1) norm_act_bwd_kernel(const NaArgs a) {
-  run<true, ACT>(a);
+template <class T, int ACT>
+__global__ void __launch_bounds__(THREADS, 1) norm_act_bwd_kernel(const NaArgs<T> a) {
+  run<T, true, ACT>(a);
 }
 
-template <bool BWD, int ACT>
-cudaError_t launch(const NaArgs& a, int64_t grid, int64_t smem, cudaStream_t stream) {
-  const void* kernel = BWD ? reinterpret_cast<const void*>(norm_act_bwd_kernel<ACT>)
-                           : reinterpret_cast<const void*>(norm_act_kernel<ACT>);
+template <class T, bool BWD, int ACT>
+cudaError_t launch(const NaArgs<T>& a, int64_t grid, int64_t smem, cudaStream_t stream) {
+  const void* kernel = BWD ? reinterpret_cast<const void*>(norm_act_bwd_kernel<T, ACT>)
+                           : reinterpret_cast<const void*>(norm_act_kernel<T, ACT>);
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return attr;
-  void* args[] = {const_cast<NaArgs*>(&a)};
+  void* args[] = {const_cast<NaArgs<T>*>(&a)};
   // every CTA must be resident: a CTA waits for its row's other segments
   return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid), dim3(THREADS), args,
                                      (size_t)smem, stream);
 }
 
 // Zeroes the counters, then launches the kernel.
-template <bool BWD>
-cudaError_t launch_act(const NaArgs& a, int64_t act, int64_t grid, int64_t smem,
+template <class T, bool BWD>
+cudaError_t launch_act(const NaArgs<T>& a, int64_t act, int64_t grid, int64_t smem,
                        cudaStream_t stream) {
   const cudaError_t err =
       cudaMemsetAsync(a.count, 0, sizeof(unsigned) * (size_t)(a.rows + 1), stream);
   if (err != cudaSuccess) return err;
   switch (act) {
-    case 1: return launch<BWD, 1>(a, grid, smem, stream);
-    case 2: return launch<BWD, 2>(a, grid, smem, stream);
-    case 3: return launch<BWD, 3>(a, grid, smem, stream);
-    default: return launch<BWD, 0>(a, grid, smem, stream);
+    case 1: return launch<T, BWD, 1>(a, grid, smem, stream);
+    case 2: return launch<T, BWD, 2>(a, grid, smem, stream);
+    case 3: return launch<T, BWD, 3>(a, grid, smem, stream);
+    default: return launch<T, BWD, 0>(a, grid, smem, stream);
   }
 }
 
 // Fills the cut of `a` from the plan and checks it; false if it does not
 // cover every row and voxel, or does not fit.
-bool set_plan(NaArgs& a, int64_t rows, int64_t n, int64_t act, int64_t segs, int64_t per_round,
+template <class T>
+bool set_plan(NaArgs<T>& a, int64_t rows, int64_t n, int64_t act, int64_t segs, int64_t per_round,
               int64_t rounds, int64_t seg, int64_t keep, int64_t grid, int64_t bulk,
               int64_t smem) {
   if (rows < 1 || n < 1 || act < 0 || act > 3 || segs < 1 || per_round < 1 || seg < 8 ||
-      seg % 8 != 0 || keep < 0 || keep % 8 != 0 || grid != segs * per_round || grid > (1 << 30) ||
-      (segs - 1) * seg >= n || segs * seg < n || segs > MAX_SEGS || per_round * rounds < rows ||
-      smem < 2 * keep || smem > MAX_SMEM)
+      seg % 8 != 0 || keep < 0 || keep % Elem<T>::EPG != 0 || grid != segs * per_round ||
+      grid > (1 << 30) || (segs - 1) * seg >= n || segs * seg < n || segs > MAX_SEGS ||
+      per_round * rounds < rows || smem < (int64_t)sizeof(T) * keep || smem > MAX_SMEM)
     return false;
   a.rows = rows;
   a.n = n;
   a.seg = seg;
   a.segs = (int)segs;
   a.per_round = (int)per_round;
-  a.keep_groups = (int)(keep / 8);
+  a.keep_groups = (int)(keep / Elem<T>::EPG);
   a.bulk = (int)(bulk && a.vec);
   return true;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <class T>
+int norm_act_entry(const void* x, const void* scale, const void* shift, const void* alpha,
+                   void* y, void* stats, void* scratch, int64_t rows, int64_t n, int64_t act,
+                   int64_t segs, int64_t per_round, int64_t rounds, int64_t seg, int64_t keep,
+                   int64_t grid, int64_t bulk, int64_t smem, float eps, void* stream) {
+  NaArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<T*>(y);
+  a.stats = static_cast<float*>(stats);
+  a.vec = aligned16(x) && aligned16(y);
+  a.eps = eps;
+  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
+    return cudaErrorInvalidValue;
+  a.part = static_cast<float*>(scratch);
+  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * 3);
+  return launch_act<T, false>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
+}
+
+template <class T>
+int norm_act_bwd_entry(const void* x, const void* g, const void* stats, const void* scale,
+                       const void* shift, const void* alpha, void* dx, void* sums, void* dalpha,
+                       void* scratch, int64_t rows, int64_t n, int64_t act, int64_t segs,
+                       int64_t per_round, int64_t rounds, int64_t seg, int64_t keep, int64_t grid,
+                       int64_t bulk, int64_t smem, void* stream) {
+  NaArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.g = static_cast<const T*>(g);
+  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<T*>(dx);
+  a.sums = static_cast<float*>(sums);
+  a.dalpha = static_cast<float*>(dalpha);
+  a.vec = aligned16(x) && aligned16(g) && aligned16(dx);
+  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
+    return cudaErrorInvalidValue;
+  a.part = static_cast<float*>(scratch);
+  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * NSUM);
+  return launch_act<T, true>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace
 
@@ -558,20 +640,20 @@ COMA_API int coma_norm_act(const void* x, const void* scale, const void* shift,
                            int64_t n, int64_t act, int64_t segs, int64_t per_round,
                            int64_t rounds, int64_t seg, int64_t keep, int64_t grid, int64_t bulk,
                            int64_t smem, float eps, void* stream) {
-  NaArgs a{};
-  a.x = static_cast<const bf16*>(x);
-  a.scale = static_cast<const float*>(scale);
-  a.shift = static_cast<const float*>(shift);
-  a.alpha = static_cast<const float*>(alpha);
-  a.out = static_cast<bf16*>(y);
-  a.stats = static_cast<float*>(stats);
-  a.vec = aligned16(x) && aligned16(y);
-  a.eps = eps;
-  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
-    return cudaErrorInvalidValue;
-  a.part = static_cast<float*>(scratch);
-  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * 3);
-  return launch_act<false>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
+  return norm_act_entry<bf16>(x, scale, shift, alpha, y, stats, scratch, rows, n, act, segs,
+                              per_round, rounds, seg, keep, grid, bulk, smem, eps, stream);
+}
+
+// coma_norm_act's float32 form: x, y [rows, n] f32, the cut from na_plan at
+// element size 4.
+COMA_API int coma_norm_act_f32(const void* x, const void* scale, const void* shift,
+                               const void* alpha, void* y, void* stats, void* scratch,
+                               int64_t rows, int64_t n, int64_t act, int64_t segs,
+                               int64_t per_round, int64_t rounds, int64_t seg, int64_t keep,
+                               int64_t grid, int64_t bulk, int64_t smem, float eps,
+                               void* stream) {
+  return norm_act_entry<float>(x, scale, shift, alpha, y, stats, scratch, rows, n, act, segs,
+                               per_round, rounds, seg, keep, grid, bulk, smem, eps, stream);
 }
 
 // x, g, dx [rows, n] bf16; stats [rows, 2] from coma_norm_act; scale, shift
@@ -586,22 +668,22 @@ COMA_API int coma_norm_act_bwd(const void* x, const void* g, const void* stats, 
                                int64_t segs, int64_t per_round, int64_t rounds, int64_t seg,
                                int64_t keep, int64_t grid, int64_t bulk, int64_t smem,
                                void* stream) {
-  NaArgs a{};
-  a.x = static_cast<const bf16*>(x);
-  a.g = static_cast<const bf16*>(g);
-  a.stats = static_cast<float*>(const_cast<void*>(stats));
-  a.scale = static_cast<const float*>(scale);
-  a.shift = static_cast<const float*>(shift);
-  a.alpha = static_cast<const float*>(alpha);
-  a.out = static_cast<bf16*>(dx);
-  a.sums = static_cast<float*>(sums);
-  a.dalpha = static_cast<float*>(dalpha);
-  a.vec = aligned16(x) && aligned16(g) && aligned16(dx);
-  if (!set_plan(a, rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk, smem))
-    return cudaErrorInvalidValue;
-  a.part = static_cast<float*>(scratch);
-  a.count = reinterpret_cast<unsigned*>(a.part + rows * segs * NSUM);
-  return launch_act<true>(a, act, grid, smem, static_cast<cudaStream_t>(stream));
+  return norm_act_bwd_entry<bf16>(x, g, stats, scale, shift, alpha, dx, sums, dalpha, scratch,
+                                  rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk,
+                                  smem, stream);
+}
+
+// coma_norm_act_bwd's float32 form: x, g, dx [rows, n] f32, the cut from
+// na_plan at element size 4.
+COMA_API int coma_norm_act_bwd_f32(const void* x, const void* g, const void* stats,
+                                   const void* scale, const void* shift, const void* alpha,
+                                   void* dx, void* sums, void* dalpha, void* scratch,
+                                   int64_t rows, int64_t n, int64_t act, int64_t segs,
+                                   int64_t per_round, int64_t rounds, int64_t seg, int64_t keep,
+                                   int64_t grid, int64_t bulk, int64_t smem, void* stream) {
+  return norm_act_bwd_entry<float>(x, g, stats, scale, shift, alpha, dx, sums, dalpha, scratch,
+                                   rows, n, act, segs, per_round, rounds, seg, keep, grid, bulk,
+                                   smem, stream);
 }
 
 // ------------------------------------------------------- K4's slab form
@@ -616,37 +698,44 @@ COMA_API int coma_norm_act_bwd(const void* x, const void* g, const void* stats, 
 //     s the row's first voxel of the slab); a second, one warp a row, merges
 //     the row's partials in f64 in segment order, as K4's rows do.
 //   coma_norm_apply: y = act(scale * (x - mean) * rstd + shift) from the
-//     given per-row f32 mean and rstd, stored as bf16. Replaces `_apply_kernel`.
+//     given per-row f32 mean and rstd, stored in x's type. Replaces
+//     `_apply_kernel`.
 // Both read x once (apply writes y once): bound by memory. They are simple
 // grid-stride kernels, 16-byte vectors where the rows allow; no float
-// atomics, so two calls give the same bits.
+// atomics, so two calls give the same bits. Both are templated on the
+// element type like K4 (the `_f32` entries are the float32 forms).
 namespace {
 
 constexpr int SLAB_THREADS = 256;
 
-__device__ __forceinline__ bool slab_vec(const NaArgs& a) { return a.vec && a.n % 8 == 0; }
+template <class T>
+__device__ __forceinline__ bool slab_vec(const NaArgs<T>& a) {
+  return a.vec && a.n % Elem<T>::EPG == 0;
+}
 
 // One CTA: segment blockIdx.x of row blockIdx.y.
-__global__ void __launch_bounds__(SLAB_THREADS) slab_partial_kernel(const NaArgs a) {
+template <class T>
+__global__ void __launch_bounds__(SLAB_THREADS) slab_partial_kernel(const NaArgs<T> a) {
+  constexpr int EPG = Elem<T>::EPG;
   __shared__ float red[2][SLAB_THREADS / 32];
   const int64_t row = blockIdx.y;
   const int64_t e0 = blockIdx.x * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
-  const bf16* const xr = a.x + row * a.n;
-  const float shift0 = __bfloat162float(xr[0]);
+  const T* const xr = a.x + row * a.n;
+  const float shift0 = Elem<T>::load(xr[0]);
   float s = 0.f, q = 0.f;
-  if (slab_vec(a)) {  // e0 and e1 are multiples of 8 (seg is; n is)
-    for (int64_t k = e0 / 8 + threadIdx.x; k < e1 / 8; k += SLAB_THREADS) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + 8 * k);
+  if (slab_vec(a)) {  // e0 and e1 are multiples of EPG (seg is a multiple of 8; n of EPG)
+    for (int64_t k = e0 / EPG + threadIdx.x; k < e1 / EPG; k += SLAB_THREADS) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + EPG * k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float t = bf(v, j) - shift0;
+      for (int j = 0; j < EPG; ++j) {
+        const float t = val<T>(v, j) - shift0;
         s += t;
         q = fmaf(t, t, q);
       }
     }
   } else {
     for (int64_t e = e0 + threadIdx.x; e < e1; e += SLAB_THREADS) {
-      const float t = __bfloat162float(xr[e]) - shift0;
+      const float t = Elem<T>::load(xr[e]) - shift0;
       s += t;
       q = fmaf(t, t, q);
     }
@@ -678,7 +767,8 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_partial_kernel(const NaArgs
 
 // One warp a row: the row's partials merged in f64 in segment order into
 // (count, mean, M2), K4's merge (`run`, step 3).
-__global__ void slab_merge_kernel(const NaArgs a, double* out) {
+template <class T>
+__global__ void slab_merge_kernel(const NaArgs<T> a, double* out) {
   const int64_t row = blockIdx.x;
   const int lane = threadIdx.x;
   const float* const part = a.part + row * a.segs * 3;
@@ -694,13 +784,14 @@ __global__ void slab_merge_kernel(const NaArgs a, double* out) {
   m2 = warp_total(m2);
   if (lane == 0) {
     out[3 * row] = nd;
-    out[3 * row + 1] = (double)__bfloat162float(a.x[row * a.n]) + mt;
+    out[3 * row + 1] = (double)Elem<T>::load(a.x[row * a.n]) + mt;
     out[3 * row + 2] = m2;
   }
 }
 
-template <int ACT>
-__global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs a) {
+template <class T, int ACT>
+__global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs<T> a) {
+  constexpr int EPG = Elem<T>::EPG;
   const float alpha = ACT == 3 ? a.alpha[0] : 0.f;
   const int64_t stride = (int64_t)gridDim.x * SLAB_THREADS;
   const int64_t first = (int64_t)blockIdx.x * SLAB_THREADS + threadIdx.x;
@@ -708,20 +799,67 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs a
     const float sc = a.scale ? a.scale[row] : 1.f, sh = a.shift ? a.shift[row] : 0.f;
     return activate<ACT>(sc * ((x - a.stats[2 * row]) * a.stats[2 * row + 1]) + sh, alpha);
   };
-  if (slab_vec(a)) {  // a group of 8 lies in one row
-    for (int64_t k = first; k < a.rows * a.n / 8; k += stride) {
-      const int64_t row = 8 * k / a.n;
+  if (slab_vec(a)) {  // a group of EPG lies in one row
+    for (int64_t k = first; k < a.rows * a.n / EPG; k += stride) {
+      const int64_t row = EPG * k / a.n;
       const uint4 v = reinterpret_cast<const uint4*>(a.x)[k];
       uint4 ov;
-      bf16* const o = reinterpret_cast<bf16*>(&ov);
+      T* const o = reinterpret_cast<T*>(&ov);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(u_of(row, bf(v, j)));
+      for (int j = 0; j < EPG; ++j) o[j] = Elem<T>::store(u_of(row, val<T>(v, j)));
       reinterpret_cast<uint4*>(a.out)[k] = ov;
     }
   } else {
     for (int64_t e = first; e < a.rows * a.n; e += stride)
-      a.out[e] = __float2bfloat16(u_of(e / a.n, __bfloat162float(a.x[e])));
+      a.out[e] = Elem<T>::store(u_of(e / a.n, Elem<T>::load(a.x[e])));
   }
+}
+
+template <class T>
+int norm_stats_entry(const void* x, void* scratch, void* stats, int64_t rows, int64_t n,
+                     int64_t seg, int64_t segs, void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || seg < 8 || seg % 8 != 0 || segs < 1 ||
+      (segs - 1) * seg >= n || segs * seg < n || segs > (1 << 30))
+    return cudaErrorInvalidValue;
+  NaArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.part = static_cast<float*>(scratch);
+  a.rows = rows;
+  a.n = n;
+  a.seg = seg;
+  a.segs = (int)segs;
+  a.vec = aligned16(x);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  slab_partial_kernel<T><<<dim3((unsigned)segs, (unsigned)rows), SLAB_THREADS, 0, s>>>(a);
+  slab_merge_kernel<T><<<(unsigned)rows, 32, 0, s>>>(a, static_cast<double*>(stats));
+  return cudaGetLastError();
+}
+
+template <class T>
+int norm_apply_entry(const void* x, const void* stats, const void* scale, const void* shift,
+                     const void* alpha, void* y, int64_t rows, int64_t n, int64_t act,
+                     int64_t blocks, void* stream) {
+  if (rows < 1 || n < 1 || act < 0 || act > 3 || blocks < 1 || blocks > (1 << 30))
+    return cudaErrorInvalidValue;
+  NaArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.out = static_cast<T*>(y);
+  a.rows = rows;
+  a.n = n;
+  a.vec = aligned16(x) && aligned16(y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks);
+  switch (act) {
+    case 1: slab_apply_kernel<T, 1><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    case 2: slab_apply_kernel<T, 2><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    case 3: slab_apply_kernel<T, 3><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+    default: slab_apply_kernel<T, 0><<<grid, SLAB_THREADS, 0, s>>>(a); break;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -732,21 +870,13 @@ __global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs a
 // 8; the last may be shorter); the cut comes from ops/norm_act.py:slab_plan.
 COMA_API int coma_norm_stats(const void* x, void* scratch, void* stats, int64_t rows, int64_t n,
                              int64_t seg, int64_t segs, void* stream) {
-  if (rows < 1 || rows > 65535 || n < 1 || seg < 8 || seg % 8 != 0 || segs < 1 ||
-      (segs - 1) * seg >= n || segs * seg < n || segs > (1 << 30))
-    return cudaErrorInvalidValue;
-  NaArgs a{};
-  a.x = static_cast<const bf16*>(x);
-  a.part = static_cast<float*>(scratch);
-  a.rows = rows;
-  a.n = n;
-  a.seg = seg;
-  a.segs = (int)segs;
-  a.vec = aligned16(x);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  slab_partial_kernel<<<dim3((unsigned)segs, (unsigned)rows), SLAB_THREADS, 0, s>>>(a);
-  slab_merge_kernel<<<(unsigned)rows, 32, 0, s>>>(a, static_cast<double*>(stats));
-  return cudaGetLastError();
+  return norm_stats_entry<bf16>(x, scratch, stats, rows, n, seg, segs, stream);
+}
+
+// coma_norm_stats's float32 form: x [rows, n] f32.
+COMA_API int coma_norm_stats_f32(const void* x, void* scratch, void* stats, int64_t rows,
+                                 int64_t n, int64_t seg, int64_t segs, void* stream) {
+  return norm_stats_entry<float>(x, scratch, stats, rows, n, seg, segs, stream);
 }
 
 // x, y [rows, n] bf16; stats [rows, 2] f32 (mean, rstd); scale, shift [rows]
@@ -754,25 +884,12 @@ COMA_API int coma_norm_stats(const void* x, void* scratch, void* stats, int64_t 
 COMA_API int coma_norm_apply(const void* x, const void* stats, const void* scale,
                              const void* shift, const void* alpha, void* y, int64_t rows,
                              int64_t n, int64_t act, int64_t blocks, void* stream) {
-  if (rows < 1 || n < 1 || act < 0 || act > 3 || blocks < 1 || blocks > (1 << 30))
-    return cudaErrorInvalidValue;
-  NaArgs a{};
-  a.x = static_cast<const bf16*>(x);
-  a.stats = static_cast<float*>(const_cast<void*>(stats));
-  a.scale = static_cast<const float*>(scale);
-  a.shift = static_cast<const float*>(shift);
-  a.alpha = static_cast<const float*>(alpha);
-  a.out = static_cast<bf16*>(y);
-  a.rows = rows;
-  a.n = n;
-  a.vec = aligned16(x) && aligned16(y);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)blocks);
-  switch (act) {
-    case 1: slab_apply_kernel<1><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    case 2: slab_apply_kernel<2><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    case 3: slab_apply_kernel<3><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    default: slab_apply_kernel<0><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-  }
-  return cudaGetLastError();
+  return norm_apply_entry<bf16>(x, stats, scale, shift, alpha, y, rows, n, act, blocks, stream);
+}
+
+// coma_norm_apply's float32 form: x, y [rows, n] f32.
+COMA_API int coma_norm_apply_f32(const void* x, const void* stats, const void* scale,
+                                 const void* shift, const void* alpha, void* y, int64_t rows,
+                                 int64_t n, int64_t act, int64_t blocks, void* stream) {
+  return norm_apply_entry<float>(x, stats, scale, shift, alpha, y, rows, n, act, blocks, stream);
 }

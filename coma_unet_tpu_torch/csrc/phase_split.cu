@@ -14,7 +14,8 @@
 // pointers' alignment, so rows whose width is a multiple of 8 bf16 move as
 // 16-byte loads and stores. blockIdx.y is the phase; consecutive threads take
 // consecutive vectors of one output row, so both sides coalesce. Element
-// offsets are 64-bit.
+// offsets are 64-bit. The entries are templated on the element type (bf16,
+// and f32 for the float32 form, `coma_hsplit_f32`): both copy bits.
 #include "common.cuh"
 
 namespace {
@@ -45,13 +46,13 @@ cudaError_t launch_hsplit(const void* x, void* h0, void* h1, int64_t rows, int64
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x holds 2 * rows rows of row_bytes bytes; h0 and h1 receive rows rows each.
-// row_bytes must be even.
-COMA_API int coma_hsplit(const void* x, void* h0, void* h1, int64_t rows, int64_t row_bytes,
-                         void* stream) {
-  if (rows <= 0 || row_bytes <= 0 || row_bytes % 2 != 0) return cudaErrorInvalidValue;
+// The split of rows of row_bytes bytes of T (bf16 or f32): the widest
+// vector that divides the row and both pointers' alignment.
+template <class T>
+int hsplit_entry(const void* x, void* h0, void* h1, int64_t rows, int64_t row_bytes,
+                 void* stream) {
+  if (rows <= 0 || row_bytes <= 0 || row_bytes % (int64_t)sizeof(T) != 0)
+    return cudaErrorInvalidValue;
   if (cdiv(rows * (row_bytes / 2), HS_THREADS) > 0x7fffffff) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(h0) |
@@ -60,4 +61,19 @@ COMA_API int coma_hsplit(const void* x, void* h0, void* h1, int64_t rows, int64_
   if (align % 8 == 0) return launch_hsplit<uint2>(x, h0, h1, rows, row_bytes, s);
   if (align % 4 == 0) return launch_hsplit<unsigned int>(x, h0, h1, rows, row_bytes, s);
   return launch_hsplit<unsigned short>(x, h0, h1, rows, row_bytes, s);
+}
+
+}  // namespace
+
+// x holds 2 * rows rows of row_bytes bytes of bf16; h0 and h1 receive rows
+// rows each.
+COMA_API int coma_hsplit(const void* x, void* h0, void* h1, int64_t rows, int64_t row_bytes,
+                         void* stream) {
+  return hsplit_entry<coma::bf16>(x, h0, h1, rows, row_bytes, stream);
+}
+
+// coma_hsplit's float32 form: rows of row_bytes bytes of f32.
+COMA_API int coma_hsplit_f32(const void* x, void* h0, void* h1, int64_t rows, int64_t row_bytes,
+                             void* stream) {
+  return hsplit_entry<float>(x, h0, h1, rows, row_bytes, stream);
 }

@@ -4,7 +4,10 @@ version for a CPU tensor: the forward families `s1`, `s2`, `t2`,
 `norm_act` (`FWD_FAMILIES`), the backward families `s1_dw`,
 `strided_dw`, `norm_act_bwd` (`BWD_FAMILIES`), K4's two halves
 `norm_stats` and `norm_apply` for the depth-sharded forward
-(`SLAB_FAMILIES`) and the standalone `phase_split` (`ENTRY_FAMILIES`). `conv3d_s1`, `conv3d_s2`, `conv3d_t2`
+(`SLAB_FAMILIES`) and the standalone `phase_split` (`ENTRY_FAMILIES`), each
+also in its float32 form (`s1_f32` and so on: `F32_FAMILIES`,
+`FWD_FAMILIES_F32`, ...), which a CUDA tensor of dtype float32 launches.
+`conv3d_s1`, `conv3d_s2`, `conv3d_t2`
 and `norm_act` are autograd Functions whose backward runs kernels too;
 `instance_norm` and `conv3d_w64` are entry points over K4 and K1. The
 per-ROI sums and SSIM of the metric suite are PyTorch built-ins, as the JAX
@@ -12,14 +15,20 @@ package leaves them to XLA."""
 
 from coma_unet_tpu_torch.ops._build import (  # noqa: F401
     BWD_FAMILIES,
+    BWD_FAMILIES_F32,
     ENTRY_FAMILIES,
+    ENTRY_FAMILIES_F32,
+    F32_FAMILIES,
     FAMILIES,
     FWD_FAMILIES,
+    FWD_FAMILIES_F32,
     LAUNCHES,
     PLAIN_ON_CPU,
     PLAIN_ON_CUDA,
     PATH_FAMILIES,
+    PATH_FAMILIES_F32,
     SLAB_FAMILIES,
+    SLAB_FAMILIES_F32,
     reset_counts,
 )
 from coma_unet_tpu_torch.ops.conv3d import (  # noqa: F401

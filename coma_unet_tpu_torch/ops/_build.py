@@ -17,8 +17,12 @@ launches forward families for its input gradients); `PATH_FAMILIES` is
 both, the kernels of the model's paths. `SLAB_FAMILIES` are K4's two
 halves, which only the depth-sharded forward runs (`parallel/spatial.py`)
 in place of K4. `ENTRY_FAMILIES` are kernels that
-only a standalone entry point runs (`phase_split`, as in the JAX package);
-`FAMILIES` is every family.
+only a standalone entry point runs (`phase_split`, as in the JAX package).
+Each family also has a float32 form, counted under its name with `_f32`
+(`family(name, dtype)`; `F32_FAMILIES`, and `FWD_FAMILIES_F32` and so on):
+a CUDA tensor of the compute dtype float32 launches it. The plain versions
+are counted under the family's own name whatever the dtype. `FAMILIES` is
+every family of both dtypes.
 """
 
 from __future__ import annotations
@@ -39,7 +43,15 @@ BWD_FAMILIES = ("s1_dw", "strided_dw", "norm_act_bwd")
 PATH_FAMILIES = FWD_FAMILIES + BWD_FAMILIES
 SLAB_FAMILIES = ("norm_stats", "norm_apply")
 ENTRY_FAMILIES = ("phase_split",)
-FAMILIES = PATH_FAMILIES + SLAB_FAMILIES + ENTRY_FAMILIES
+F32 = "_f32"
+FWD_FAMILIES_F32 = tuple(f + F32 for f in FWD_FAMILIES)
+BWD_FAMILIES_F32 = tuple(f + F32 for f in BWD_FAMILIES)
+PATH_FAMILIES_F32 = FWD_FAMILIES_F32 + BWD_FAMILIES_F32
+SLAB_FAMILIES_F32 = tuple(f + F32 for f in SLAB_FAMILIES)
+ENTRY_FAMILIES_F32 = tuple(f + F32 for f in ENTRY_FAMILIES)
+F32_FAMILIES = PATH_FAMILIES_F32 + SLAB_FAMILIES_F32 + ENTRY_FAMILIES_F32
+FAMILIES = PATH_FAMILIES + SLAB_FAMILIES + ENTRY_FAMILIES + F32_FAMILIES
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes with kernels
 LAUNCHES: Counter = Counter()
 PLAIN_ON_CUDA: Counter = Counter()
 PLAIN_ON_CPU: Counter = Counter()
@@ -63,6 +75,13 @@ _SIGNATURES = {
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
     "coma_norm_stats": [_P] * 3 + [_I] * 4 + [_P],
     "coma_norm_apply": [_P] * 6 + [_I] * 4 + [_P],
+    "coma_conv3d_f32": [_P] * 4 + [_I] * 16 + [_P],
+    "coma_conv3d_dw_f32": [_P] * 4 + [_I] * 17 + [_P],
+    "coma_norm_act_f32": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _P],
+    "coma_norm_act_bwd_f32": [_P] * 10 + [_I] * 11 + [_P],
+    "coma_hsplit_f32": [_P] * 3 + [_I] * 2 + [_P],
+    "coma_norm_stats_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "coma_norm_apply_f32": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -176,8 +195,26 @@ def launch(family: str, entry: str, device: torch.device, *args) -> None:
     LAUNCHES[family] += 1
 
 
+def family(name: str, dtype: torch.dtype) -> str:
+    """The counted family of kernel `name` for tensors of `dtype`: the name
+    itself for bf16, its float32 form `name_f32` for f32."""
+    return name + F32 if dtype == torch.float32 else name
+
+
+def kernel_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype of a CUDA call's tensors, from its first one: bf16 or f32,
+    the dtypes with kernels; raise for any other."""
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: the CUDA kernels take bfloat16 or float32, "
+                         f"got {t.dtype}")
+    return t.dtype
+
+
 def check_cuda_input(name: str, t: torch.Tensor, ndim: int,
-                     device: torch.device, dtype=torch.bfloat16) -> None:
+                     device: torch.device, dtype: torch.dtype) -> None:
+    """Raise unless t is a contiguous ndim-d tensor of `dtype` on `device`:
+    every tensor of a call takes the dtype its call site passes (that of
+    its first tensor, or f32 for statistics), and none is cast."""
     if (t.device != device or t.dtype != dtype or t.dim() != ndim
             or not t.is_contiguous()):
         raise ValueError(

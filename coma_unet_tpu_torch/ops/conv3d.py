@@ -16,7 +16,10 @@ K1 (`csrc/conv3d_s1_tc.cu`) is one tensor-core kernel for every call:
 `mma.sync` over 4 or 8 x 4 x 16 bricks of output positions and 16-channel
 chunks of Cin, cut as `s1_plan` says. As the input gradient it reads
 `flip_t(w)` from w in place. KB1 (`csrc/conv3d_dw_tc.cu`) is cut by
-`dw_plan`.
+`dw_plan`. Both take bf16. Their float32 forms, for a CUDA tensor of dtype
+float32, run on the CUDA cores in f32 FMAs (no TF32): F1
+(`csrc/conv3d_f32.cu`, the stride-1 map of the kernel that is also F2,
+cut by `f1_plan`) and FB1 (`csrc/conv3d_dw_f32.cu`, cut by `fb1_plan`).
 """
 
 from __future__ import annotations
@@ -98,10 +101,12 @@ def check_conv_args(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor], ks: Sequence[int],
                     io_swapped: bool = False):
     """Validate a CUDA conv call with weights w, or with `flip_t(w)` where
-    `io_swapped`; return (k, per_sample, f32 bias or None)."""
-    _build.check_cuda_input("x", x, 5, x.device)
+    `io_swapped`: x bf16 or f32, w of x's dtype; return (k, per_sample,
+    f32 bias or None)."""
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, 5, x.device, dtype)
     per_sample = w.dim() == 6
-    _build.check_cuda_input("w", w, 6 if per_sample else 5, x.device)
+    _build.check_cuda_input("w", w, 6 if per_sample else 5, x.device, dtype)
     k = w.shape[-1]
     cout, cin = w.shape[-5], w.shape[-4]
     if io_swapped:
@@ -137,6 +142,9 @@ def _k1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     k, per_sample, bias32 = check_conv_args(x, w, bias, (1, 3), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
+    if x.dtype == torch.float32:
+        return conv_f32(f1_plan(b, cin, cout, d, h, wd, k), x, w, bias32,
+                        per_sample, flip)
     plan = s1_plan(b, cin, cout, d, h, wd, k, per_sample)
     y = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
     wpack = torch.empty(plan.wpack, dtype=x.dtype, device=x.device)
@@ -149,6 +157,11 @@ def _k1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _half(n: int) -> int:
+    """Positions along an axis of n of the stride-2 SAME conv's output."""
+    return (n - 1) // 2 + 1
 
 
 GRID_MAX = 65535        # CUDA's limit on grid.y and grid.z (and K1's grid.x)
@@ -268,22 +281,239 @@ def split_plan(b: int, c: int, a: int, size: Tuple[int, int, int], taps: int,
                   b * sps * a * c * taps, (_cdiv(c, ct), _cdiv(a, at), b * sps))
 
 
+# F1 and F2 (csrc/conv3d_f32.cu): a block of 256 threads owns a tile of
+# F_TILE positions of the grid it walks (the output for S1 and S2, the input
+# for T2) and q output channels; a thread owns 4 consecutive positions along
+# W x q channels in f32 registers. The block walks Cin in stages of ci
+# channels, each the input box of its tile and the stage's weights in
+# shared memory, two stages in flight.
+F_TILE = (4, 8, 32)         # (td, th, tw); 8 threads take a row of tw positions
+F_MODES = ("s1", "s2", "t2")
+SMEM_MAX = 227 * 1024       # shared memory a CTA may have on the H100
+INT31 = 2 ** 31
+
+
+def _round4(n: int) -> int:
+    return 4 * _cdiv(n, 4)
+
+
+class FPlan(NamedTuple):
+    """How one F1 or F2 call is cut. `mode` is 0 (S1: the stride-1 conv), 1
+    (S2: the stride-2 conv) or 2 (T2: the transposed conv). A block owns
+    `tile` positions (d, h, w) of the `walk` grid (the output for S1 and S2,
+    the input for T2, whose blocks each take one of the 8 parity classes of
+    the output) and `q` output channels, and stages `ci` input channels at a
+    time: each channel's input `box` (its rows `row` floats apart in shared
+    memory; S2 stores the even positions along W first) and their weights.
+    `grid` is the launch grid: `tiles` tiles, output-channel tiles, samples
+    (x 8 classes for T2). `smem` is the bytes of two stages."""
+    mode: int
+    k: int
+    tile: Tuple[int, int, int]
+    walk: Tuple[int, int, int]
+    box: Tuple[int, int, int]
+    row: int
+    ci: int
+    q: int
+    tiles: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def f_channel_tile(cout: int) -> int:
+    """q of F1 and F2: 1, 4, 8 or 16 output channels a block, the smallest
+    that holds the layer, up to 16 (wider layers take tiles)."""
+    return 1 if cout == 1 else 4 if cout <= 4 else 8 if cout <= 8 else 16
+
+
+def f_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int, w: int,
+           k: int = 3) -> FPlan:
+    """The cut of F1 (`mode` "s1", k in {1, 3}) or F2 ("s2": the stride-2
+    conv, "t2": the transposed conv; k = 3) for x [b, cin, d, h, w] to
+    `cout` channels. Raises ValueError for a shape the kernel cannot take:
+    a volume of 2^31 voxels or more, more tiles or channel tiles than a
+    launch grid holds."""
+    m = F_MODES.index(mode)
+    if k not in ((1, 3) if m == 0 else (3,)):
+        raise ValueError(f"f_plan: {mode} takes k in {(1, 3) if m == 0 else (3,)}, "
+                         f"got {k}")
+    if min(b, cin, cout, d, h, w) <= 0 or d * h * w >= INT31:
+        raise ValueError(f"f_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
+                         f"{cout} channels")
+    td, th, tw = F_TILE
+    if m == 0:
+        walk = (d, h, w)
+        box = (td + k - 1, th + k - 1, tw + k - 1)
+        ci = 8 if k == 1 else 4
+    elif m == 1:
+        walk = (_half(d), _half(h), _half(w))
+        box = (2 * td + 1, 2 * th + 1, 2 * tw + 1)
+        ci = 2
+    else:
+        walk = (d, h, w)
+        box = (td + 1, th + 1, tw + 1)
+        ci = 4
+    row = box[2] | 1
+    q = f_channel_tile(cout)
+    tiles = _cdiv(walk[0], td) * _cdiv(walk[1], th) * _cdiv(walk[2], tw)
+    stage = _round4(ci * box[0] * box[1] * row) + _round4(ci * k ** 3 * q)
+    smem = 2 * 4 * stage
+    grid = (tiles, _cdiv(cout, q), b * (8 if m == 2 else 1))
+    if tiles >= INT31 or grid[1] > GRID_MAX or grid[2] > GRID_MAX or smem > SMEM_MAX:
+        raise ValueError(f"f_plan: {mode} cannot cut x [{b}, {cin}, {d}, {h}, {w}] "
+                         f"to {cout} channels: grid {grid}, {smem} bytes of shared "
+                         f"memory")
+    return FPlan(m, k, F_TILE, walk, box, row, ci, q, tiles, grid, smem)
+
+
+def f1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int) -> FPlan:
+    """The cut of F1, the stride-1 SAME conv in f32 (`f_plan`'s S1 map)."""
+    return f_plan("s1", b, cin, cout, d, h, w, k)
+
+
+def conv_f32(plan: FPlan, x: torch.Tensor, w: torch.Tensor,
+             bias32: Optional[torch.Tensor], per_sample: bool,
+             flip: bool) -> torch.Tensor:
+    """F1 or F2 on validated f32 CUDA tensors, cut as `plan` says (counted
+    as its mode's family, `s1_f32`, `s2_f32` or `t2_f32`); `flip` convolves
+    with `flip_t(w)`, read from w in place."""
+    b, cin, d, h, wd = x.shape
+    cout = w.shape[-4] if flip else w.shape[-5]
+    out = {0: (d, h, wd), 1: (_half(d), _half(h), _half(wd)),
+           2: (2 * d, 2 * h, 2 * wd)}[plan.mode]
+    y = torch.empty((b, cout) + out, dtype=x.dtype, device=x.device)
+    family = _build.family(F_MODES[plan.mode], torch.float32)
+    _build.launch(family, "coma_conv3d_f32", x.device, x.data_ptr(),
+                  w.data_ptr(), _build.ptr(bias32), y.data_ptr(), plan.mode, b,
+                  cin, cout, d, h, wd, plan.k, int(per_sample), int(flip),
+                  *plan.tile, plan.ci, plan.q, plan.smem)
+    return y
+
+
+# FB1 (csrc/conv3d_dw_f32.cu): a block owns 4 cg channels of x x qo og
+# channels of g x k^3 taps of dW and walks a run of bricks of g's grid; a
+# thread owns 4 channels of x x qo of g x the k taps along W of one
+# (td, th) pair.
+FB1_CC = 4
+FB1_MAX_THREADS = 288
+FB1_THREADS = 2 * 2048 * 132  # threads a launch aims for: two waves of full SMs
+FB1_MIN_BRICKS = 4            # bricks per split at least, for the partials' writes
+FB1_MAX_POSITIONS = 16384     # positions per split at most, for the f32 sums' error
+
+
+class FdwPlan(NamedTuple):
+    """How one FB1 call is cut. `mode` 0 (S1) or 1 (S2, the strided map).
+    A block of `threads` = k^2 cg og threads owns `ct` = 4 cg channels of x
+    (S2: full) and `at` = qo og channels of g (S2: half); the bricks of g's
+    grid of each sample (`bricks` of `brick` positions, w fastest) are cut
+    into `splits_per_sample` runs of `bps` (`positions` positions), each
+    writing its partial dW to `workspace` floats, summed in split order by a
+    second launch. `box` is x's staged box a brick, its rows `row` floats;
+    `smem` the bytes of two stages; `grid` (x tiles, g tiles, splits)."""
+    mode: int
+    k: int
+    qo: int
+    cg: int
+    og: int
+    threads: int
+    brick: Tuple[int, int, int]
+    box: Tuple[int, int, int]
+    row: int
+    ct: int
+    at: int
+    bricks: int
+    bps: int
+    positions: int
+    splits_per_sample: int
+    splits: int
+    workspace: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def fb1_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int, w: int,
+             k: int = 3) -> FdwPlan:
+    """The cut of FB1 for x [b, cin, d, h, w] (S2: full) and g [b, cout,
+    ...] on g's grid (S1: x's; `mode` "s2": the stride-2 grid of x, k = 3):
+    qo = 4 channels of g a thread (1 for layers of fewer than 4), og <= 8
+    thread groups along g's channels (16 for S2 and k = 1), cg along x's as
+    many as the block of at most 288 (k = 1: 256) threads holds, bricks of
+    1 x 4 x 32 positions (S2: 1 x 2 x 32), runs of FB1_MIN_BRICKS bricks up
+    to FB1_MAX_POSITIONS positions, so that the launch has about
+    FB1_THREADS threads and at most GRID_MAX splits. Raises ValueError for
+    a shape it cannot cut."""
+    m = {"s1": 0, "s2": 1}[mode]
+    if k not in ((1, 3) if m == 0 else (3,)):
+        raise ValueError(f"fb1_plan: {mode} takes k in {(1, 3) if m == 0 else (3,)}, "
+                         f"got {k}")
+    if min(b, cin, cout, d, h, w) <= 0 or d * h * w >= INT31:
+        raise ValueError(f"fb1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] and "
+                         f"{cout} channels of g")
+    qo = 4 if cout >= 4 else 1
+    og = min(_cdiv(cout, qo), 16 if m == 1 or k == 1 else 8)
+    cg = max(1, min(_cdiv(cin, FB1_CC), (256 if k == 1 else 32) // og))
+    threads = k * k * cg * og
+    brick = (1, 2 if m == 1 else 4, 32)
+    size = (_half(d), _half(h), _half(w)) if m == 1 else (d, h, w)
+    if m == 1:
+        box = (2 * brick[0] + 1, 2 * brick[1] + 1, 2 * brick[2] + 1)
+    else:
+        box = tuple(n + k - 1 for n in brick)
+    row = box[2]
+    ct, at = FB1_CC * cg, qo * og
+    positions = brick[0] * brick[1] * brick[2]
+    smem = 2 * 4 * (_round4(ct * box[0] * box[1] * row) + at * (positions + 4))
+    dw = split_plan(b, cin, cout, size, k ** 3, brick, ct, at,
+                    _cdiv(FB1_THREADS, threads), FB1_MIN_BRICKS,
+                    FB1_MAX_POSITIONS // positions)
+    if (threads > FB1_MAX_THREADS or smem > SMEM_MAX or dw.grid[1] > GRID_MAX
+            or dw.grid[2] > GRID_MAX):
+        raise ValueError(f"fb1_plan: {mode} cannot cut x [{b}, {cin}, {d}, {h}, "
+                         f"{w}] and {cout} channels of g: {threads} threads, "
+                         f"{smem} bytes of shared memory, grid {dw.grid}")
+    return FdwPlan(m, k, qo, cg, og, threads, brick, box, row, ct, at,
+                   dw.bricks, dw.bps, dw.positions, dw.splits_per_sample,
+                   dw.splits, dw.workspace, dw.grid, smem)
+
+
+def dw_f32(plan: FdwPlan, x: torch.Tensor, g: torch.Tensor,
+           per_sample: bool) -> torch.Tensor:
+    """FB1 on validated f32 CUDA tensors, cut as `plan` says (counted as
+    `s1_dw_f32` or `strided_dw_f32` by its map)."""
+    b, cin, d, h, wd = x.shape
+    cout = g.shape[1]
+    k = plan.k
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    out = torch.empty(((b,) if per_sample else ()) + (cout, cin, k, k, k),
+                      dtype=torch.float32, device=x.device)
+    family = _build.family(("s1_dw", "strided_dw")[plan.mode], torch.float32)
+    _build.launch(family, "coma_conv3d_dw_f32", x.device,
+                  x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                  plan.mode, b, cin, cout, d, h, wd, k, int(per_sample),
+                  plan.qo, plan.cg, plan.og, *plan.brick, plan.bps, plan.smem)
+    return out
+
+
 def conv3d_s1_dw(x: torch.Tensor, g: torch.Tensor, k: int,
                  per_sample: bool) -> torch.Tensor:
     """Weight gradient of the stride-1 SAME conv, f32: [Cout, Cin, k, k, k],
     or [B, Cout, Cin, k, k, k] per sample, from x [B, Cin, ...] and the
-    output cotangent g [B, Cout, ...]. A CUDA tensor launches KB1 (bf16
-    only), cut as `dw_plan` says, or raises; a CPU tensor takes the plain
-    version."""
+    output cotangent g [B, Cout, ...]. A CUDA tensor launches KB1 (bf16,
+    cut as `dw_plan` says) or FB1 (f32, cut as `fb1_plan` says; g of x's
+    dtype) or raises; a CPU tensor takes the plain version."""
     if not device_check("conv3d_s1_dw", x):
         return conv3d_s1_dw_plain(x, g, k, per_sample)
-    _build.check_cuda_input("x", x, 5, x.device)
-    _build.check_cuda_input("g", g, 5, x.device)
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, 5, x.device, dtype)
+    _build.check_cuda_input("g", g, 5, x.device, dtype)
     b, cin, d, h, wd = x.shape
     cout = g.shape[1]
     if k not in (1, 3) or g.shape[0] != b or tuple(g.shape[2:]) != (d, h, wd):
         raise ValueError(f"conv3d_s1_dw: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} do not fit a k={k} conv")
+    if dtype == torch.float32:
+        return dw_f32(fb1_plan("s1", b, cin, cout, d, h, wd, k), x, g,
+                      per_sample)
     plan = dw_plan(b, cin, cout, d, h, wd, k)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     out = torch.empty(((b,) if per_sample else ()) + (cout, cin, k, k, k),
@@ -337,8 +567,9 @@ def conv3d_s1(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = conv(x, w) + bias, stride 1, SAME padding, k = w.shape[-1] in
     {1, 3}, differentiable in x, w and bias. A CUDA tensor launches K1
-    (bf16 only, cut as `s1_plan` says; KB1 and K1 in the backward) or
-    raises; a CPU tensor takes the plain versions."""
+    (bf16, cut as `s1_plan` says; KB1 and K1 in the backward) or F1 (f32,
+    cut as `f1_plan` says; FB1 and F1 in the backward), x and w of one
+    dtype, or raises; a CPU tensor takes the plain versions."""
     device_check("conv3d_s1", x)
     return Conv3dS1.apply(x, w, bias)
 

@@ -24,7 +24,11 @@ from w in place.
 KB2 (`csrc/conv3d_dw_s2_tc.cu`) is one tensor-core kernel for every call:
 KB1's per-tap GEMM over positions (`mma.sync`, split-K summed in a fixed
 order) on K2's parity-split halo box, over bricks of 2 x 4 x 16
-half-resolution positions, cut as `sdw_plan` says.
+half-resolution positions, cut as `sdw_plan` says. K2, K3 and KB2 take
+bf16. Their float32 forms, for a CUDA tensor of dtype float32, run on the
+CUDA cores in f32 FMAs (no TF32): F2 (`csrc/conv3d_f32.cu`, the stride-2
+and transposed maps of the kernel that is also F1, cut by `f2_plan`) and
+FB1's strided map (`csrc/conv3d_dw_f32.cu`, cut by `fb1_plan("s2", ...)`).
 
 `conv3d_s2` and `conv3d_t2` are `torch.autograd.Function`s, closed under
 AD as in the JAX package (`conv3d_strided.py:961-1079`): the input gradient
@@ -43,13 +47,19 @@ import torch.nn.functional as F
 from coma_unet_tpu_torch.ops import _build
 from coma_unet_tpu_torch.ops.conv3d import (
     DwPlan,
+    FPlan,
     _cdiv,
+    _half,
     bias_grad,
     channel_tile,
     check_conv_args,
     conv3d_ref,
     conv3d_weight_ref,
+    conv_f32,
     device_check,
+    dw_f32,
+    f_plan,
+    fb1_plan,
     flip_t,
     split_plan,
 )
@@ -101,10 +111,6 @@ def conv3d_strided_dw_plain(full: torch.Tensor, half: torch.Tensor,
                              stride=2)
 
 
-def _half(n: int) -> int:
-    return (n - 1) // 2 + 1
-
-
 # KB2 (csrc/conv3d_dw_s2_tc.cu): a block owns SDW_CT channels of `full` x
 # SDW_AT channels of `half` x 27 taps in registers and walks a run of bricks
 # of half-resolution positions of one sample (221 KB of shared memory: one
@@ -137,17 +143,23 @@ def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
     3^3, zero outside `full`), f32 [Cp, Cf, 3, 3, 3], or [B, Cp, Cf, 3, 3,
     3] per sample: full [B, Cf, D, H, W], half [B, Cp, (D-1)//2+1, ...].
     For the stride-2 conv (full = x, half = g) M is dW; the transposed conv
-    takes full = g, half = x. A CUDA tensor launches KB2 (bf16 only), cut
-    as `sdw_plan` says, or raises; a CPU tensor takes the plain version."""
+    takes full = g, half = x. A CUDA tensor launches KB2 (bf16, cut as
+    `sdw_plan` says) or FB1's strided map (f32, cut by `fb1_plan("s2",
+    ...)`; half of full's dtype) or raises; a CPU tensor takes the plain
+    version."""
     if not device_check("conv3d_strided_dw", full):
         return conv3d_strided_dw_plain(full, half, per_sample)
-    _build.check_cuda_input("full", full, 5, full.device)
-    _build.check_cuda_input("half", half, 5, full.device)
+    dtype = _build.kernel_dtype("full", full)
+    _build.check_cuda_input("full", full, 5, full.device, dtype)
+    _build.check_cuda_input("half", half, 5, full.device, dtype)
     b, cf, d, h, wd = full.shape
     cp = half.shape[1]
     if half.shape[0] != b or tuple(half.shape[2:]) != (_half(d), _half(h), _half(wd)):
         raise ValueError(f"conv3d_strided_dw: half {tuple(half.shape)} is not "
                          f"the stride-2 grid of full {tuple(full.shape)}")
+    if dtype == torch.float32:
+        return dw_f32(fb1_plan("s2", b, cf, cp, d, h, wd), full, half,
+                      per_sample)
     plan = sdw_plan(b, cf, cp, d, h, wd)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=full.device)
     out = torch.empty(((b,) if per_sample else ()) + (cp, cf, 3, 3, 3),
@@ -202,6 +214,14 @@ def s2_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
     return S2Plan(S2_BRICK, S2_CT, at, bricks, (gx, tiles, b), wpack)
 
 
+def f2_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int,
+            w: int) -> FPlan:
+    """The cut of F2, the stride-2 conv (`mode` "s2") or the transposed
+    conv ("t2") in f32, for x [b, cin, d, h, w] to `cout` channels
+    (`f_plan`'s S2 or T2 map)."""
+    return f_plan(mode, b, cin, cout, d, h, w, 3)
+
+
 def _k2(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         flip: bool = False) -> torch.Tensor:
     """K2 on a CUDA tensor, cut as `s2_plan` says; the plain version on a
@@ -213,6 +233,9 @@ def _k2(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
+    if x.dtype == torch.float32:
+        return conv_f32(f2_plan("s2", b, cin, cout, d, h, wd), x, w, bias32,
+                        per_sample, flip)
     plan = s2_plan(b, cin, cout, d, h, wd, per_sample)
     y = torch.empty((b, cout, _half(d), _half(h), _half(wd)), dtype=x.dtype,
                     device=x.device)
@@ -264,6 +287,9 @@ def _k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
+    if x.dtype == torch.float32:
+        return conv_f32(f2_plan("t2", b, cin, cout, d, h, wd), x, w, bias32,
+                        per_sample, flip)
     plan = t2_plan(b, cin, cout, d, h, wd, per_sample)
     y = torch.empty((b, cout, 2 * d, 2 * h, 2 * wd), dtype=x.dtype,
                     device=x.device)
@@ -352,9 +378,10 @@ def conv3d_s2(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-2 SAME k=3 conv (padding 1/1): [B, Cin, D, H, W] ->
     [B, Cout, (D-1)//2+1, (H-1)//2+1, (W-1)//2+1], differentiable in x, w
-    and bias. A CUDA tensor launches K2 (bf16 only, cut as `s2_plan` says;
-    K3 as `conv3d_t2_dx` and KB2 in the backward) or raises; a CPU tensor
-    takes the plain versions."""
+    and bias. A CUDA tensor launches K2 (bf16, cut as `s2_plan` says; K3 as
+    `conv3d_t2_dx` and KB2 in the backward) or F2 (f32, cut as `f2_plan`
+    says; F2's transposed map and FB1 in the backward), x and w of one
+    dtype, or raises; a CPU tensor takes the plain versions."""
     device_check("conv3d_s2", x)
     return Conv3dS2.apply(x, w, bias)
 
@@ -364,7 +391,9 @@ def conv3d_t2(x: torch.Tensor, w: torch.Tensor,
     """Transposed stride-2 k=3 conv, [B, Cin, D, H, W] -> [B, Cout, 2D, 2H,
     2W] (= ConvTranspose3d(padding=1, output_padding=1) with flipped,
     io-swapped weights), differentiable in x, w and bias. A CUDA tensor
-    launches K3 (bf16 only, cut as `t2_plan` says; K2 as `conv3d_s2_dx` and
-    KB2 in the backward) or raises; a CPU tensor takes the plain versions."""
+    launches K3 (bf16, cut as `t2_plan` says; K2 as `conv3d_s2_dx` and KB2
+    in the backward) or F2 (f32, cut as `f2_plan` says; F2's stride-2 map
+    and FB1 in the backward), x and w of one dtype, or raises; a CPU tensor
+    takes the plain versions."""
     device_check("conv3d_t2", x)
     return Conv3dT2.apply(x, w, bias)

@@ -7,7 +7,9 @@ then `u = scale * (x - mean) * rsqrt(var + eps) + shift` and
 `act(u)` with act in {none, relu, leakyrelu (0.01), prelu (one shared
 alpha)}, computed in f32 and stored in x's dtype. The TPU kernel's C == 1
 `[1, B, ...]` view is not needed: the kernel treats every (b, c) as a row.
-The kernels' source is `coma_unet_tpu_torch/csrc/norm_act.cu`.
+The kernels' source is `coma_unet_tpu_torch/csrc/norm_act.cu`; every kernel
+there is templated on the element type, and a CUDA tensor of dtype float32
+launches its float32 form (counted as `norm_act_f32` and so on).
 
 `norm_act` is a `torch.autograd.Function`: on a CUDA tensor the forward
 launches K4 and keeps its per-row (mean, rstd) for KB3, which returns dx,
@@ -49,10 +51,10 @@ class NaPlan(NamedTuple):
     be shorter), each on its own CTA. A round takes `rows_per_round` rows,
     so the grid is `rows_per_round * segs` CTAs and CTA i takes segment
     i % segs of row r * rows_per_round + i // segs in round r, for `rounds`
-    rounds. A CTA keeps `keep` bf16 values of its segment in shared memory
-    (`smem` bytes): KB3 keeps g's first, then as much of x as fits, and
-    reads the rest again. `bulk`: every segment starts and ends on 16 bytes,
-    so it is copied by the bulk copy engine."""
+    rounds. A CTA keeps `keep` values of its segment (of the plan's element
+    size) in shared memory (`smem` bytes): KB3 keeps g's first, then as much
+    of x as fits, and reads the rest again. `bulk`: every segment starts and
+    ends on 16 bytes, so it is copied by the bulk copy engine."""
     segs: int
     rows_per_round: int
     rounds: int
@@ -69,25 +71,28 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def na_plan(rows: int, n: int, kept_bytes_per_voxel: int, sms: int = NA_SMS,
-            smem_per_cta: int = NA_SMEM) -> NaPlan:
-    """The cut of K4 (`kept_bytes_per_voxel` 2: x) or KB3 (4: x and g) for
-    `rows` rows of `n` voxels on `sms` CTAs of `smem_per_cta` bytes: the
-    fewest segments a row that keep it whole in shared memory (at most one
-    a CTA), as many rows a round as the grid takes, the rounds balanced,
-    and each row then spread over as many CTAs as the round leaves, down to
-    NA_MIN_SEG voxels a segment. Rows whose N % 8 != 0 start off 16 bytes:
-    a segment may then touch one more 16-byte group, which the keep allows
-    for."""
-    tensors = kept_bytes_per_voxel // 2
+            smem_per_cta: int = NA_SMEM, elem: int = 2) -> NaPlan:
+    """The cut of K4 (`kept_bytes_per_voxel` = `elem`: x) or KB3 (2 `elem`:
+    x and g) for `rows` rows of `n` voxels of `elem` bytes (2: bf16, 4: the
+    float32 forms) on `sms` CTAs of `smem_per_cta` bytes: the fewest
+    segments a row that keep it whole in shared memory (at most one a CTA),
+    as many rows a round as the grid takes, the rounds balanced, and each
+    row then spread over as many CTAs as the round leaves, down to
+    NA_MIN_SEG voxels a segment. A 16-byte group holds 16 / `elem` values;
+    rows whose N is not a multiple of that start off 16 bytes: a segment
+    may then touch one more group, which the keep allows for. Segments are
+    multiples of 8 voxels for either size."""
+    tensors = kept_bytes_per_voxel // elem
+    vec = 16 // elem                     # values a 16-byte group
     groups = smem_per_cta // 16          # 16-byte groups a CTA can keep
-    ragged = n % 8 != 0
+    ragged = n % vec != 0
 
     def cut(segs):
         seg = 8 * _cdiv(_cdiv(n, segs), 8)
         return seg, _cdiv(n, seg)
 
     def fits(seg):
-        return tensors * (seg // 8 + ragged) <= groups
+        return tensors * (seg // vec + ragged) <= groups
 
     segs = next((s for s in range(1, sms + 1) if fits(cut(s)[0])), sms)
     seg, segs = cut(segs)
@@ -97,9 +102,9 @@ def na_plan(rows: int, n: int, kept_bytes_per_voxel: int, sms: int = NA_SMS,
     spread = min(sms // per_round, max(segs, _cdiv(n, NA_MIN_SEG)))
     if spread > segs:
         seg, segs = cut(spread)
-    keep = 8 * min(groups, tensors * (seg // 8 + ragged))
+    keep = vec * min(groups, tensors * (seg // vec + ragged))
     return NaPlan(segs, per_round, rounds, seg, keep, per_round * segs,
-                  not ragged, 2 * keep)
+                  not ragged, elem * keep)
 
 
 def apply_act(u: torch.Tensor, act: str,
@@ -206,9 +211,11 @@ def _sms(x: torch.Tensor) -> int:
     return _SMS[index]
 
 
-def _plan(x: torch.Tensor, kept_bytes_per_voxel: int) -> NaPlan:
-    """`na_plan` for x's rows on x's device (its own SM count)."""
-    return na_plan(*_rows(x), kept_bytes_per_voxel, _sms(x))
+def _plan(x: torch.Tensor, tensors: int) -> NaPlan:
+    """`na_plan` for x's rows on x's device (its own SM count), keeping
+    `tensors` tensors of x's element size (K4 1, KB3 2)."""
+    elem = x.element_size()
+    return na_plan(*_rows(x), tensors * elem, _sms(x), elem=elem)
 
 
 def _plan_args(plan: NaPlan):
@@ -216,18 +223,26 @@ def _plan_args(plan: NaPlan):
             plan.grid, int(plan.bulk), plan.smem)
 
 
+def _entry(name: str, dtype: torch.dtype) -> tuple:
+    """(family, C entry) of kernel `name` for tensors of `dtype`: the C
+    entry of a float32 form is named like its family."""
+    family = _build.family(name, dtype)
+    return family, "coma_" + family
+
+
 def _k4(x: torch.Tensor, alpha32, scale32, shift32, act: str, eps: float):
     """K4, one launch cut by `na_plan`: (y, stats [rows, 2] = per-row
     (mean, rstd))."""
-    _build.check_cuda_input("x", x, x.dim(), x.device)
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
     rows, n = _rows(x)
-    plan = _plan(x, 2)
+    plan = _plan(x, 1)
     # the partials, then rows + 1 counters that the C entry zeroes
     scratch = torch.empty(rows * plan.segs * 3 + rows + 1,
                           dtype=torch.float32, device=x.device)
     stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    _build.launch("norm_act", "coma_norm_act", x.device, x.data_ptr(),
+    _build.launch(*_entry("norm_act", dtype), x.device, x.data_ptr(),
                   _build.ptr(scale32), _build.ptr(shift32),
                   _build.ptr(alpha32), y.data_ptr(), stats.data_ptr(),
                   scratch.data_ptr(), rows, n, ACTS[act], *_plan_args(plan),
@@ -250,8 +265,9 @@ def norm_act_forward(x: torch.Tensor, alpha: Optional[torch.Tensor],
                      act: Optional[str], scale: Optional[torch.Tensor] = None,
                      shift: Optional[torch.Tensor] = None,
                      eps: float = 1e-5):
-    """K4 on a CUDA tensor (bf16 only): (y, stats), where stats [B * C, 2]
-    holds the per-row (mean, rstd) that `norm_act_bwd` takes."""
+    """K4 on a CUDA tensor (bf16, or its float32 form for f32): (y, stats),
+    where stats [B * C, 2] holds the per-row (mean, rstd) that
+    `norm_act_bwd` takes."""
     act = act or "none"
     return _k4(x, *_cuda_params(x, alpha, act, scale, shift), act, eps)
 
@@ -260,18 +276,20 @@ def norm_act_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
                  alpha: Optional[torch.Tensor], act: Optional[str],
                  scale: Optional[torch.Tensor] = None,
                  shift: Optional[torch.Tensor] = None):
-    """KB3 on CUDA tensors (bf16 x and g): (dx, dalpha [1], dscale [B, C],
-    dshift [B, C]) from the forward's `stats`."""
+    """KB3 on CUDA tensors (x and g bf16, or both f32 for its float32
+    form): (dx, dalpha [1], dscale [B, C], dshift [B, C]) from the
+    forward's `stats`."""
     act = act or "none"
     alpha32, scale32, shift32 = _cuda_params(x, alpha, act, scale, shift)
-    _build.check_cuda_input("x", x, x.dim(), x.device)
-    _build.check_cuda_input("g", g, x.dim(), x.device)
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
+    _build.check_cuda_input("g", g, x.dim(), x.device, dtype)
     rows, n = _rows(x)
     if g.shape != x.shape or tuple(stats.shape) != (rows, 2):
         raise ValueError(f"norm_act_bwd: g {tuple(g.shape)} and stats "
                          f"{tuple(stats.shape)} do not fit x {tuple(x.shape)}")
     _build.check_cuda_input("stats", stats, 2, x.device, torch.float32)
-    plan = _plan(x, 4)
+    plan = _plan(x, 2)
     # the partials, then rows + 1 counters that the C entry zeroes
     scratch = torch.empty(rows * plan.segs * 5 + rows + 1,
                           dtype=torch.float32, device=x.device)
@@ -279,7 +297,7 @@ def norm_act_bwd(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     # whose first value is dalpha (0 unless prelu)
     sums = torch.empty((rows + 1, 5), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    _build.launch("norm_act_bwd", "coma_norm_act_bwd", x.device,
+    _build.launch(*_entry("norm_act_bwd", dtype), x.device,
                   x.data_ptr(), g.data_ptr(), stats.data_ptr(),
                   _build.ptr(scale32), _build.ptr(shift32),
                   _build.ptr(alpha32), dx.data_ptr(), sums.data_ptr(),
@@ -328,8 +346,8 @@ def norm_act(x: torch.Tensor, alpha: Optional[torch.Tensor],
     """Instance norm of x [B, C, ...] with f32 stats, then FiLM (`scale`,
     `shift` [B, C] f32, identity when None) and `act` (`alpha`: the PReLU
     slope, [1]), differentiable in x, alpha, scale and shift. A CUDA tensor
-    launches K4 (bf16 only; KB3 in the backward) or raises; a CPU tensor
-    takes the plain versions."""
+    launches K4 (bf16, or its float32 form for f32; KB3 in the backward) or
+    raises; a CPU tensor takes the plain versions."""
     act = act or "none"
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -423,19 +441,20 @@ def norm_apply_plain(x: torch.Tensor, stats: torch.Tensor,
 
 def norm_stats(x: torch.Tensor) -> torch.Tensor:
     """Each row's (count, mean, M2) over x's spatial dims, [B * C, 3] f64:
-    `coma_norm_stats` on a CUDA tensor (bf16 only), the plain version on a
-    CPU tensor."""
+    `coma_norm_stats` on a CUDA tensor (bf16, or its float32 form for f32),
+    the plain version on a CPU tensor."""
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"norm_stats: unsupported device {x.device}")
         return norm_stats_plain(x)
-    _build.check_cuda_input("x", x, x.dim(), x.device)
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
     rows, n = _rows(x)
     plan = slab_plan(rows, n, _sms(x))
     scratch = torch.empty(rows * plan.segs * 3, dtype=torch.float32,
                           device=x.device)
     out = torch.empty((rows, 3), dtype=torch.float64, device=x.device)
-    _build.launch("norm_stats", "coma_norm_stats", x.device, x.data_ptr(),
+    _build.launch(*_entry("norm_stats", dtype), x.device, x.data_ptr(),
                   scratch.data_ptr(), out.data_ptr(), rows, n, plan.seg,
                   plan.segs)
     return out
@@ -446,8 +465,8 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(scale * (x - mean) * rstd + shift) with the per-row (mean, rstd)
-    `stats` [B * C, 2] f32: `coma_norm_apply` on a CUDA tensor (bf16 only),
-    the plain version on a CPU tensor."""
+    `stats` [B * C, 2] f32: `coma_norm_apply` on a CUDA tensor (bf16, or
+    its float32 form for f32), the plain version on a CPU tensor."""
     act = act or "none"
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -456,7 +475,8 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
             raise ValueError(f"norm_apply: unsupported device {x.device}")
         return norm_apply_plain(x, stats, alpha, act, scale, shift)
     alpha32, scale32, shift32 = _cuda_params(x, alpha, act, scale, shift)
-    _build.check_cuda_input("x", x, x.dim(), x.device)
+    dtype = _build.kernel_dtype("x", x)
+    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
     rows, n = _rows(x)
     if tuple(stats.shape) != (rows, 2):
         raise ValueError(f"norm_apply: stats {tuple(stats.shape)} do not fit "
@@ -464,7 +484,7 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
     _build.check_cuda_input("stats", stats, 2, x.device, torch.float32)
     y = torch.empty_like(x)
     blocks = min(4 * _sms(x), _cdiv(rows * n, 8 * 256))
-    _build.launch("norm_apply", "coma_norm_apply", x.device, x.data_ptr(),
+    _build.launch(*_entry("norm_apply", dtype), x.device, x.data_ptr(),
                   stats.data_ptr(), _build.ptr(scale32), _build.ptr(shift32),
                   _build.ptr(alpha32), y.data_ptr(), rows, n, ACTS[act], blocks)
     return y

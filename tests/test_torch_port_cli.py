@@ -6,8 +6,9 @@ files that `tests/test_cli.py` names, `validate` prints the metrics the
 run's last validation CSV holds, a resume writes to
 `native_target_finetune_<run>` and continues the epochs, and `-cross_val`
 trains one fold directory per fold. The device and dtype rules: `--device
-cuda` without a card raises and names `--device cpu`; a compute dtype
-other than bfloat16 on CUDA exits with status 2 before a model is built;
+cuda` without a card raises and names `--device cpu`; float32 on CUDA
+builds a float32 model with TF32 off, and a compute dtype other than
+bfloat16 and float32 exits with status 2 before a model is built;
 the baselines and `--norm batch` run. `infer --spatial_parallel 2` on two
 gloo ranks writes the volumes of the single-process `infer`, a config's
 `train.spatial_parallel` trains as the run without it, and a baseline,
@@ -196,8 +197,19 @@ def test_cuda_without_a_card_names_the_cpu(cohort, tmp_path, monkeypatch):
         ploop.train(model, None, [])
 
 
+def _dtype_args(tmp_path, how, dtype):
+    if how == "flag":
+        return ["--compute_dtype", dtype]
+    raw = json.loads(json.dumps(TINY))
+    raw["model"]["compute_dtype"] = dtype
+    raw["save_path"] = str(tmp_path / "results")
+    path = tmp_path / f"{dtype}.json"
+    path.write_text(json.dumps(raw))
+    return ["--config", str(path)]
+
+
 @pytest.mark.parametrize("how", ["flag", "config"])
-def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
+def test_float16_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
                                                 capsys, how):
     import coma_unet_tpu_torch.models.contra as contra
     import coma_unet_tpu_torch.models.registry as registry
@@ -207,16 +219,47 @@ def test_float32_on_cuda_exits_2_before_a_model(cohort, tmp_path, monkeypatch,
 
     monkeypatch.setattr(contra, "ContraAttnUNet", no_model)
     monkeypatch.setattr(registry, "build_model", no_model)
-    if how == "flag":
-        args = ["--compute_dtype", "float32"]
-    else:
-        args = ["--config", _config_file(tmp_path / "f32.json")]
+    args = _dtype_args(tmp_path, how, "float16")
     for cmd in (["train", "--splits_dir", cohort["splits"]],
                 ["validate", "--test_lookup", cohort["lookup"]],
                 ["infer", "--input_lookup", cohort["lookup"]]):
         assert main(cmd + args + ["--device", "cuda"] + _tables(cohort)) == 2
         err = capsys.readouterr().err
-        assert "bfloat16" in err and "--device cpu" in err
+        assert "bfloat16" in err and "float32" in err and "--device cpu" in err
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("how", ["flag", "config"])
+def test_float32_on_cuda_builds_a_float32_model(cohort, tmp_path, monkeypatch,
+                                                how):
+    """Float32 on CUDA runs: each command builds its model in float32 on
+    the card (the device and the builder patched: no card is here), with
+    TF32 off in cuDNN and in matmul."""
+    import coma_unet_tpu_torch.models.registry as registry
+
+    built = []
+
+    def build_model(model_type, cfg, device=None, generator=None):
+        built.append((cfg.compute_dtype, torch.device(device),
+                      torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32))
+        raise _Built
+
+    monkeypatch.setattr(ploop, "require_device", lambda d: torch.device(d))
+    monkeypatch.setattr(registry, "build_model", build_model)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    args = _dtype_args(tmp_path, how, "float32")
+    for cmd in (["train", "--splits_dir", cohort["splits"]],
+                ["validate", "--test_lookup", cohort["lookup"]],
+                ["infer", "--input_lookup", cohort["lookup"],
+                 "--out_dir", str(tmp_path / "out")]):
+        with pytest.raises(_Built):
+            main(cmd + args + ["--device", "cuda"] + _tables(cohort))
+    assert built == [("float32", torch.device("cuda"), False, False)] * 3
 
 
 @pytest.mark.parametrize("cmd,flag,item", [

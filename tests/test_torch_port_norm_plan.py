@@ -4,11 +4,12 @@ the CPU, where no kernel runs.
 
 (a) For every K4 and KB3 shape of `chip_smoke.py` phase 3, ragged odd sizes
     (N % 8 != 0), a row larger than the grid's shared memory and 128 small
-    rows, the plan covers every voxel of every row exactly once; a row's
-    segments all fall in one round, on distinct CTAs; the grid is at most
-    the SM count; the kept bytes fit a CTA's shared memory, also for rows
-    that start off 16 bytes (the kernel's aligned groups); and the segments
-    it marks for the bulk copy start and end on 16 bytes.
+    rows, at element size 2 (bf16) and 4 (the float32 forms, whose 16-byte
+    groups hold 4 values), the plan covers every voxel of every row exactly
+    once; a row's segments all fall in one round, on distinct CTAs; the
+    grid is at most the SM count; the kept bytes fit a CTA's shared memory,
+    also for rows that start off 16 bytes (the kernel's aligned groups); and
+    the segments it marks for the bulk copy start and end on 16 bytes.
 (b) A torch emulation of the kernels' arithmetic, cut as the plan says --
     per segment the f32 (count, mean, M2) of x - s (s the row's first
     voxel) or the five f32 backward sums, the f64 merge of a row's
@@ -62,8 +63,9 @@ def _phase3_shapes():
     return shapes
 
 
-# (rows, N, kept bytes a voxel, sms, smem_per_cta)
-PLAN_CASES = sorted(set(
+# (rows, N, kept bytes a voxel, sms, smem_per_cta) at element size 2; then
+# each at element size 4, (rows, N, 2 x kept bytes, sms, smem_per_cta, 4)
+BF16_PLAN_CASES = sorted(set(
     [s + (NA_SMS, NA_SMEM) for s in _phase3_shapes()]
     + [(rows, n, kb, NA_SMS, NA_SMEM) for kb in (2, 4) for rows, n in (
         (48, 27 * 18 * 45),          # [2,24,27,18,45]: N % 8 = 6
@@ -72,6 +74,8 @@ PLAN_CASES = sorted(set(
         (1024, 6 ** 3), (5, 11 ** 3), (1, 7))]
     + [(rows, n, kb, sms, smem) for kb in (2, 4) for rows, n, sms, smem in (
         (6, 210, 8, 160), (3, 216, 7, 96), (17, 1001, 16, 512), (2, 4096, 5, 4096))]))
+PLAN_CASES = BF16_PLAN_CASES + [(rows, n, 2 * kb, sms, smem, 4)
+                                for rows, n, kb, sms, smem in BF16_PLAN_CASES]
 
 
 def _segments(plan, rows, n):
@@ -97,16 +101,17 @@ def _row_segments(plan, rows, n):
     return {row: [(e0, e1) for _, e0, e1 in sorted(p)] for row, p in by_row.items()}
 
 
-def _kept_groups(plan, row, n, e0, e1, kept_bytes_per_voxel):
+def _kept_groups(plan, row, n, e0, e1, kept_bytes_per_voxel, elem=2):
     """The kernel's `segment`: the 16-byte groups the segment touches in
     the row's aligned coordinates (pointers 16-byte aligned), and how many
-    of them it keeps of each tensor (g first)."""
-    o = (row * n) % 8
-    g0, g1 = (o + e0) // 8, _cdiv(o + e1, 8)
+    of them it keeps of each tensor (g first), for `elem`-byte values."""
+    vec = 16 // elem
+    o = (row * n) % vec
+    g0, g1 = (o + e0) // vec, _cdiv(o + e1, vec)
     groups = g1 - g0
-    cap = plan.keep // 8
+    cap = plan.keep // vec
     kept = []
-    for _ in range(kept_bytes_per_voxel // 2):
+    for _ in range(kept_bytes_per_voxel // elem):
         kept.append(min(groups, cap))
         cap -= kept[-1]
     return groups, kept
@@ -133,13 +138,15 @@ def test_phase3_shapes_cover_every_norm_site():
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_na_plan_covers_every_voxel_once(case):
-    rows, n, kb, sms, smem = case
-    plan = na_plan(rows, n, kb, sms, smem)
+    rows, n, kb, sms, smem, *size = case
+    elem = size[0] if size else 2
+    vec = 16 // elem
+    plan = na_plan(rows, n, kb, sms, smem, elem=elem)
     assert 1 <= plan.grid == plan.rows_per_round * plan.segs <= sms
     assert plan.seg % 8 == 0 and (plan.segs - 1) * plan.seg < n <= plan.segs * plan.seg
     assert plan.rows_per_round * plan.rounds >= rows > plan.rows_per_round * (plan.rounds - 1)
-    assert plan.keep % 8 == 0 and 2 * plan.keep == plan.smem <= smem
-    assert plan.bulk == (n % 8 == 0)
+    assert plan.keep % vec == 0 and elem * plan.keep == plan.smem <= smem
+    assert plan.bulk == (n % vec == 0)
     segs = _segments(plan, rows, n)
     # each row once, in one round, its segments on distinct CTAs, tiling [0, n)
     by_row = {}
@@ -155,17 +162,33 @@ def test_na_plan_covers_every_voxel_once(case):
         assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:] + [(n, n + 1)]))
     for _, cta, row, e0, e1 in segs:
         # the kept groups fit the CTA's shared memory, also off 16 bytes
-        groups, kept = _kept_groups(plan, row, n, e0, e1, kb)
-        assert sum(kept) <= plan.keep // 8 and 16 * sum(kept) <= smem
-        assert groups <= _cdiv(e1 - e0, 8) + (n % 8 != 0)
+        groups, kept = _kept_groups(plan, row, n, e0, e1, kb, elem)
+        assert sum(kept) <= plan.keep // vec and 16 * sum(kept) <= smem
+        assert groups <= _cdiv(e1 - e0, vec) + (n % vec != 0)
         if plan.bulk:  # 16-byte aligned start and length
-            assert (2 * (row * n + e0)) % 16 == 0 and (2 * (e1 - e0)) % 16 == 0
+            assert (elem * (row * n + e0)) % 16 == 0 and (elem * (e1 - e0)) % 16 == 0
     # a segment that fits is kept whole, g first
-    groups, kept = _kept_groups(plan, 0, n, 0, min(n, plan.seg), kb)
-    if kb // 2 * groups * 16 <= smem:
-        assert kept == [groups] * (kb // 2)
+    groups, kept = _kept_groups(plan, 0, n, 0, min(n, plan.seg), kb, elem)
+    if kb // elem * groups * 16 <= smem:
+        assert kept == [groups] * (kb // elem)
     else:
         assert 16 * sum(kept) > smem - 16 * kb  # the rest is read again
+
+
+def test_na_plan_keeps_half_as_many_f32_voxels():
+    # the float32 forms: 4 values a 16-byte group, so a CTA keeps half as
+    # many voxels; [2,32,128^3] then takes more segments a row, and the
+    # persistent grid still fits the SMs
+    bf16, f32 = na_plan(64, 128 ** 3, 2), na_plan(64, 128 ** 3, 4, elem=4)
+    assert f32.smem == 4 * f32.keep <= NA_SMEM and f32.grid <= NA_SMS
+    assert f32.keep <= NA_SMEM // 4 < bf16.keep
+    assert f32.segs > bf16.segs
+    # N % 4 == 0 is aligned for f32 though N % 8 != 0 is not for bf16
+    assert na_plan(2, 4 * 1001, 4, elem=4).bulk and not na_plan(2, 4 * 1001, 2).bulk
+    for rows, n in ((32, 216 ** 3), (64, 128 ** 3), (2, 128 ** 3), (48, 27 * 18 * 45)):
+        for kb in (4, 8):
+            plan = na_plan(rows, n, kb, elem=4)
+            assert plan.grid <= NA_SMS and plan.smem <= NA_SMEM
 
 
 def test_na_plan_spreads_and_balances_rows():
