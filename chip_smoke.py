@@ -12,8 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's, K2's, K3's, KB1's and KB2's, in
-              `cuobjdump -sass` of the library: each must have some.
+              tensor-core kernels, K1's, K2's, K3's, KB1's, KB2's and F2's
+              two maps', in `cuobjdump -sass` of the library: each must have
+              some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -47,22 +48,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
               `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
               share of its byte bound. Then the float32 forms (`<family>_f32`:
-              F1 and F2, csrc/conv3d_f32.cu; FB1, csrc/conv3d_dw_f32.cu; K4,
-              KB3, the slab halves and KS templated) at the F32_SITES of the
-              same shapes, on f32 inputs: within F32_TOL of max|plain| (KS bit
-              for bit), two calls bit-identical, each printing the cut
-              `f1_plan`, `f2_plan`, `fb1_plan` or `na_plan` at element size 4
-              chose; the library is cuDNN in f32 with TF32 off
-              (`F.instance_norm` for `instance_norm`, `torch.var_mean` for
-              `norm_stats`, in both dtypes) and the convs' bound counts their
-              operations at the f32 rate outside the tensor cores.
+              F1, csrc/conv3d_f32.cu; F2, csrc/conv3d_s2_f32_tc.cu and
+              csrc/conv3d_t2_f32_tc.cu; FB1, csrc/conv3d_dw_f32.cu; K4, KB3,
+              the slab halves and KS templated) at the F32_SITES of the same
+              shapes, on f32 inputs: within F32_TOL of max|plain| (KS bit for
+              bit), two calls bit-identical, each printing the cut `f1_plan`,
+              `f2_plan`, `fb1_plan` or `na_plan` at element size 4 chose; the
+              library is cuDNN in f32 with TF32 off (`F.instance_norm` for
+              `instance_norm`, `torch.var_mean` for `norm_stats`, in both
+              dtypes) and the convs' bound counts their operations at the
+              3xTF32 rate, PEAK_TF32X3 (each conv case prints its TFLOP/s,
+              its share of that bound and cuDNN's time).
   4. parity:  the full-width flagship at 64^3, b=2, random weights from a
               seed, run on the GPU through the kernels in bf16 and on the CPU
               in f32 through the plain versions; relative L2 error of `out`.
               Then the same weights in float32 on the GPU (the float32
               kernels, TF32 off) against the same CPU forward, within
-              F32_PARITY_TOL, with two planted faults above it: F1's tap 0
-              zeroed and F2's output parity class (1, 1, 1) dropped.
+              F32_PARITY_TOL, with three planted faults above it: F1's tap 0
+              zeroed, F2's output parity class (1, 1, 1) dropped and F2's
+              stride-2 centre tap zeroed.
   5. gradients: one train-step loss and backward of the same model on the
               GPU (kernels, bf16), on the CPU in f32 and on the CPU in bf16
               (plain versions; the rounding baseline): the loss difference
@@ -74,7 +78,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               input-gradient role, the encoder. At b=3 also the float32 route
               on the GPU against the CPU f32: the loss within F32_LOSS_TOL,
               each group within max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor,
-              the CPU f32 route moved by an MRI one ulp up), the two planted
+              the CPU f32 route moved by an MRI one ulp up), the three planted
               faults over a limit.
   6. serving: the default ModelConfig at 128^3: three b=2 full-volume
               requests through `make_infer_fn` and one 216^3 sliding-window
@@ -217,7 +221,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               seed 0, TF32 off: the 128^3 b=2 forward (median of
               F32_FWD_CALLS, CUDA events), F32_STEPS RnC train steps at 128^3
               b=2 (median of steps 2 on; finite non-zero losses), the
-              template-space 216^3 b=1 forward (`make_infer_fn`), and
+              template-space 216^3 b=1 forward (`make_infer_fn`), a
+              torch.profiler top-10 and idle share of one more train step, and
               `cli.main infer --compute_dtype float32` on a synthetic
               6-subject 128^3 cohort with both TF32 flags set True before it
               (the CLI must turn them off). Each path counted from 0: every
@@ -282,12 +287,18 @@ ATTN_TOL = 1e-2       # |psi written by `infer --save_attention` - psi of the fo
                       # another order
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+# H100 SXM f32-accurate FLOP/s on the tensor cores: three TF32 products a
+# product (3xTF32) at the dense TF32 rate. A float32 conv's least time is its
+# operations at this rate, the fastest way the card has to f32-accurate sums
+PEAK_TF32X3 = 495e12 / 3
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
 # the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu),
-# K3 (csrc/conv3d_t2_tc.cu), KB1 (csrc/conv3d_dw_tc.cu) and KB2
-# (csrc/conv3d_dw_s2_tc.cu)
+# K3 (csrc/conv3d_t2_tc.cu), KB1 (csrc/conv3d_dw_tc.cu), KB2
+# (csrc/conv3d_dw_s2_tc.cu) and F2's two maps (csrc/conv3d_s2_f32_tc.cu,
+# csrc/conv3d_t2_f32_tc.cu)
 TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel",
-              "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel")
+              "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel", "conv3d_s2_f32_tc_kernel",
+              "conv3d_t2_f32_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -321,11 +332,12 @@ SOURCES = {
                    "coma_unet_tpu/ops/pallas/norm_act.py:120 _apply_kernel "
                    "(launched at :207)"),
 }
-# the float32 forms (`<family>_f32`): F1 and F2 are one SIMT kernel's three
-# maps, FB1 another's two; K4, KB3, their slab halves and KS are templated
+# the float32 forms (`<family>_f32`): F1 a SIMT kernel, F2's two maps
+# tensor-core kernels in 3xTF32, FB1 a SIMT kernel's two maps; K4, KB3, their
+# slab halves and KS are templated
 F32_SOURCES = {"s1": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
-               "s2": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
-               "t2": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
+               "s2": "coma_unet_tpu_torch/csrc/conv3d_s2_f32_tc.cu",
+               "t2": "coma_unet_tpu_torch/csrc/conv3d_t2_f32_tc.cu",
                "s1_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu",
                "strided_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu"}
 SOURCES.update({family + "_f32": (name, F32_SOURCES.get(family, source), replaces)
@@ -362,6 +374,11 @@ F32_SITES = {
 SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel", "conv3d_dw_s2_tc_kernel",
                  "s1_pack_weights", "dw_reduce_kernel", "norm_act_kernel",
                  "norm_act_bwd_kernel")
+# the same for the float32 step: F1, F2's two maps and their weight packing,
+# FB1 and its split-K sum, K4 and KB3
+F32_KERNELS = ("conv3d_f32_kernel", "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel",
+               "tf32_pack_weights", "conv3d_dw_f32_kernel", "dw_reduce_kernel",
+               "norm_act_kernel", "norm_act_bwd_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -620,7 +637,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
     bound. Each call returns a tensor or a tuple of tensors. A float32
     family (`<family>_f32`) takes f32 inputs, its plain version on the
     kernel's own inputs is its reference, and its convs' operations count
-    at the f32 rate outside the tensor cores."""
+    at the 3xTF32 rate (PEAK_TF32X3)."""
     import torch.nn.functional as F
 
     from coma_unet_tpu_torch import ops
@@ -642,7 +659,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
 
     family, dtype = _base(family)
     f32 = dtype == torch.float32
-    conv_rate = PEAK_F32 if f32 else PEAK_BF16
+    conv_rate = PEAK_TF32X3 if f32 else PEAK_BF16
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -773,7 +790,7 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
         cout = w.shape[-5]
         case["plan"] = (f1_plan(xshape[0], xshape[1], cout, *xshape[2:], w.shape[-1])
                         if family == "s1" else f2_plan(family, xshape[0], xshape[1], cout,
-                                                        *xshape[2:]))
+                                                        *xshape[2:], bool(extra)))
     elif family == "s1":
         case["plan"] = s1_plan(xshape[0], xshape[1], w.shape[-5], *xshape[2:], w.shape[-1],
                                bool(extra))
@@ -925,8 +942,12 @@ def phase_kernels(summary: dict, families=None) -> None:
                       else median_ms(library) if library else None)
         nbytes = _nbytes(case["inputs"]) + _nbytes(got)
         b_ms, b_by = bound_ms(case["ops"], case["rate"], nbytes)
-        if base in ("t2", "strided_dw") or (dtype == torch.float32 and base in (
-                "s1", "s2", "s1_dw")):
+        if dtype == torch.float32 and base in ("s1", "s2", "t2", "s1_dw", "strided_dw"):
+            note += (f"; {case['ops'] / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of its "
+                     f"bound ({b_by} at 3xTF32's {PEAK_TF32X3 / 1e12:.0f} TFLOP/s or "
+                     f"{HBM_BYTES / 1e12:.2f} TB/s); cuDNN f32 {lib_ms:.3f} ms, "
+                     f"{lib_ms / ms:.2f}x the kernel's time")
+        elif base in ("t2", "strided_dw"):
             note += (f"; {case['ops'] / ms / 1e9:.1f} TFLOP/s, "
                      f"{1e3 * nbytes / HBM_BYTES / ms:.1%} of its byte bound")
         del got, ref, case
@@ -984,34 +1005,38 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-F32_FAULTS = ("F1 tap 0 zeroed", "F2 parity class 7 dropped")
+F32_FAULTS = ("F1 tap 0 zeroed", "F2 parity class 7 dropped", "F2 stride-2 centre tap zeroed")
 
 
 @contextlib.contextmanager
 def _planted(fault: str):
     """A planted fault in the float32 convs: F1's forward with tap 0 of its
-    k=3 weights zeroed, or F2's transposed map with the output's parity
-    class (1, 1, 1) dropped (zeroed)."""
+    k=3 weights zeroed, F2's transposed map with the output's parity class
+    (1, 1, 1) dropped (zeroed), or F2's stride-2 forward with its centre tap
+    (1, 1, 1) zeroed; each through the wrapper's launcher, so the kernels
+    run."""
     import coma_unet_tpu_torch.ops.conv3d as conv
     import coma_unet_tpu_torch.ops.conv3d_strided as strided
 
-    module = conv if fault == F32_FAULTS[0] else strided
-    good = module.conv_f32
+    module, name = (conv, "conv_f32") if fault == F32_FAULTS[0] else (strided, "conv_f2")
+    good = getattr(module, name)
 
     def bad(plan, x, w, bias32, per_sample, flip):
-        if fault == F32_FAULTS[0] and plan.mode == 0 and plan.k == 3 and not flip:
+        tap = (0 if fault == F32_FAULTS[0] and plan.k == 3
+               else 1 if fault == F32_FAULTS[2] and plan.mode == "s2" else None)
+        if tap is not None and not flip:
             w = w.clone()
-            w[..., 0, 0, 0] = 0.0
+            w[..., tap, tap, tap] = 0.0
         y = good(plan, x, w, bias32, per_sample, flip)
-        if fault == F32_FAULTS[1] and plan.mode == 2 and not flip:
+        if fault == F32_FAULTS[1] and plan.mode == "t2" and not flip:
             y[..., 1::2, 1::2, 1::2] = 0.0
         return y
 
-    module.conv_f32 = bad
+    setattr(module, name, bad)
     try:
         yield
     finally:
-        module.conv_f32 = good
+        setattr(module, name, good)
 
 
 def phase_parity(s: int = 64, b: int = 2, template: bool = False, seed: int = 0,
@@ -1409,10 +1434,11 @@ def phase_training() -> dict:
     return launches
 
 
-def profile_step(fn, detail: bool = True) -> tuple:
+def profile_step(fn, detail: bool = True, names=SMALL_KERNELS) -> tuple:
     """torch.profiler over one call of `fn`: wall time, summed kernel time,
     the device's idle share and, with `detail`, the top 10 kernels by device
-    time. Returns (wall ms, kernel ms)."""
+    time and the time of each kernel of `names`. Returns (wall ms, kernel
+    ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1451,7 +1477,7 @@ def profile_step(fn, detail: bool = True) -> tuple:
     print("  named kernels: " + "; ".join(
         f"{name} {by_name[name][0]:.3f} ms x{by_name[name][1]} "
         f"({by_name[name][0] / total:.2%})" if name in by_name else f"{name} not run"
-        for name in SMALL_KERNELS))
+        for name in names))
     return wall, total
 
 
@@ -3128,6 +3154,8 @@ def phase_float32() -> dict:
               f"{float(metrics['grad_norm']):.4f}; step b=2 128^3: median {med:.2f} ms over "
               f"steps 2-{F32_STEPS} ({[round(t, 2) for t in step_ms]}); peak memory "
               f"{train_peak:.2f} GiB")
+        print("float32 train step b=2 128^3, one more step under the profiler:")
+        profile_step(lambda: step(tb, roi_w), names=F32_KERNELS)
         del model, state, step, metrics, tb
         gc.collect()
         torch.cuda.empty_cache()

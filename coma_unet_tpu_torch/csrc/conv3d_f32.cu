@@ -1,52 +1,36 @@
-// F1 and F2: the float32 forms of K1, K2 and K3, on the CUDA cores. One
-// kernel template computes three index maps, each a sum in f32 over the
-// input channels c and the taps t = (td, th, tw) of w[(b,) o, c, t]:
-//   S1 (F1), the stride-1 SAME conv, k in {1, 3}:
+// F1: the float32 form of K1, on the CUDA cores. One kernel template
+// computes the stride-1 SAME conv, k in {1, 3}, a sum in f32 over the input
+// channels c and the taps t = (td, th, tw) of w[(b,) o, c, t]:
 //     y[b, o, q] = sum_{c,t} w[o, c, t] * x[b, c, q + t - k / 2]
-//   S2 (F2), the stride-2 SAME conv, k = 3, output (n - 1) / 2 + 1 an axis:
-//     y[b, o, q] = sum_{c,t} w[o, c, t] * x[b, c, 2q + t - 1]
-//   T2 (F2), the transposed stride-2 conv (the JAX package's lhs-dilated
-//     correlation), k = 3, output 2n an axis:
-//     y[b, o, q] = sum over the taps with q + t - 1 even of
-//                  w[o, c, t] * x[b, c, (q + t - 1) / 2]
 // (+ bias[o], f32, may be absent), with x zero outside the volume. x, y are
 // f32 NCDHW, w f32 [Cout, Cin, k^3] shared or [B, Cout, Cin, k^3] per sample
 // (the CondConv sites). With flip, w is the forward layer's [B?, Cin, Cout,
 // k^3] read as flip_t(w)[o, c, t] = w[c, o, k^3 - 1 - t]: the input
-// gradients of the three convs (ops/conv3d.py:conv3d_s1_dx, ops/
-// conv3d_strided.py:conv3d_s2_dx and conv3d_t2_dx).
+// gradient (ops/conv3d.py:conv3d_s1_dx). F2, the stride-2 and transposed
+// convs in float32, runs on the tensor cores (conv3d_s2_f32_tc.cu,
+// conv3d_t2_f32_tc.cu).
 //
 // Replaces, in float32, from coma_unet_tpu/ops/pallas/ (the kernel table in
 // PERF.md): conv3d.py `_pallas_conv3d_fwd` and `_pallas_conv3d_fwd_htiled`,
 // conv3d_p1.py `_p1_fwd`, conv3d_packed.py `_packed_fwd` / `pallas_conv3d_w64`
-// (rows #1, #2, #3, #6, #8; S1), conv3d_strided.py `_s2_fwd_v1`, `_s2_fwd_v2`
-// and phase_split.py `pallas_hwsplit` (#10-#12; S2), `_t2_fwd_v1` and
-// `_t2_fwd_v2` (#14, #15; T2). The TPU kernels switch to Precision.HIGHEST for
+// (rows #1, #2, #3, #6, #8). The TPU kernels switch to Precision.HIGHEST for
 // f32: every product here is an f32 FMA, no TF32.
 //
-// What bounds them on the H100: at the wide sites f32 operations (no tensor
+// What bounds it on the H100: at the wide sites f32 operations (on the CUDA
 // cores: 67 TFLOP/s), at 16 channels or fewer on either side bytes. Design:
-// a block of 256 threads owns a tile of 4 x 8 x 32 positions of the grid it
-// walks (the output for S1 and S2, the input for T2) and Q output channels
-// (1, 4, 8 or 16; ops/conv3d.py:f_plan picks the smallest that holds the
-// layer, wider layers take tiles), in registers: a thread owns 4 consecutive
-// positions along W x Q channels. The block walks Cin in stages of CI
-// channels; per stage it copies the input box of its tile (zero outside the
-// volume: the padding, done here) and the stage's weights [c][t][Q] into
-// shared memory by 4-byte cp.async, two stages in flight, so that stage i+1
-// lands while stage i is summed. Per channel and (td, th) a thread loads the
-// box row its positions need once and uses it for every tw and every one
-// of its Q channels (the Q weights of a tap are float4 broadcasts):
-//   S1: 4 + k - 1 values, 4 k Q FMAs;
-//   S2: the box is stored with the even positions along W first, so that
-//       output q's taps read even q, odd q, even q + 1 at unit stride: 9
-//       values, 12 Q FMAs;
-//   T2: blockIdx.z carries the output's parity class (pd, ph, pw); per axis
-//       class 0 takes tap 1 at input offset 0, class 1 taps 0 and 2 at
-//       offsets 0 and 1, so a block runs only its class's 1-8 taps; the box
-//       is the tile and one plane more on the high side of each axis.
-// Every output is one thread's ordered sum: no split-K, no atomics, the
-// same bits from call to call. Element offsets are 64-bit.
+// a block of 256 threads owns a tile of 4 x 8 x 32 output positions and Q
+// output channels (1, 4, 8 or 16; ops/conv3d.py:f1_plan picks the smallest
+// that holds the layer, wider layers take tiles), in registers: a thread
+// owns 4 consecutive positions along W x Q channels. The block walks Cin in
+// stages of CI channels; per stage it copies the input box of its tile
+// (zero outside the volume: the padding, done here) and the stage's weights
+// [c][t][Q] into shared memory by 4-byte cp.async, two stages in flight, so
+// that stage i+1 lands while stage i is summed. Per channel and (td, th) a
+// thread loads the box row its positions need once (4 + k - 1 values) and
+// uses it for every tw and every one of its Q channels (4 k Q FMAs; the Q
+// weights of a tap are float4 broadcasts). Every output is one thread's
+// ordered sum: no split-K, no atomics, the same bits from call to call.
+// Element offsets are 64-bit.
 #include "f32_common.cuh"
 
 namespace {
@@ -56,20 +40,15 @@ using namespace coma::f32;
 
 constexpr int THREADS = 256;
 constexpr int VW = 4;                 // consecutive positions along W a thread owns
-constexpr int TD = 4, TH = 8, TW = 8 * VW;  // the block's tile of the grid
+constexpr int TD = 4, TH = 8, TW = 8 * VW;  // the block's tile of output positions
 constexpr int MAX_SMEM = 227 * 1024;
 
-enum Mode { S1 = 0, S2 = 1, T2 = 2 };
-
 // The staged box of one input channel and the stage's sizes.
-template <int MODE, int K>
+template <int K>
 struct Geo {
-  static constexpr int BD = MODE == S2 ? 2 * TD + 1 : MODE == T2 ? TD + 1 : TD + K - 1;
-  static constexpr int BH = MODE == S2 ? 2 * TH + 1 : MODE == T2 ? TH + 1 : TH + K - 1;
-  static constexpr int BW = MODE == S2 ? 2 * TW + 1 : MODE == T2 ? TW + 1 : TW + K - 1;
+  static constexpr int BD = TD + K - 1, BH = TH + K - 1, BW = TW + K - 1;
   static constexpr int ROW = BW | 1;  // odd: a warp's 4 rows fall in distinct banks
-  static constexpr int HALF = (BW + 1) / 2;
-  static constexpr int CI = MODE == S2 ? 2 : (MODE == S1 && K == 1) ? 8 : 4;
+  static constexpr int CI = K == 1 ? 8 : 4;
   static constexpr int TAPS = K * K * K;
   static constexpr int XBOX = BD * BH * ROW;
   static constexpr int XS = round4(CI * XBOX);
@@ -85,13 +64,11 @@ struct FArgs {
   const float* bias;   // [Cout] or null
   float* y;
   int64_t Cin, Cout;
-  int D, H, W;         // the input
-  int OD, OH, OW;      // the output
-  int GD, GH, GW;      // the grid the threads walk
+  int D, H, W;
   int tiles_h, tiles_w;
   int64_t wb, wo, wc;  // weight strides: sample (0 if shared), output and input channel
   int flip;
-  int vec;             // S1, S2: output rows take float4 stores
+  int vec;             // output rows take float4 stores
 };
 
 // acc[q][i] += xv[i] * wt[q] for the Q weights of one tap.
@@ -131,72 +108,32 @@ __device__ __forceinline__ void window(float (&out)[VW], const float (&v)[N]) {
 }
 
 // One input channel's contribution: xc its box, wc its weights [t][Q].
-template <int MODE, int K, int Q>
+template <int K, int Q>
 __device__ __forceinline__ void channel(float (&acc)[Q][VW], const float* __restrict__ xc,
-                                        const float* __restrict__ wc, int dz, int hy, int wq,
-                                        int cls) {
-  using G = Geo<MODE, K>;
+                                        const float* __restrict__ wc, int dz, int hy, int wq) {
+  using G = Geo<K>;
   float xt[VW];
-  if constexpr (MODE == S1) {
 #pragma unroll
-    for (int kd = 0; kd < K; ++kd)
+  for (int kd = 0; kd < K; ++kd)
 #pragma unroll
-      for (int kh = 0; kh < K; ++kh) {
-        float xv[VW + K - 1];
-        load_row(xv, xc + ((dz + kd) * G::BH + hy + kh) * G::ROW + VW * wq);
-        const float* wt = wc + (kd * K + kh) * K * Q;
-        window<0>(xt, xv);
-        fma_tap<Q>(acc, wt, xt);
-        if constexpr (K == 3) {
-          window<1>(xt, xv);
-          fma_tap<Q>(acc, wt + Q, xt);
-          window<2>(xt, xv);
-          fma_tap<Q>(acc, wt + 2 * Q, xt);
-        }
-      }
-  } else if constexpr (MODE == S2) {
-#pragma unroll
-    for (int kd = 0; kd < 3; ++kd)
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        const float* row = xc + ((2 * dz + kd) * G::BH + 2 * hy + kh) * G::ROW + VW * wq;
-        float xe[VW + 1], xo[VW];
-        load_row(xe, row);
-        load_row(xo, row + G::HALF);
-        const float* wt = wc + (kd * 3 + kh) * 3 * Q;
-        window<0>(xt, xe);
-        fma_tap<Q>(acc, wt, xt);
-        fma_tap<Q>(acc, wt + Q, xo);
-        window<1>(xt, xe);
+    for (int kh = 0; kh < K; ++kh) {
+      float xv[VW + K - 1];
+      load_row(xv, xc + ((dz + kd) * G::BH + hy + kh) * G::ROW + VW * wq);
+      const float* wt = wc + (kd * K + kh) * K * Q;
+      window<0>(xt, xv);
+      fma_tap<Q>(acc, wt, xt);
+      if constexpr (K == 3) {
+        window<1>(xt, xv);
+        fma_tap<Q>(acc, wt + Q, xt);
+        window<2>(xt, xv);
         fma_tap<Q>(acc, wt + 2 * Q, xt);
       }
-  } else {
-    const int pd = cls >> 2, ph = (cls >> 1) & 1, pw = cls & 1;
-    // class 0 of an axis: tap 1 at offset 0; class 1: taps 0 and 2 at 0 and 1
-    for (int i = 0; i <= pd; ++i) {
-      const int td = pd ? 2 * i : 1;
-      for (int j = 0; j <= ph; ++j) {
-        const int th = ph ? 2 * j : 1;
-        float xv[VW + 1];
-        load_row(xv, xc + ((dz + i) * G::BH + hy + j) * G::ROW + VW * wq);
-        const float* wt = wc + (td * 3 + th) * 3 * Q;
-        if (pw == 0) {
-          window<0>(xt, xv);
-          fma_tap<Q>(acc, wt + Q, xt);
-        } else {
-          window<0>(xt, xv);
-          fma_tap<Q>(acc, wt, xt);
-          window<1>(xt, xv);
-          fma_tap<Q>(acc, wt + 2 * Q, xt);
-        }
-      }
     }
-  }
 }
 
-template <int MODE, int K, int Q>
+template <int K, int Q>
 __global__ void __launch_bounds__(THREADS) conv3d_f32_kernel(const FArgs a) {
-  using G = Geo<MODE, K>;
+  using G = Geo<K>;
   extern __shared__ __align__(16) float smem[];
   constexpr int STAGE = G::template stage<Q>();
   const int tid = threadIdx.x;
@@ -208,12 +145,9 @@ __global__ void __launch_bounds__(THREADS) conv3d_f32_kernel(const FArgs a) {
   const int td = (int)(tile / a.tiles_h);
   const int gd0 = td * TD, gh0 = th * TH, gw0 = tw * TW;
   const int o0 = blockIdx.y * Q;
-  const int b = MODE == T2 ? blockIdx.z / 8 : blockIdx.z;
-  const int cls = MODE == T2 ? blockIdx.z % 8 : 0;
+  const int b = blockIdx.z;
   // the box's origin in the input
-  const int xd0 = MODE == S1 ? gd0 - K / 2 : MODE == S2 ? 2 * gd0 - 1 : gd0;
-  const int xh0 = MODE == S1 ? gh0 - K / 2 : MODE == S2 ? 2 * gh0 - 1 : gh0;
-  const int xw0 = MODE == S1 ? gw0 - K / 2 : MODE == S2 ? 2 * gw0 - 1 : gw0;
+  const int xd0 = gd0 - K / 2, xh0 = gh0 - K / 2, xw0 = gw0 - K / 2;
   const float* const xb = a.x + (int64_t)b * a.Cin * a.D * a.H * a.W;
   const float* const wb = a.w + b * a.wb;
 
@@ -221,8 +155,8 @@ __global__ void __launch_bounds__(THREADS) conv3d_f32_kernel(const FArgs a) {
     float* const xs = smem + buf * STAGE;
     float* const ws = xs + G::XS;
     const int64_t c0 = (int64_t)chunk * G::CI;
-    stage_box<G::BD, G::BH, G::BW, G::ROW, MODE == S2>(xs, G::XBOX, xb, a.Cin, a.D, a.H, a.W,
-                                                       c0, G::CI, xd0, xh0, xw0, tid, THREADS);
+    stage_box<G::BD, G::BH, G::BW, G::ROW, false>(xs, G::XBOX, xb, a.Cin, a.D, a.H, a.W, c0,
+                                                  G::CI, xd0, xh0, xw0, tid, THREADS);
     for (int e = tid; e < G::CI * G::TAPS * Q; e += THREADS) {
       const int q = e % Q, t = (e / Q) % G::TAPS, c = e / (Q * G::TAPS);
       const int64_t o = o0 + q, ci = c0 + c;
@@ -254,56 +188,54 @@ __global__ void __launch_bounds__(THREADS) conv3d_f32_kernel(const FArgs a) {
     const int64_t left = a.Cin - (int64_t)k * G::CI;
     const int nc = left < G::CI ? (int)left : G::CI;
     for (int c = 0; c < nc; ++c)
-      channel<MODE, K, Q>(acc, xs + c * G::XBOX, ws + c * G::TAPS * Q, dz, hy, wq, cls);
+      channel<K, Q>(acc, xs + c * G::XBOX, ws + c * G::TAPS * Q, dz, hy, wq);
     __syncthreads();
   }
 
   // epilogue: bias, then each thread's 4 positions of each of its channels
-  const int pd = cls >> 2, ph = (cls >> 1) & 1, pw = cls & 1;
   const int gd = gd0 + dz, gh = gh0 + hy, gw = gw0 + VW * wq;
-  if (gd >= a.GD || gh >= a.GH) return;
+  if (gd >= a.D || gh >= a.H) return;
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int64_t o = o0 + q;
     if (o >= a.Cout) break;
     const float bv = a.bias ? a.bias[o] : 0.f;
-    const int od = MODE == T2 ? 2 * gd + pd : gd, oh = MODE == T2 ? 2 * gh + ph : gh;
-    float* const yr = a.y + (((b * a.Cout + o) * a.OD + od) * (int64_t)a.OH + oh) * a.OW;
-    if (MODE != T2 && a.vec && gw + VW <= a.GW) {
+    float* const yr = a.y + (((b * a.Cout + o) * a.D + gd) * (int64_t)a.H + gh) * a.W;
+    if (a.vec && gw + VW <= a.W) {
       *reinterpret_cast<float4*>(yr + gw) =
           make_float4(acc[q][0] + bv, acc[q][1] + bv, acc[q][2] + bv, acc[q][3] + bv);
       continue;
     }
 #pragma unroll
     for (int i = 0; i < VW; ++i)
-      if (gw + i < a.GW) yr[MODE == T2 ? 2 * (gw + i) + pw : gw + i] = acc[q][i] + bv;
+      if (gw + i < a.W) yr[gw + i] = acc[q][i] + bv;
   }
 }
 
-template <int MODE, int K, int Q>
+template <int K, int Q>
 cudaError_t launch(const FArgs& a, dim3 grid, cudaStream_t stream) {
-  constexpr int smem = Geo<MODE, K>::template smem<Q>();
+  constexpr int smem = Geo<K>::template smem<Q>();
   static_assert(smem <= MAX_SMEM, "a stage pair must fit a CTA");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3d_f32_kernel<MODE, K, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv3d_f32_kernel<K, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  conv3d_f32_kernel<MODE, K, Q><<<grid, THREADS, smem, stream>>>(a);
+  conv3d_f32_kernel<K, Q><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MODE, int K>
+template <int K>
 cudaError_t launch_q(const FArgs& a, int64_t q, dim3 grid, cudaStream_t stream) {
   switch (q) {
-    case 1: return launch<MODE, K, 1>(a, grid, stream);
-    case 4: return launch<MODE, K, 4>(a, grid, stream);
-    case 8: return launch<MODE, K, 8>(a, grid, stream);
-    default: return launch<MODE, K, 16>(a, grid, stream);
+    case 1: return launch<K, 1>(a, grid, stream);
+    case 4: return launch<K, 4>(a, grid, stream);
+    case 8: return launch<K, 8>(a, grid, stream);
+    default: return launch<K, 16>(a, grid, stream);
   }
 }
 
-template <int MODE, int K>
+template <int K>
 int64_t smem_of(int64_t q) {
-  using G = Geo<MODE, K>;
+  using G = Geo<K>;
   switch (q) {
     case 1: return G::template smem<1>();
     case 4: return G::template smem<4>();
@@ -314,27 +246,23 @@ int64_t smem_of(int64_t q) {
 
 }  // namespace
 
-// F1 (mode 0, k in {1, 3}) and F2 (mode 1: the stride-2 conv; mode 2: the
-// transposed conv; k = 3) in f32. x [B, Cin, D, H, W]; y [B, Cout, ...] of
-// the mode's size; w [B?, Cout, Cin, k^3] (B? = B with per_sample), or with
-// flip the forward layer's [B?, Cin, Cout, k^3] read as flip_t(w); bias f32
-// [Cout] or null. The cut comes from ops/conv3d.py:f_plan: the tile (td, th,
-// tw) = (4, 8, 32) of the grid, ci input channels a stage (the mode's
-// constant), q in {1, 4, 8, 16} output channels a block, smem the bytes of
-// two stages; the grid is (tiles, ceil(Cout / q), B, or 8 B for mode 2).
-COMA_API int coma_conv3d_f32(const void* x, const void* w, const void* bias, void* y, int64_t mode,
-                             int64_t B, int64_t Cin, int64_t Cout, int64_t D, int64_t H,
-                             int64_t W, int64_t k, int64_t per_sample, int64_t flip, int64_t td,
-                             int64_t th, int64_t tw, int64_t ci, int64_t q, int64_t smem,
-                             void* stream) {
-  if (mode < 0 || mode > 2 || (k != 3 && (mode != S1 || k != 1)) || B <= 0 || Cin <= 0 ||
-      Cout <= 0 || D <= 0 || H <= 0 || W <= 0 || D * H * W >= (int64_t(1) << 31) || td != TD ||
-      th != TH || tw != TW || (q != 1 && q != 4 && q != 8 && q != 16))
+// F1 in f32, k in {1, 3}. x [B, Cin, D, H, W], y [B, Cout, D, H, W]; w [B?,
+// Cout, Cin, k^3] (B? = B with per_sample), or with flip the forward
+// layer's [B?, Cin, Cout, k^3] read as flip_t(w); bias f32 [Cout] or null.
+// The cut comes from ops/conv3d.py:f1_plan: the tile (td, th, tw) = (4, 8,
+// 32) of the output, ci input channels a stage (8 at k = 1, else 4), q in
+// {1, 4, 8, 16} output channels a block, smem the bytes of two stages; the
+// grid is (tiles, ceil(Cout / q), B).
+COMA_API int coma_conv3d_f32(const void* x, const void* w, const void* bias, void* y, int64_t B,
+                             int64_t Cin, int64_t Cout, int64_t D, int64_t H, int64_t W,
+                             int64_t k, int64_t per_sample, int64_t flip, int64_t td, int64_t th,
+                             int64_t tw, int64_t ci, int64_t q, int64_t smem, void* stream) {
+  if ((k != 1 && k != 3) || B <= 0 || Cin <= 0 || Cout <= 0 || D <= 0 || H <= 0 || W <= 0 ||
+      D * H * W >= (int64_t(1) << 31) || td != TD || th != TH || tw != TW ||
+      (q != 1 && q != 4 && q != 8 && q != 16))
     return cudaErrorInvalidValue;
-  const int64_t want_ci = mode == S2 ? 2 : (mode == S1 && k == 1) ? 8 : 4;
-  const int64_t want_smem = mode == S1 ? (k == 1 ? smem_of<S1, 1>(q) : smem_of<S1, 3>(q))
-                            : mode == S2 ? smem_of<S2, 3>(q)
-                                         : smem_of<T2, 3>(q);
+  const int64_t want_ci = k == 1 ? 8 : 4;
+  const int64_t want_smem = k == 1 ? smem_of<1>(q) : smem_of<3>(q);
   if (ci != want_ci || smem != want_smem) return cudaErrorInvalidValue;
   FArgs a{};
   a.x = static_cast<const float*>(x);
@@ -346,32 +274,17 @@ COMA_API int coma_conv3d_f32(const void* x, const void* w, const void* bias, voi
   a.D = (int)D;
   a.H = (int)H;
   a.W = (int)W;
-  if (mode == S1) {
-    a.OD = a.D, a.OH = a.H, a.OW = a.W;
-  } else if (mode == S2) {
-    a.OD = (a.D - 1) / 2 + 1, a.OH = (a.H - 1) / 2 + 1, a.OW = (a.W - 1) / 2 + 1;
-  } else {
-    a.OD = 2 * a.D, a.OH = 2 * a.H, a.OW = 2 * a.W;
-  }
-  if (mode == T2) {
-    a.GD = a.D, a.GH = a.H, a.GW = a.W;
-  } else {
-    a.GD = a.OD, a.GH = a.OH, a.GW = a.OW;
-  }
-  a.tiles_h = (int)cdiv(a.GH, TH);
-  a.tiles_w = (int)cdiv(a.GW, TW);
-  const int64_t tiles = cdiv(a.GD, TD) * a.tiles_h * a.tiles_w;
+  a.tiles_h = (int)cdiv(a.H, TH);
+  a.tiles_w = (int)cdiv(a.W, TW);
+  const int64_t tiles = cdiv(a.D, TD) * a.tiles_h * a.tiles_w;
   const int64_t taps = k * k * k;
   a.wb = per_sample ? Cout * Cin * taps : 0;
   a.wo = flip ? taps : Cin * taps;
   a.wc = flip ? Cout * taps : taps;
   a.flip = (int)(flip != 0);
-  a.vec = a.OW % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int64_t gz = mode == T2 ? 8 * B : B;
-  if (tiles > 0x7fffffff || cdiv(Cout, q) > 65535 || gz > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)cdiv(Cout, q), (unsigned)gz);
+  a.vec = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (tiles > 0x7fffffff || cdiv(Cout, q) > 65535 || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)cdiv(Cout, q), (unsigned)B);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (mode == S1) return k == 1 ? launch_q<S1, 1>(a, q, grid, s) : launch_q<S1, 3>(a, q, grid, s);
-  if (mode == S2) return launch_q<S2, 3>(a, q, grid, s);
-  return launch_q<T2, 3>(a, q, grid, s);
+  return k == 1 ? launch_q<1>(a, q, grid, s) : launch_q<3>(a, q, grid, s);
 }

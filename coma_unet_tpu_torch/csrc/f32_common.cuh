@@ -1,4 +1,4 @@
-// Pieces shared by the float32 SIMT kernels F1/F2 (conv3d_f32.cu) and FB1
+// Pieces shared by the float32 SIMT kernels F1 (conv3d_f32.cu) and FB1
 // (conv3d_dw_f32.cu): 4-byte cp.async with zero fill, and the staging of a
 // box of an NCDHW tensor into shared memory.
 #pragma once

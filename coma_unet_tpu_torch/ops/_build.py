@@ -75,7 +75,9 @@ _SIGNATURES = {
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
     "coma_norm_stats": [_P] * 3 + [_I] * 4 + [_P],
     "coma_norm_apply": [_P] * 6 + [_I] * 4 + [_P],
-    "coma_conv3d_f32": [_P] * 4 + [_I] * 16 + [_P],
+    "coma_conv3d_f32": [_P] * 4 + [_I] * 15 + [_P],
+    "coma_conv3d_s2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
+    "coma_conv3d_t2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
     "coma_conv3d_dw_f32": [_P] * 4 + [_I] * 17 + [_P],
     "coma_norm_act_f32": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _P],
     "coma_norm_act_bwd_f32": [_P] * 10 + [_I] * 11 + [_P],

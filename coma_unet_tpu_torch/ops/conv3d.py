@@ -18,8 +18,8 @@ chunks of Cin, cut as `s1_plan` says. As the input gradient it reads
 `flip_t(w)` from w in place. KB1 (`csrc/conv3d_dw_tc.cu`) is cut by
 `dw_plan`. Both take bf16. Their float32 forms, for a CUDA tensor of dtype
 float32, run on the CUDA cores in f32 FMAs (no TF32): F1
-(`csrc/conv3d_f32.cu`, the stride-1 map of the kernel that is also F2,
-cut by `f1_plan`) and FB1 (`csrc/conv3d_dw_f32.cu`, cut by `fb1_plan`).
+(`csrc/conv3d_f32.cu`, cut by `f1_plan`) and FB1 (`csrc/conv3d_dw_f32.cu`,
+cut by `fb1_plan`).
 """
 
 from __future__ import annotations
@@ -281,14 +281,12 @@ def split_plan(b: int, c: int, a: int, size: Tuple[int, int, int], taps: int,
                   b * sps * a * c * taps, (_cdiv(c, ct), _cdiv(a, at), b * sps))
 
 
-# F1 and F2 (csrc/conv3d_f32.cu): a block of 256 threads owns a tile of
-# F_TILE positions of the grid it walks (the output for S1 and S2, the input
-# for T2) and q output channels; a thread owns 4 consecutive positions along
-# W x q channels in f32 registers. The block walks Cin in stages of ci
-# channels, each the input box of its tile and the stage's weights in
-# shared memory, two stages in flight.
+# F1 (csrc/conv3d_f32.cu): a block of 256 threads owns a tile of F_TILE
+# output positions and q output channels; a thread owns 4 consecutive
+# positions along W x q channels in f32 registers. The block walks Cin in
+# stages of ci channels, each the input box of its tile and the stage's
+# weights in shared memory, two stages in flight.
 F_TILE = (4, 8, 32)         # (td, th, tw); 8 threads take a row of tw positions
-F_MODES = ("s1", "s2", "t2")
 SMEM_MAX = 227 * 1024       # shared memory a CTA may have on the H100
 INT31 = 2 ** 31
 
@@ -298,19 +296,13 @@ def _round4(n: int) -> int:
 
 
 class FPlan(NamedTuple):
-    """How one F1 or F2 call is cut. `mode` is 0 (S1: the stride-1 conv), 1
-    (S2: the stride-2 conv) or 2 (T2: the transposed conv). A block owns
-    `tile` positions (d, h, w) of the `walk` grid (the output for S1 and S2,
-    the input for T2, whose blocks each take one of the 8 parity classes of
-    the output) and `q` output channels, and stages `ci` input channels at a
-    time: each channel's input `box` (its rows `row` floats apart in shared
-    memory; S2 stores the even positions along W first) and their weights.
-    `grid` is the launch grid: `tiles` tiles, output-channel tiles, samples
-    (x 8 classes for T2). `smem` is the bytes of two stages."""
-    mode: int
+    """How one F1 call is cut. A block owns `tile` output positions (d, h,
+    w) and `q` output channels, and stages `ci` input channels at a time:
+    each channel's input `box` (its rows `row` floats apart in shared
+    memory) and their weights. `grid` is the launch grid: `tiles` tiles,
+    output-channel tiles, samples. `smem` is the bytes of two stages."""
     k: int
     tile: Tuple[int, int, int]
-    walk: Tuple[int, int, int]
     box: Tuple[int, int, int]
     row: int
     ci: int
@@ -321,70 +313,46 @@ class FPlan(NamedTuple):
 
 
 def f_channel_tile(cout: int) -> int:
-    """q of F1 and F2: 1, 4, 8 or 16 output channels a block, the smallest
-    that holds the layer, up to 16 (wider layers take tiles)."""
+    """q of F1: 1, 4, 8 or 16 output channels a block, the smallest that
+    holds the layer, up to 16 (wider layers take tiles)."""
     return 1 if cout == 1 else 4 if cout <= 4 else 8 if cout <= 8 else 16
 
 
-def f_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int, w: int,
-           k: int = 3) -> FPlan:
-    """The cut of F1 (`mode` "s1", k in {1, 3}) or F2 ("s2": the stride-2
-    conv, "t2": the transposed conv; k = 3) for x [b, cin, d, h, w] to
-    `cout` channels. Raises ValueError for a shape the kernel cannot take:
-    a volume of 2^31 voxels or more, more tiles or channel tiles than a
-    launch grid holds."""
-    m = F_MODES.index(mode)
-    if k not in ((1, 3) if m == 0 else (3,)):
-        raise ValueError(f"f_plan: {mode} takes k in {(1, 3) if m == 0 else (3,)}, "
-                         f"got {k}")
+def f1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int) -> FPlan:
+    """The cut of F1, the stride-1 SAME conv in f32 (k in {1, 3}), for x
+    [b, cin, d, h, w] to `cout` channels. Raises ValueError for a shape the
+    kernel cannot take: a volume of 2^31 voxels or more, more tiles or
+    channel tiles than a launch grid holds."""
+    if k not in (1, 3):
+        raise ValueError(f"f1_plan: takes k in (1, 3), got {k}")
     if min(b, cin, cout, d, h, w) <= 0 or d * h * w >= INT31:
-        raise ValueError(f"f_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
+        raise ValueError(f"f1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
                          f"{cout} channels")
     td, th, tw = F_TILE
-    if m == 0:
-        walk = (d, h, w)
-        box = (td + k - 1, th + k - 1, tw + k - 1)
-        ci = 8 if k == 1 else 4
-    elif m == 1:
-        walk = (_half(d), _half(h), _half(w))
-        box = (2 * td + 1, 2 * th + 1, 2 * tw + 1)
-        ci = 2
-    else:
-        walk = (d, h, w)
-        box = (td + 1, th + 1, tw + 1)
-        ci = 4
+    box = (td + k - 1, th + k - 1, tw + k - 1)
+    ci = 8 if k == 1 else 4
     row = box[2] | 1
     q = f_channel_tile(cout)
-    tiles = _cdiv(walk[0], td) * _cdiv(walk[1], th) * _cdiv(walk[2], tw)
+    tiles = _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
     stage = _round4(ci * box[0] * box[1] * row) + _round4(ci * k ** 3 * q)
     smem = 2 * 4 * stage
-    grid = (tiles, _cdiv(cout, q), b * (8 if m == 2 else 1))
+    grid = (tiles, _cdiv(cout, q), b)
     if tiles >= INT31 or grid[1] > GRID_MAX or grid[2] > GRID_MAX or smem > SMEM_MAX:
-        raise ValueError(f"f_plan: {mode} cannot cut x [{b}, {cin}, {d}, {h}, {w}] "
-                         f"to {cout} channels: grid {grid}, {smem} bytes of shared "
-                         f"memory")
-    return FPlan(m, k, F_TILE, walk, box, row, ci, q, tiles, grid, smem)
-
-
-def f1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int) -> FPlan:
-    """The cut of F1, the stride-1 SAME conv in f32 (`f_plan`'s S1 map)."""
-    return f_plan("s1", b, cin, cout, d, h, w, k)
+        raise ValueError(f"f1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
+                         f"{cout} channels: grid {grid}, {smem} bytes of shared memory")
+    return FPlan(k, F_TILE, box, row, ci, q, tiles, grid, smem)
 
 
 def conv_f32(plan: FPlan, x: torch.Tensor, w: torch.Tensor,
              bias32: Optional[torch.Tensor], per_sample: bool,
              flip: bool) -> torch.Tensor:
-    """F1 or F2 on validated f32 CUDA tensors, cut as `plan` says (counted
-    as its mode's family, `s1_f32`, `s2_f32` or `t2_f32`); `flip` convolves
-    with `flip_t(w)`, read from w in place."""
+    """F1 on validated f32 CUDA tensors, cut as `plan` says (counted as
+    `s1_f32`); `flip` convolves with `flip_t(w)`, read from w in place."""
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
-    out = {0: (d, h, wd), 1: (_half(d), _half(h), _half(wd)),
-           2: (2 * d, 2 * h, 2 * wd)}[plan.mode]
-    y = torch.empty((b, cout) + out, dtype=x.dtype, device=x.device)
-    family = _build.family(F_MODES[plan.mode], torch.float32)
-    _build.launch(family, "coma_conv3d_f32", x.device, x.data_ptr(),
-                  w.data_ptr(), _build.ptr(bias32), y.data_ptr(), plan.mode, b,
+    y = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
+    _build.launch(_build.family("s1", torch.float32), "coma_conv3d_f32", x.device,
+                  x.data_ptr(), w.data_ptr(), _build.ptr(bias32), y.data_ptr(), b,
                   cin, cout, d, h, wd, plan.k, int(per_sample), int(flip),
                   *plan.tile, plan.ci, plan.q, plan.smem)
     return y

@@ -25,10 +25,13 @@ KB2 (`csrc/conv3d_dw_s2_tc.cu`) is one tensor-core kernel for every call:
 KB1's per-tap GEMM over positions (`mma.sync`, split-K summed in a fixed
 order) on K2's parity-split halo box, over bricks of 2 x 4 x 16
 half-resolution positions, cut as `sdw_plan` says. K2, K3 and KB2 take
-bf16. Their float32 forms, for a CUDA tensor of dtype float32, run on the
-CUDA cores in f32 FMAs (no TF32): F2 (`csrc/conv3d_f32.cu`, the stride-2
-and transposed maps of the kernel that is also F1, cut by `f2_plan`) and
-FB1's strided map (`csrc/conv3d_dw_f32.cu`, cut by `fb1_plan("s2", ...)`).
+bf16. Their float32 forms, for a CUDA tensor of dtype float32: F2, K2's and
+K3's designs in f32 on the tensor cores, every product as three TF32
+`mma.sync` (3xTF32: f32 accuracy), a block holding up to 64 output channels
+of the stride-2 map (`csrc/conv3d_s2_f32_tc.cu`) or 32 of the transposed one
+(`csrc/conv3d_t2_f32_tc.cu`), both cut by `f2_plan`; and FB1's strided map
+on the CUDA cores in f32 FMAs (`csrc/conv3d_dw_f32.cu`, cut by
+`fb1_plan("s2", ...)`).
 
 `conv3d_s2` and `conv3d_t2` are `torch.autograd.Function`s, closed under
 AD as in the JAX package (`conv3d_strided.py:961-1079`): the input gradient
@@ -46,8 +49,9 @@ import torch.nn.functional as F
 
 from coma_unet_tpu_torch.ops import _build
 from coma_unet_tpu_torch.ops.conv3d import (
+    GRID_MAX,
+    INT31,
     DwPlan,
-    FPlan,
     _cdiv,
     _half,
     bias_grad,
@@ -55,10 +59,8 @@ from coma_unet_tpu_torch.ops.conv3d import (
     check_conv_args,
     conv3d_ref,
     conv3d_weight_ref,
-    conv_f32,
     device_check,
     dw_f32,
-    f_plan,
     fb1_plan,
     flip_t,
     split_plan,
@@ -214,28 +216,101 @@ def s2_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
     return S2Plan(S2_BRICK, S2_CT, at, bricks, (gx, tiles, b), wpack)
 
 
+# F2 (csrc/conv3d_s2_f32_tc.cu, csrc/conv3d_t2_f32_tc.cu): K2's and K3's
+# designs in f32, every product as three TF32 mma.sync. A block owns `at`
+# output channels of one sample and walks bricks of F2_BRICK positions (the
+# stride-2 map's output positions, the transposed map's input positions),
+# each in chunks of F2_CT input channels; the packed weights hold the TF32
+# hi and lo planes.
+F2_MODES = ("s2", "t2")
+F2_BRICK = (2, 4, 16)   # (bd, bh, bw) positions; bw is one m16 tile of mma
+F2_CT = 8               # input channels per chunk: one k8 step of the TF32 mma
+F2_T2_AT = 32           # the transposed map's output channels per block
+F2_BLOCKS = 132         # blocks a launch aims for: one a streaming multiprocessor
+                        # of the H100 (145,008 bytes of shared memory at AT = 64
+                        # for the stride-2 map, 136,512 for the transposed one)
+
+
+class F2Plan(NamedTuple):
+    """How one F2 call is cut: `mode` "s2" (the stride-2 conv) or "t2"
+    (the transposed conv); otherwise as `S2Plan`, with `wpack` the f32
+    length of the packed weights (their TF32 hi and lo planes)."""
+    mode: str
+    brick: Tuple[int, int, int]
+    ct: int
+    at: int
+    bricks: int
+    grid: Tuple[int, int, int]
+    wpack: int
+
+
 def f2_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int,
-            w: int) -> FPlan:
+            w: int, per_sample: bool = False) -> F2Plan:
     """The cut of F2, the stride-2 conv (`mode` "s2") or the transposed
-    conv ("t2") in f32, for x [b, cin, d, h, w] to `cout` channels
-    (`f_plan`'s S2 or T2 map)."""
-    return f_plan(mode, b, cin, cout, d, h, w, 3)
+    conv ("t2") in f32, for x [b, cin, d, h, w] and 3^3 weights to `cout`
+    channels (per sample or shared): chunks of F2_CT input channels, AT =
+    64 output channels for the stride-2 map (32 where 32 hold the layer)
+    and 32 for the transposed one, bricks of F2_BRICK positions of the
+    grid the map walks (the ((n - 1) // 2 + 1)-per-axis output for "s2",
+    the input for "t2"), and about F2_BLOCKS blocks in all, at least one
+    per sample and output-channel tile and at most one per brick. Raises
+    ValueError for a shape the kernels cannot take: an input (s2) or output
+    (t2) of 2^31 voxels or more, more samples or channel tiles than a launch
+    grid holds."""
+    if mode not in F2_MODES:
+        raise ValueError(f"f2_plan: mode is one of {F2_MODES}, got {mode!r}")
+    voxels = d * h * w * (8 if mode == "t2" else 1)
+    if min(b, cin, cout, d, h, w) <= 0 or voxels >= INT31:
+        raise ValueError(f"f2_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
+                         f"{cout} channels")
+    at = F2_T2_AT if mode == "t2" else 32 if cout <= 32 else 64
+    walk = (_half(d), _half(h), _half(w)) if mode == "s2" else (d, h, w)
+    bricks = 1
+    for n, e in zip(walk, F2_BRICK):
+        bricks *= _cdiv(n, e)
+    tiles = _cdiv(cout, at)
+    if b > GRID_MAX or tiles > GRID_MAX:
+        raise ValueError(f"f2_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
+                         f"{cout} channels: {b} samples x {tiles} channel tiles")
+    gx = min(bricks, _cdiv(F2_BLOCKS, tiles * b))
+    wpack = (b if per_sample else 1) * tiles * _cdiv(cin, F2_CT) * 27 * 2 * at * F2_CT
+    return F2Plan(mode, F2_BRICK, F2_CT, at, bricks, (gx, tiles, b), wpack)
+
+
+def conv_f2(plan: F2Plan, x: torch.Tensor, w: torch.Tensor,
+            bias32: Optional[torch.Tensor], per_sample: bool,
+            flip: bool) -> torch.Tensor:
+    """F2 on validated f32 CUDA tensors, cut as `plan` says (counted as
+    `s2_f32` or `t2_f32`); `flip` convolves with `flip_t(w)`, which the
+    weight packing reads from w in place."""
+    b, cin, d, h, wd = x.shape
+    cout = w.shape[-4] if flip else w.shape[-5]
+    out = ((_half(d), _half(h), _half(wd)) if plan.mode == "s2"
+           else (2 * d, 2 * h, 2 * wd))
+    y = torch.empty((b, cout) + out, dtype=x.dtype, device=x.device)
+    wpack = torch.empty(plan.wpack, dtype=torch.float32, device=x.device)
+    _build.launch(_build.family(plan.mode, torch.float32),
+                  f"coma_conv3d_{plan.mode}_f32_tc", x.device, x.data_ptr(),
+                  w.data_ptr(), wpack.data_ptr(), _build.ptr(bias32),
+                  y.data_ptr(), b, cin, cout, d, h, wd, int(per_sample),
+                  int(flip), *plan.brick, plan.ct, plan.at, plan.grid[0])
+    return y
 
 
 def _k2(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         flip: bool = False) -> torch.Tensor:
-    """K2 on a CUDA tensor, cut as `s2_plan` says; the plain version on a
-    CPU tensor. `flip` convolves with `flip_t(w)` (the transposed conv's
-    input gradient), which the kernel's weight packing reads from w in
-    place."""
+    """K2 (bf16) or F2's stride-2 map (f32) on a CUDA tensor, cut as
+    `s2_plan` or `f2_plan` says; the plain version on a CPU tensor.
+    `flip` convolves with `flip_t(w)` (the transposed conv's input
+    gradient), which the kernel's weight packing reads from w in place."""
     if not device_check("conv3d_s2", x):
         return conv3d_s2_plain(x, flip_t(w) if flip else w, bias)
     _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
     if x.dtype == torch.float32:
-        return conv_f32(f2_plan("s2", b, cin, cout, d, h, wd), x, w, bias32,
-                        per_sample, flip)
+        return conv_f2(f2_plan("s2", b, cin, cout, d, h, wd, per_sample), x, w,
+                       bias32, per_sample, flip)
     plan = s2_plan(b, cin, cout, d, h, wd, per_sample)
     y = torch.empty((b, cout, _half(d), _half(h), _half(wd)), dtype=x.dtype,
                     device=x.device)
@@ -278,18 +353,18 @@ def t2_plan(b: int, cin: int, cout: int, d: int, h: int, w: int,
 
 def _k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         flip: bool = False) -> torch.Tensor:
-    """K3 on a CUDA tensor, cut as `t2_plan` says; the plain version on a
-    CPU tensor. `flip` convolves with `flip_t(w)` (the stride-2 conv's
-    input gradient), which the kernel's weight packing reads from w in
-    place."""
+    """K3 (bf16) or F2's transposed map (f32) on a CUDA tensor, cut as
+    `t2_plan` or `f2_plan` says; the plain version on a CPU tensor.
+    `flip` convolves with `flip_t(w)` (the stride-2 conv's input
+    gradient), which the kernel's weight packing reads from w in place."""
     if not device_check("conv3d_t2", x):
         return conv3d_t2_plain(x, flip_t(w) if flip else w, bias)
     _, per_sample, bias32 = check_conv_args(x, w, bias, (3,), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
     if x.dtype == torch.float32:
-        return conv_f32(f2_plan("t2", b, cin, cout, d, h, wd), x, w, bias32,
-                        per_sample, flip)
+        return conv_f2(f2_plan("t2", b, cin, cout, d, h, wd, per_sample), x, w,
+                       bias32, per_sample, flip)
     plan = t2_plan(b, cin, cout, d, h, wd, per_sample)
     y = torch.empty((b, cout, 2 * d, 2 * h, 2 * wd), dtype=x.dtype,
                     device=x.device)

@@ -1,24 +1,24 @@
 """The float32 forms of the port's kernels, checked on the CPU, where no
-kernel runs: F1 and F2 (`csrc/conv3d_f32.cu`, cut by `ops/conv3d.py:f_plan`
-through `f1_plan` and `ops/conv3d_strided.py:f2_plan`), FB1
-(`csrc/conv3d_dw_f32.cu`, cut by `ops/conv3d.py:fb1_plan`), the dtype rules
-of the wrappers, and the CLI's float32 on CUDA.
+kernel runs: F1 (`csrc/conv3d_f32.cu`, cut by `ops/conv3d.py:f1_plan`),
+FB1 (`csrc/conv3d_dw_f32.cu`, cut by `ops/conv3d.py:fb1_plan`), the dtype
+rules of the wrappers, and the CLI's float32 on CUDA. F2, the stride-2 and
+transposed convs in f32, is checked in `tests/test_torch_port_f2_tc.py`.
 
-(a) At every conv shape the paths reach (the K1, K2, K3, KB1 and KB2 cases
-    of `chip_smoke.py` phase 3, whose shapes the float32 paths share) and
-    at ragged ones, the F1/F2 plan's blocks and threads cover every output
-    position exactly once (T2: each of the 8 parity classes), its channel
-    tiles every output channel once, and two stages fit 227 KB; the FB1
-    plan's splits cover every brick of every sample once, its bricks every
-    position of g's grid once, its tiles every channel pair once, within
-    227 KB and 288 threads. A shape neither can cut raises.
+(a) At every stride-1 conv shape the paths reach (the K1 cases of
+    `chip_smoke.py` phase 3, whose shapes the float32 paths share) and at
+    ragged ones, the F1 plan's blocks and threads cover every output
+    position exactly once, its channel tiles every output channel once, and
+    two stages fit 227 KB; at every KB1 and KB2 shape the FB1 plan's splits
+    cover every brick of every sample once, its bricks every position of
+    g's grid once, its tiles every channel pair once, within 227 KB and 288
+    threads. A shape neither can cut raises.
 (b) A float64 emulation of each kernel's index maps, cut as its plan says
-    -- the staged box with its zero fill (S2's even positions first), the
-    weights read through the strides and the flip the C entry sets, T2's
-    per-class taps and offsets, FB1's per-split partials summed in split
-    order -- equals the plain version (PyTorch's conv) within 1e-10, for
-    shared and per-sample weights, the forward and the input-gradient
-    (flipped) roles, and both weight-gradient maps.
+    -- the staged box with its zero fill (FB1's strided map: its even
+    positions first), the weights read through the strides and the flip
+    the C entry sets, FB1's per-split partials summed in split order --
+    equals the plain version (PyTorch's conv) within 1e-10, for shared and
+    per-sample weights, the forward and the input-gradient (flipped) roles,
+    and both weight-gradient maps.
 (c) `check_cuda_input` takes float32 and refuses a tensor of another dtype
     than its call's; a bf16 x with f32 weights raises in `check_conv_args`
     (never cast), and float16 raises.
@@ -55,7 +55,6 @@ from coma_unet_tpu_torch.ops.conv3d import (
     fb1_plan,
     flip_t,
 )
-from coma_unet_tpu_torch.ops.conv3d_strided import conv_transpose3d_ref, f2_plan
 
 TOL = 1e-10
 F_THREADS, F_VW = 256, 4
@@ -70,11 +69,11 @@ def _half(n):
 
 
 def _conv_shapes():
-    """(mode, b, cin, cout, d, h, w, k) of every K1, K2 and K3 case of
-    phase 3, as the kernel sees it (an input gradient: the cotangent in)."""
+    """(mode, b, cin, cout, d, h, w, k) of every K1 case of phase 3, as the
+    kernel sees it (an input gradient: the cotangent in)."""
     shapes = set()
     for family, _, xshape, wshape, extra, entry in chip_smoke._kernel_cases():
-        if family in ("s1", "s2", "t2"):
+        if family == "s1":
             b, cin, d, h, w = xshape
             cout = wshape[1] if entry == "dx" else wshape[0]
             shapes.add((family, b, cin, cout, d, h, w, wshape[-1]))
@@ -94,17 +93,7 @@ def _dw_shapes():
 
 
 RAGGED = [("s1", 2, 5, 3, 9, 10, 37, 3), ("s1", 1, 9, 17, 5, 3, 33, 1),
-          ("s2", 2, 3, 5, 9, 17, 35, 3), ("t2", 2, 5, 3, 5, 9, 33, 3)]
-
-
-def _plan(mode, b, cin, cout, d, h, w, k):
-    return f1_plan(b, cin, cout, d, h, w, k) if mode == "s1" else \
-        f2_plan(mode, b, cin, cout, d, h, w)
-
-
-def _out_size(mode, d, h, w):
-    return {"s1": (d, h, w), "s2": (_half(d), _half(h), _half(w)),
-            "t2": (2 * d, 2 * h, 2 * w)}[mode]
+          ("s1", 2, 3, 5, 9, 17, 35, 3), ("s1", 2, 5, 3, 5, 9, 33, 1)]
 
 
 def _thread_offsets():
@@ -118,7 +107,7 @@ def _thread_offsets():
 
 def test_phase3_shapes_cover_every_conv_site():
     conv, dw = _conv_shapes(), _dw_shapes()
-    assert {s[0] for s in conv} == {"s1", "s2", "t2"} and len(conv) >= 30
+    assert {s[0] for s in conv} == {"s1"} and len(conv) >= 25
     assert {s[0] for s in dw} == {"s1", "s2"} and len(dw) >= 20
     # the wide layers take 16 channels a block, the narrow ones 1, 4 or 8
     assert f1_plan(2, 32, 32, 128, 128, 128, 3).q == 16
@@ -128,37 +117,29 @@ def test_phase3_shapes_cover_every_conv_site():
 @pytest.mark.parametrize("shape", sorted(set(_conv_shapes()) | set(RAGGED)),
                          ids=lambda s: "x".join(map(str, s)))
 def test_f_plan_covers_every_output_once(shape):
-    mode, b, cin, cout, d, h, w, k = shape
-    plan = _plan(*shape)
+    _, b, cin, cout, d, h, w, k = shape
+    plan = f1_plan(b, cin, cout, d, h, w, k)
     assert plan.smem <= SMEM_MAX and plan.grid[1] <= GRID_MAX and plan.grid[2] <= GRID_MAX
-    assert plan.grid == (plan.tiles, _cdiv(cout, plan.q), b * (8 if mode == "t2" else 1))
+    assert plan.grid == (plan.tiles, _cdiv(cout, plan.q), b) and plan.k == k
     # the channel tiles: every output channel once
     chans = np.bincount((np.arange(plan.grid[1])[:, None] * plan.q
                          + np.arange(plan.q)[None, :]).reshape(-1))[:cout]
     assert (chans == 1).all()
-    # the spatial tiles: each block's threads' positions of the walked grid,
-    # masked at its edge, mapped to the output (T2: once per parity class)
+    # the spatial tiles: each block's threads' output positions, masked at
+    # the volume's edge
     td, th, tw = plan.tile
-    gd, gh, gw = plan.walk
-    tiles_h, tiles_w = _cdiv(gh, th), _cdiv(gw, tw)
-    assert plan.tiles == _cdiv(gd, td) * tiles_h * tiles_w
+    tiles_h, tiles_w = _cdiv(h, th), _cdiv(w, tw)
+    assert plan.tiles == _cdiv(d, td) * tiles_h * tiles_w
     dz, hy, wx = _thread_offsets()
-    od, oh, ow = _out_size(mode, d, h, w)
-    counts = np.zeros(od * oh * ow, np.int32)
-    classes = range(8) if mode == "t2" else (0,)
+    counts = np.zeros(d * h * w, np.int32)
     for chunk in np.array_split(np.arange(plan.tiles), max(1, plan.tiles // 512)):
         t_w, t_h, t_d = chunk % tiles_w, (chunk // tiles_w) % tiles_h, chunk // (tiles_w * tiles_h)
         pd_ = (t_d[:, None] * td + dz[None, :]).reshape(-1)
         ph_ = (t_h[:, None] * th + hy[None, :]).reshape(-1)
         pw_ = (t_w[:, None] * tw + wx[None, :]).reshape(-1)
-        keep = (pd_ < gd) & (ph_ < gh) & (pw_ < gw)
-        pd_, ph_, pw_ = pd_[keep], ph_[keep], pw_[keep]
-        for cls in classes:
-            if mode == "t2":
-                qd, qh, qw = 2 * pd_ + (cls >> 2), 2 * ph_ + ((cls >> 1) & 1), 2 * pw_ + (cls & 1)
-            else:
-                qd, qh, qw = pd_, ph_, pw_
-            counts += np.bincount((qd * oh + qh) * ow + qw, minlength=counts.size).astype(np.int32)
+        keep = (pd_ < d) & (ph_ < h) & (pw_ < w)
+        counts += np.bincount(((pd_ * h + ph_) * w + pw_)[keep],
+                              minlength=counts.size).astype(np.int32)
     assert (counts == 1).all()
 
 
@@ -168,11 +149,11 @@ def test_f_plan_raises_on_shapes_it_cannot_cut():
     with pytest.raises(ValueError):
         f1_plan(1, 4, 4, 2048, 1024, 1024, 3)              # 2^31 voxels
     with pytest.raises(ValueError):
-        f2_plan("t2", GRID_MAX // 8 + 1, 4, 4, 8, 8, 8)    # samples x classes
+        f1_plan(GRID_MAX + 1, 4, 4, 8, 8, 8, 3)            # samples
     with pytest.raises(ValueError):
         f1_plan(1, 4, 4, 8, 8, 8, 5)                       # k
     with pytest.raises(ValueError):
-        f2_plan("s2", 0, 4, 4, 8, 8, 8)
+        f1_plan(0, 4, 4, 8, 8, 8, 3)
 
 
 # ---------------------------------------------------------------- FB1 plan
@@ -244,21 +225,18 @@ def _weights(w, o, c, t, flip, per_sample, b, cout, cin, taps):
 
 
 def emulate_f(x, w, bias, plan, per_sample, flip):
-    """F1 or F2 (`plan.mode`) as the kernel computes it, in x's dtype: per
-    block the staged box (zero outside, S2 split by parity along W), the
-    stage's weights, the mode's taps over the thread's positions."""
-    mode = plan.mode
+    """F1 as the kernel computes it, in x's dtype: per block the staged box
+    (zero outside), the stage's weights, the k^3 taps over the thread's
+    positions."""
     b_n, cin = x.shape[:2]
     cout = w.shape[-4] if flip else w.shape[-5]
     k = plan.k
     taps = k ** 3
     d, h, wd = x.shape[2:]
-    out = {0: (d, h, wd), 1: (_half(d), _half(h), _half(wd)), 2: (2 * d, 2 * h, 2 * wd)}[mode]
-    y = torch.full((b_n, cout) + out, float("nan"), dtype=x.dtype)
+    y = torch.full((b_n, cout, d, h, wd), float("nan"), dtype=x.dtype)
     td, th, tw = plan.tile
-    gd, gh, gw = plan.walk
     bd, bh, bw = plan.box
-    tiles_h, tiles_w = _cdiv(gh, th), _cdiv(gw, tw)
+    tiles_h, tiles_w = _cdiv(h, th), _cdiv(wd, tw)
     o_all = torch.arange(cout)
     c_all = torch.arange(cin)
     for b in range(b_n):
@@ -268,54 +246,23 @@ def emulate_f(x, w, bias, plan, per_sample, flip):
         for tile in range(plan.tiles):
             t_w, t_h, t_d = tile % tiles_w, (tile // tiles_w) % tiles_h, tile // (tiles_w * tiles_h)
             g0 = (t_d * td, t_h * th, t_w * tw)
-            org = [g - k // 2 for g in g0] if mode == 0 else \
-                [2 * g - 1 for g in g0] if mode == 1 else list(g0)
+            org = [g - k // 2 for g in g0]
             box = torch.zeros((cin, bd, bh, plan.row), dtype=x.dtype)
             src = [(max(o_, 0), min(o_ + n, s)) for o_, n, s in zip(org, (bd, bh, bw), (d, h, wd))]
             if all(lo < hi for lo, hi in src):
-                piece = x[b, :, src[0][0]:src[0][1], src[1][0]:src[1][1], src[2][0]:src[2][1]]
-                cols = torch.arange(src[2][0] - org[2], src[2][1] - org[2])
-                if mode == 1:   # even positions first, then the odd ones
-                    cols = (cols % 2) * ((bw + 1) // 2) + cols // 2
                 box[:, src[0][0] - org[0]:src[0][1] - org[0],
-                    src[1][0] - org[1]:src[1][1] - org[1], cols] = piece
-            n_d, n_h = min(td, gd - g0[0]), min(th, gh - g0[1])
-            n_w = min(tw, gw - g0[2])
-            if mode == 0:
-                acc = sum(torch.einsum("oc,cdhw->odhw", wt[:, :, (kd * k + kh) * k + kw],
-                                       box[:, kd:kd + td, kh:kh + th, kw:kw + tw])
-                          for kd, kh, kw in itertools.product(range(k), repeat=3))
-                y[b, :, g0[0]:g0[0] + n_d, g0[1]:g0[1] + n_h, g0[2]:g0[2] + n_w] = (
-                    acc[:, :n_d, :n_h, :n_w])
-            elif mode == 1:
-                half = (bw + 1) // 2
-                cols = {0: slice(0, tw), 1: slice(half, half + tw), 2: slice(1, tw + 1)}
-                acc = sum(torch.einsum("oc,cdhw->odhw", wt[:, :, (kd * 3 + kh) * 3 + kw],
-                                       box[:, kd:kd + 2 * td:2, kh:kh + 2 * th:2, cols[kw]])
-                          for kd, kh, kw in itertools.product(range(3), repeat=3))
-                y[b, :, g0[0]:g0[0] + n_d, g0[1]:g0[1] + n_h, g0[2]:g0[2] + n_w] = (
-                    acc[:, :n_d, :n_h, :n_w])
-            else:
-                axis = {0: [(1, 0)], 1: [(0, 0), (2, 1)]}  # class -> (tap, offset)
-                for cls in range(8):
-                    pd, ph, pw = cls >> 2, (cls >> 1) & 1, cls & 1
-                    acc = sum(torch.einsum("oc,cdhw->odhw", wt[:, :, (ta * 3 + tb) * 3 + tc],
-                                           box[:, oa:oa + td, ob:ob + th, oc:oc + tw])
-                              for (ta, oa), (tb, ob), (tc, oc) in itertools.product(
-                                  axis[pd], axis[ph], axis[pw]))
-                    y[b, :, 2 * g0[0] + pd:2 * (g0[0] + n_d):2, 2 * g0[1] + ph:2 * (g0[1] + n_h):2,
-                      2 * g0[2] + pw:2 * (g0[2] + n_w):2] = acc[:, :n_d, :n_h, :n_w]
+                    src[1][0] - org[1]:src[1][1] - org[1],
+                    src[2][0] - org[2]:src[2][1] - org[2]] = x[
+                        b, :, src[0][0]:src[0][1], src[1][0]:src[1][1], src[2][0]:src[2][1]]
+            n_d, n_h, n_w = min(td, d - g0[0]), min(th, h - g0[1]), min(tw, wd - g0[2])
+            acc = sum(torch.einsum("oc,cdhw->odhw", wt[:, :, (kd * k + kh) * k + kw],
+                                   box[:, kd:kd + td, kh:kh + th, kw:kw + tw])
+                      for kd, kh, kw in itertools.product(range(k), repeat=3))
+            y[b, :, g0[0]:g0[0] + n_d, g0[1]:g0[1] + n_h, g0[2]:g0[2] + n_w] = (
+                acc[:, :n_d, :n_h, :n_w])
     if bias is not None:
         y = y + bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
     return y
-
-
-def _ref(mode, x, w, bias):
-    if mode == "s1":
-        return conv3d_ref(x, w, bias)
-    if mode == "s2":
-        return conv3d_ref(x, w, bias, stride=2)
-    return conv_transpose3d_ref(x, w, bias)
 
 
 def _operands(mode, b, cin, cout, spatial, k, per_sample, flip, seed):
@@ -328,18 +275,16 @@ def _operands(mode, b, cin, cout, spatial, k, per_sample, flip, seed):
     return x, w, bias
 
 
-@pytest.mark.parametrize("mode,spatial,k", [
-    ("s1", (9, 10, 37), 3), ("s1", (5, 11, 34), 1), ("s2", (9, 17, 35), 3),
-    ("s2", (8, 18, 66), 3), ("t2", (5, 9, 33), 3), ("t2", (4, 8, 32), 3)],
+@pytest.mark.parametrize("mode,spatial,k", [("s1", (9, 10, 37), 3), ("s1", (5, 11, 34), 1)],
     ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 @pytest.mark.parametrize("per_sample", [False, True])
 @pytest.mark.parametrize("flip", [False, True])
 def test_f_emulation_matches_plain(mode, spatial, k, per_sample, flip):
     b, cin, cout = 2, 5, 6
     x, w, bias = _operands(mode, b, cin, cout, spatial, k, per_sample, flip, seed=3)
-    plan = _plan(mode, b, cin, cout, *spatial, k)
+    plan = f1_plan(b, cin, cout, *spatial, k)
     got = emulate_f(x, w, bias, plan, per_sample, flip)
-    want = _ref(mode, x, flip_t(w) if flip else w, bias)
+    want = conv3d_ref(x, flip_t(w) if flip else w, bias)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
 
