@@ -12,9 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's, K2's, K3's, KB1's, KB2's and F2's
-              two maps', in `cuobjdump -sass` of the library: each must have
-              some.
+              tensor-core kernels, K1's, K2's, K3's, KB1's, KB2's, F1's and
+              F2's two maps', in `cuobjdump -sass` of the library: each must
+              have some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -48,7 +48,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
               `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
               share of its byte bound. Then the float32 forms (`<family>_f32`:
-              F1, csrc/conv3d_f32.cu; F2, csrc/conv3d_s2_f32_tc.cu and
+              F1, csrc/conv3d_s1_f32_tc.cu; F2, csrc/conv3d_s2_f32_tc.cu and
               csrc/conv3d_t2_f32_tc.cu; FB1, csrc/conv3d_dw_f32.cu; K4, KB3,
               the slab halves and KS templated) at the F32_SITES of the same
               shapes, on f32 inputs: within F32_TOL of max|plain| (KS bit for
@@ -79,7 +79,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               on the GPU against the CPU f32: the loss within F32_LOSS_TOL,
               each group within max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor,
               the CPU f32 route moved by an MRI one ulp up), the three planted
-              faults over a limit.
+              faults over a limit; each group's error against the same step
+              in f64 on the CPU is printed for the card and for the CPU's
+              f32.
   6. serving: the default ModelConfig at 128^3: three b=2 full-volume
               requests through `make_infer_fn` and one 216^3 sliding-window
               request; every forward kernel family must have launched and no
@@ -222,7 +224,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               F32_FWD_CALLS, CUDA events), F32_STEPS RnC train steps at 128^3
               b=2 (median of steps 2 on; finite non-zero losses), the
               template-space 216^3 b=1 forward (`make_infer_fn`), a
-              torch.profiler top-10 and idle share of one more train step, and
+              torch.profiler top-10 and idle share of one more train step
+              (each float32 kernel's records in it beside the launches the
+              counters saw in that step, and any gap between them), and
               `cli.main infer --compute_dtype float32` on a synthetic
               6-subject 128^3 cohort with both TF32 flags set True before it
               (the CLI must turn them off). Each path counted from 0: every
@@ -294,11 +298,11 @@ PEAK_TF32X3 = 495e12 / 3
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
 # the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu),
 # K3 (csrc/conv3d_t2_tc.cu), KB1 (csrc/conv3d_dw_tc.cu), KB2
-# (csrc/conv3d_dw_s2_tc.cu) and F2's two maps (csrc/conv3d_s2_f32_tc.cu,
-# csrc/conv3d_t2_f32_tc.cu)
+# (csrc/conv3d_dw_s2_tc.cu), F1 (csrc/conv3d_s1_f32_tc.cu) and F2's two maps
+# (csrc/conv3d_s2_f32_tc.cu, csrc/conv3d_t2_f32_tc.cu)
 TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel",
-              "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel", "conv3d_s2_f32_tc_kernel",
-              "conv3d_t2_f32_tc_kernel")
+              "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel", "conv3d_s1_f32_tc_kernel",
+              "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -332,10 +336,10 @@ SOURCES = {
                    "coma_unet_tpu/ops/pallas/norm_act.py:120 _apply_kernel "
                    "(launched at :207)"),
 }
-# the float32 forms (`<family>_f32`): F1 a SIMT kernel, F2's two maps
-# tensor-core kernels in 3xTF32, FB1 a SIMT kernel's two maps; K4, KB3, their
-# slab halves and KS are templated
-F32_SOURCES = {"s1": "coma_unet_tpu_torch/csrc/conv3d_f32.cu",
+# the float32 forms (`<family>_f32`): F1 and F2's two maps tensor-core
+# kernels in 3xTF32, FB1 a SIMT kernel's two maps; K4, KB3, their slab
+# halves and KS are templated
+F32_SOURCES = {"s1": "coma_unet_tpu_torch/csrc/conv3d_s1_f32_tc.cu",
                "s2": "coma_unet_tpu_torch/csrc/conv3d_s2_f32_tc.cu",
                "t2": "coma_unet_tpu_torch/csrc/conv3d_t2_f32_tc.cu",
                "s1_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu",
@@ -376,7 +380,7 @@ SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel", "conv3d_dw_s2_tc_
                  "norm_act_bwd_kernel")
 # the same for the float32 step: F1, F2's two maps and their weight packing,
 # FB1 and its split-K sum, K4 and KB3
-F32_KERNELS = ("conv3d_f32_kernel", "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel",
+F32_KERNELS = ("conv3d_s1_f32_tc_kernel", "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel",
                "tf32_pack_weights", "conv3d_dw_f32_kernel", "dw_reduce_kernel",
                "norm_act_kernel", "norm_act_bwd_kernel")
 
@@ -788,7 +792,8 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                 ops=flops, rate=conv_rate)
     if f32:
         cout = w.shape[-5]
-        case["plan"] = (f1_plan(xshape[0], xshape[1], cout, *xshape[2:], w.shape[-1])
+        case["plan"] = (f1_plan(xshape[0], xshape[1], cout, *xshape[2:], w.shape[-1],
+                                bool(extra))
                         if family == "s1" else f2_plan(family, xshape[0], xshape[1], cout,
                                                         *xshape[2:], bool(extra)))
     elif family == "s1":
@@ -835,12 +840,8 @@ def _conv_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
     again = case["kernel"]()
     check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
-    if hasattr(plan, "tile"):
-        cut = (f"tile={plan.tile} ci={plan.ci} q={plan.q} grid={plan.grid} "
-               f"smem={plan.smem}")
-    else:
-        cut = f"brick={plan.brick} ct={plan.ct} at={plan.at} grid={plan.grid}"
-    return f"  {kernel} {site}: {cut}; two calls bit-identical"
+    return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
+            f"grid={plan.grid}; two calls bit-identical")
 
 
 def _dw_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
@@ -1330,7 +1331,10 @@ def _gradients_f32(ref_model, batch: dict, loss_config, loss_ref: float, rnc_ref
                    g_ref: dict, groups: dict, rel_l2_to, tag: str) -> None:
     """Phase 5 in float32: the CPU f32 model's weights in a float32 model on
     the card, one loss and backward against the CPU f32's, then each planted
-    fault."""
+    fault. Each group's error against the same step computed in f64 on the
+    CPU is printed for the card and for the CPU's f32, so that a reading
+    over its limit can be told apart from a fault: a sound route reads about
+    as far from f64 as the CPU's f32 does."""
     import dataclasses
 
     from coma_unet_tpu_torch import ContraAttnUNet
@@ -1350,6 +1354,14 @@ def _gradients_f32(ref_model, batch: dict, loss_config, loss_ref: float, rnc_ref
     _, _, g_nudge, _ = _loss_and_grads(ref_model, nudged, "cpu", loss_config)
     floors = {group: rel_l2_to(g_nudge, g_ref, names) for group, names in groups.items()}
     limits = {group: max(F32_GRAD_TOL, F32_GRAD_RATIO * f) for group, f in floors.items()}
+    # the same step in f64 on the CPU (the parameters' f32 values, every
+    # operation in f64)
+    f64_model = ContraAttnUNet(dataclasses.replace(ref_model.config, compute_dtype="float64"),
+                               device="cpu")
+    f64_model.load_state_dict(ref_model.state_dict())
+    _, _, g_f64, t_f64 = _loss_and_grads(f64_model, batch, "cpu", loss_config)
+    del f64_model
+    cpu_f64 = {group: rel_l2_to(g_ref, g_f64, names) for group, names in groups.items()}
 
     with _no_tf32():
         ops.reset_counts()
@@ -1369,9 +1381,13 @@ def _gradients_f32(ref_model, batch: dict, loss_config, loss_ref: float, rnc_ref
           + "; ".join(f"{k}: loss {v[0]:.3e} ({v[0] / F32_LOSS_TOL:.1f}x), {v[1]} "
                       f"{v[2]:.3e} ({v[2] / limits[v[1]]:.1f}x its limit)"
                       for k, v in faults.items()))
-    print(f"{'group':28s} {'kernels':>10s} {'floor':>10s} {'limit':>10s}")
+    # columns: the card against the CPU f32, the floor and the limit; then
+    # the card and the CPU f32 each against the CPU f64
+    print(f"{'group':28s} {'kernels':>10s} {'floor':>10s} {'limit':>10s} "
+          f"{'card-f64':>10s} {'cpu32-f64':>10s}  (f64 step {t_f64:.1f} s)")
     for group, e in errs.items():
-        print(f"{group:28s} {e:10.3e} {floors[group]:10.3e} {limits[group]:10.3e}")
+        print(f"{group:28s} {e:10.3e} {floors[group]:10.3e} {limits[group]:10.3e} "
+              f"{rel_l2_to(grads, g_f64, groups[group]):10.3e} {cpu_f64[group]:10.3e}")
     for name, g in g_ref.items():
         if g is not None:
             check(grads[name] is not None and bool(torch.isfinite(grads[name]).all()),
@@ -1434,14 +1450,24 @@ def phase_training() -> dict:
     return launches
 
 
-def profile_step(fn, detail: bool = True, names=SMALL_KERNELS) -> tuple:
+PROFILE_SPINS = 16  # spin kernels a profile runs before the call it profiles
+
+
+def profile_step(fn, detail: bool = True, names=SMALL_KERNELS, by_name=None) -> tuple:
     """torch.profiler over one call of `fn`: wall time, summed kernel time,
     the device's idle share and, with `detail`, the top 10 kernels by device
-    time and the time of each kernel of `names`. Returns (wall ms, kernel
+    time and the time of each kernel of `names`; `by_name`, a dict, is
+    filled with each kernel name's (ms, records). Returns (wall ms, kernel
     ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # spin kernels first, left out of the counts below: a profile that
+        # follows others in the process can miss the first kernels of its
+        # call, and misses fewer after them (phase 15 prints any gap)
+        for _ in range(PROFILE_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1454,7 +1480,8 @@ def profile_step(fn, detail: bool = True, names=SMALL_KERNELS) -> tuple:
     # kernel events only: an autograd Function's range carries the time of
     # the kernels it launches as well, and would count them twice
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "spin_kernel" not in e.key),
                      key=device_us, reverse=True)
     total = sum(device_us(e) for e in kernels) / 1e3
     if not detail:
@@ -1465,7 +1492,7 @@ def profile_step(fn, detail: bool = True, names=SMALL_KERNELS) -> tuple:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
     # every instantiation of a kernel together: its name without namespace,
     # template arguments and parameters
-    by_name: dict = {}
+    by_name = {} if by_name is None else by_name
     for e in kernels:
         name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
         name = name.split("<")[0].split()[-1].split("::")[-1]
@@ -3066,6 +3093,34 @@ def _f32_path(name: str, launches: dict, plain_cuda: dict, families, tf32: tuple
     check(sum(plain_cuda.values()) == 0, f"float32 {name}: plain on the GPU: {plain_cuda}")
 
 
+# the float32 step's launch families beside the kernel whose profiler
+# records they make (FB1's two maps are one kernel; every conv launch of
+# F1 and F2 also makes one record of the weight packing)
+F32_RECORDS = ((("s1_f32",), "conv3d_s1_f32_tc_kernel"), (("s2_f32",), "conv3d_s2_f32_tc_kernel"),
+               (("t2_f32",), "conv3d_t2_f32_tc_kernel"),
+               (("s1_f32", "s2_f32", "t2_f32"), "tf32_pack_weights"),
+               (("s1_dw_f32", "strided_dw_f32"), "conv3d_dw_f32_kernel"),
+               (("norm_act_f32",), "norm_act_kernel"),
+               (("norm_act_bwd_f32",), "norm_act_bwd_kernel"))
+
+
+def _profile_gaps(records: dict, launches: dict) -> None:
+    """Prints, for the profiled step, each float32 kernel's records in the
+    profile beside the launches the counters saw in the same step, and the
+    gap where the profile holds fewer: a share read from it then misses
+    that many calls."""
+    parts, gaps = [], []
+    for families, name in F32_RECORDS:
+        n = sum(launches.get(f, 0) for f in families)
+        ms, got = records.get(name, (0.0, 0))
+        parts.append(f"{name} {got} of {n}")
+        if got < n:
+            gaps.append(f"{name} {n - got} ({ms:.3f} ms over {got} records)")
+    print("  profiler records of the launches counted in the same step: " + "; ".join(parts))
+    print("  " + ("every launch has its record" if not gaps else
+                  "the profile dropped records: " + "; ".join(gaps)))
+
+
 def phase_float32() -> dict:
     """Phase 15, the float32 paths: the default ModelConfig in float32,
     widths uncut, weights from seed 0, TF32 off. The 128^3 b=2 forward
@@ -3155,7 +3210,10 @@ def phase_float32() -> dict:
               f"steps 2-{F32_STEPS} ({[round(t, 2) for t in step_ms]}); peak memory "
               f"{train_peak:.2f} GiB")
         print("float32 train step b=2 128^3, one more step under the profiler:")
-        profile_step(lambda: step(tb, roi_w), names=F32_KERNELS)
+        ops.reset_counts()
+        records: dict = {}
+        profile_step(lambda: step(tb, roi_w), names=F32_KERNELS, by_name=records)
+        _profile_gaps(records, dict(ops.LAUNCHES))
         del model, state, step, metrics, tb
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
-// Pieces shared by the float32 SIMT kernels F1 (conv3d_f32.cu) and FB1
-// (conv3d_dw_f32.cu): 4-byte cp.async with zero fill, and the staging of a
-// box of an NCDHW tensor into shared memory.
+// Pieces of the float32 SIMT kernel FB1 (conv3d_dw_f32.cu): 4-byte cp.async
+// with zero fill, and the staging of a box of an NCDHW tensor into shared
+// memory.
 #pragma once
 
 #include "common.cuh"

@@ -1,7 +1,8 @@
-// Pieces of the float32 tensor-core kernels (F2: conv3d_s2_f32_tc.cu and
-// conv3d_t2_f32_tc.cu): f32 products to f32 accuracy from three TF32
-// mma.sync (3xTF32), the weight packing that splits w into its TF32 hi and
-// lo planes, the swizzled W tile and the f32 global loads.
+// Pieces of the float32 tensor-core kernels (F1: conv3d_s1_f32_tc.cu; F2:
+// conv3d_s2_f32_tc.cu and conv3d_t2_f32_tc.cu): f32 products to f32
+// accuracy from three TF32 mma.sync (3xTF32), the weight packing that splits
+// w into its TF32 hi and lo planes, the swizzled W tile and the f32 global
+// loads.
 //
 // 3xTF32: an operand a is split as hi = tf32(a), lo = tf32(a - hi), both
 // rounded to nearest with ties away from zero (round_tf32); a b is then
@@ -101,16 +102,22 @@ __device__ __forceinline__ void load_w32(float* sw, const float* src, int tid) {
   }
 }
 
-// The B fragments of NT n-tiles (NT even) of one W tile row block: hi from
-// the plane at wt, lo from the plane AT rows after it (b_lane: the lane's
-// byte offset, as tc_common.cuh:load_frags reads a tile).
+// The B fragments of NT n-tiles of one W tile row block: hi from the plane
+// at wt, lo from the plane AT rows after it (b_lane: the lane's byte offset,
+// as tc_common.cuh:load_frags reads a tile); two n-tiles an ldmatrix.x4, an
+// odd last one by ldmatrix.x2 (lanes 0-15 address it).
 template <int NT, int AT>
 __device__ __forceinline__ void load_b32(uint32_t (&bh)[NT][2], uint32_t (&bl)[NT][2],
                                          uint32_t wt) {
 #pragma unroll
-  for (int n = 0; n < NT; n += 2) {
+  for (int n = 0; n + 1 < NT; n += 2) {
     ldsm_x4(bh[n][0], bh[n][1], bh[n + 1][0], bh[n + 1][1], wt + n * 8 * CT * 4);
     ldsm_x4(bl[n][0], bl[n][1], bl[n + 1][0], bl[n + 1][1], wt + (AT + n * 8) * CT * 4);
+  }
+  if constexpr (NT % 2 == 1) {
+    constexpr int n = NT - 1;
+    ldsm_x2(bh[n][0], bh[n][1], wt + n * 8 * CT * 4);
+    ldsm_x2(bl[n][0], bl[n][1], wt + (AT + n * 8) * CT * 4);
   }
 }
 

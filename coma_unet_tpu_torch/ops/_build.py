@@ -75,7 +75,7 @@ _SIGNATURES = {
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
     "coma_norm_stats": [_P] * 3 + [_I] * 4 + [_P],
     "coma_norm_apply": [_P] * 6 + [_I] * 4 + [_P],
-    "coma_conv3d_f32": [_P] * 4 + [_I] * 15 + [_P],
+    "coma_conv3d_s1_f32_tc": [_P] * 5 + [_I] * 15 + [_P],
     "coma_conv3d_s2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
     "coma_conv3d_t2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
     "coma_conv3d_dw_f32": [_P] * 4 + [_I] * 17 + [_P],

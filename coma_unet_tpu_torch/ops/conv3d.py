@@ -17,9 +17,10 @@ K1 (`csrc/conv3d_s1_tc.cu`) is one tensor-core kernel for every call:
 chunks of Cin, cut as `s1_plan` says. As the input gradient it reads
 `flip_t(w)` from w in place. KB1 (`csrc/conv3d_dw_tc.cu`) is cut by
 `dw_plan`. Both take bf16. Their float32 forms, for a CUDA tensor of dtype
-float32, run on the CUDA cores in f32 FMAs (no TF32): F1
-(`csrc/conv3d_f32.cu`, cut by `f1_plan`) and FB1 (`csrc/conv3d_dw_f32.cu`,
-cut by `fb1_plan`).
+float32: F1 (`csrc/conv3d_s1_f32_tc.cu`, cut by `f1_plan`) is K1's design on
+the tensor cores in 3xTF32 (every product three TF32 `mma.sync`, so the sums
+keep f32's accuracy), over 8-channel chunks; FB1 (`csrc/conv3d_dw_f32.cu`,
+cut by `fb1_plan`) runs on the CUDA cores in f32 FMAs.
 """
 
 from __future__ import annotations
@@ -134,17 +135,18 @@ def device_check(name: str, x: torch.Tensor) -> bool:
 
 def _k1(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         flip: bool = False) -> torch.Tensor:
-    """K1 on a CUDA tensor, cut as `s1_plan` says; the plain version on a
-    CPU tensor. `flip` convolves with `flip_t(w)` (the input gradient),
-    which the kernel's weight packing reads from w in place."""
+    """K1 (bf16, cut as `s1_plan` says) or F1 (f32, cut as `f1_plan` says)
+    on a CUDA tensor; the plain version on a CPU tensor. `flip` convolves
+    with `flip_t(w)` (the input gradient), which the kernels' weight packing
+    reads from w in place."""
     if not device_check("conv3d_s1", x):
         return conv3d_s1_plain(x, flip_t(w) if flip else w, bias)
     k, per_sample, bias32 = check_conv_args(x, w, bias, (1, 3), flip)
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
     if x.dtype == torch.float32:
-        return conv_f32(f1_plan(b, cin, cout, d, h, wd, k), x, w, bias32,
-                        per_sample, flip)
+        return conv_f32(f1_plan(b, cin, cout, d, h, wd, k, per_sample), x, w,
+                        bias32, per_sample, flip)
     plan = s1_plan(b, cin, cout, d, h, wd, k, per_sample)
     y = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
     wpack = torch.empty(plan.wpack, dtype=x.dtype, device=x.device)
@@ -281,13 +283,15 @@ def split_plan(b: int, c: int, a: int, size: Tuple[int, int, int], taps: int,
                   b * sps * a * c * taps, (_cdiv(c, ct), _cdiv(a, at), b * sps))
 
 
-# F1 (csrc/conv3d_f32.cu): a block of 256 threads owns a tile of F_TILE
-# output positions and q output channels; a thread owns 4 consecutive
-# positions along W x q channels in f32 registers. The block walks Cin in
-# stages of ci channels, each the input box of its tile and the stage's
-# weights in shared memory, two stages in flight.
-F_TILE = (4, 8, 32)         # (td, th, tw); 8 threads take a row of tw positions
-SMEM_MAX = 227 * 1024       # shared memory a CTA may have on the H100
+# F1 (csrc/conv3d_s1_f32_tc.cu): K1's design in f32, every product as three
+# TF32 mma.sync. A block owns `at` output channels of one sample and walks
+# bricks of (bd, S1_BH, S1_BW) output positions, each in chunks of F1_CT
+# input channels and per chunk its taps in k groups (one kd each); the
+# packed weights hold the TF32 hi and lo planes.
+F1_CT = 8               # input channels per chunk: one k8 step of the TF32 mma
+F1_BLOCKS = 132         # blocks a launch aims for at one block an SM (the H100's
+                        # SMs; 201,472 bytes of shared memory at k = 3, AT = 64)
+SMEM_MAX = 227 * 1024   # shared memory a CTA may have on the H100
 INT31 = 2 ** 31
 
 
@@ -295,66 +299,67 @@ def _round4(n: int) -> int:
     return 4 * _cdiv(n, 4)
 
 
-class FPlan(NamedTuple):
-    """How one F1 call is cut. A block owns `tile` output positions (d, h,
-    w) and `q` output channels, and stages `ci` input channels at a time:
-    each channel's input `box` (its rows `row` floats apart in shared
-    memory) and their weights. `grid` is the launch grid: `tiles` tiles,
-    output-channel tiles, samples. `smem` is the bytes of two stages."""
+class F1Plan(NamedTuple):
+    """How one F1 call is cut: as `S1Plan`, with the taps per axis `k`,
+    the blocks an SM the tile holds `per_sm` (its registers and shared
+    memory), and `wpack` the f32 length of the packed weights (their TF32 hi
+    and lo planes)."""
     k: int
-    tile: Tuple[int, int, int]
-    box: Tuple[int, int, int]
-    row: int
-    ci: int
-    q: int
-    tiles: int
+    brick: Tuple[int, int, int]
+    ct: int
+    at: int
+    per_sm: int
+    bricks: int
     grid: Tuple[int, int, int]
-    smem: int
+    wpack: int
 
 
-def f_channel_tile(cout: int) -> int:
-    """q of F1: 1, 4, 8 or 16 output channels a block, the smallest that
-    holds the layer, up to 16 (wider layers take tiles)."""
-    return 1 if cout == 1 else 4 if cout <= 4 else 8 if cout <= 8 else 16
-
-
-def f1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int) -> FPlan:
+def f1_plan(b: int, cin: int, cout: int, d: int, h: int, w: int, k: int,
+            per_sample: bool = False) -> F1Plan:
     """The cut of F1, the stride-1 SAME conv in f32 (k in {1, 3}), for x
-    [b, cin, d, h, w] to `cout` channels. Raises ValueError for a shape the
-    kernel cannot take: a volume of 2^31 voxels or more, more tiles or
-    channel tiles than a launch grid holds."""
+    [b, cin, d, h, w] and k^3 weights to `cout` channels (per sample or
+    shared): chunks of F1_CT input channels, AT = `channel_tile(cout)`
+    output channels, bricks of (bd, S1_BH, S1_BW) positions with bd = 8 for
+    k = 3 at AT = 32 and 4 otherwise (K1's tiles), and about F1_BLOCKS x
+    `per_sm` blocks in all (two an SM for the tiles of fewer than 8 m16n8
+    tiles a warp, AT <= 16, which fit 128 registers), at least one per
+    sample and output-channel tile and at most one per brick. Raises
+    ValueError for a shape the kernel cannot take: k not 1 or 3, a volume
+    of 2^31 voxels or more, more samples or channel tiles than a launch
+    grid holds."""
     if k not in (1, 3):
         raise ValueError(f"f1_plan: takes k in (1, 3), got {k}")
     if min(b, cin, cout, d, h, w) <= 0 or d * h * w >= INT31:
         raise ValueError(f"f1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
                          f"{cout} channels")
-    td, th, tw = F_TILE
-    box = (td + k - 1, th + k - 1, tw + k - 1)
-    ci = 8 if k == 1 else 4
-    row = box[2] | 1
-    q = f_channel_tile(cout)
-    tiles = _cdiv(d, td) * _cdiv(h, th) * _cdiv(w, tw)
-    stage = _round4(ci * box[0] * box[1] * row) + _round4(ci * k ** 3 * q)
-    smem = 2 * 4 * stage
-    grid = (tiles, _cdiv(cout, q), b)
-    if tiles >= INT31 or grid[1] > GRID_MAX or grid[2] > GRID_MAX or smem > SMEM_MAX:
+    at = channel_tile(cout)
+    brick = (8 if k == 3 and at == 32 else 4, S1_BH, S1_BW)
+    # m16n8 tiles a warp: 8 warps over the brick's rows and at / 8 n-tiles
+    per_sm = 1 if brick[0] * S1_BH * at // 8 >= 8 * 8 else 2
+    bricks = _cdiv(d, brick[0]) * _cdiv(h, S1_BH) * _cdiv(w, S1_BW)
+    tiles = _cdiv(cout, at)
+    if b > GRID_MAX or tiles > GRID_MAX:
         raise ValueError(f"f1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] to "
-                         f"{cout} channels: grid {grid}, {smem} bytes of shared memory")
-    return FPlan(k, F_TILE, box, row, ci, q, tiles, grid, smem)
+                         f"{cout} channels: {b} samples x {tiles} channel tiles")
+    gx = min(bricks, _cdiv(F1_BLOCKS * per_sm, tiles * b))
+    wpack = (b if per_sample else 1) * tiles * _cdiv(cin, F1_CT) * k ** 3 * 2 * at * F1_CT
+    return F1Plan(k, brick, F1_CT, at, per_sm, bricks, (gx, tiles, b), wpack)
 
 
-def conv_f32(plan: FPlan, x: torch.Tensor, w: torch.Tensor,
+def conv_f32(plan: F1Plan, x: torch.Tensor, w: torch.Tensor,
              bias32: Optional[torch.Tensor], per_sample: bool,
              flip: bool) -> torch.Tensor:
     """F1 on validated f32 CUDA tensors, cut as `plan` says (counted as
-    `s1_f32`); `flip` convolves with `flip_t(w)`, read from w in place."""
+    `s1_f32`); `flip` convolves with `flip_t(w)`, which the weight packing
+    reads from w in place."""
     b, cin, d, h, wd = x.shape
     cout = w.shape[-4] if flip else w.shape[-5]
     y = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
-    _build.launch(_build.family("s1", torch.float32), "coma_conv3d_f32", x.device,
-                  x.data_ptr(), w.data_ptr(), _build.ptr(bias32), y.data_ptr(), b,
-                  cin, cout, d, h, wd, plan.k, int(per_sample), int(flip),
-                  *plan.tile, plan.ci, plan.q, plan.smem)
+    wpack = torch.empty(plan.wpack, dtype=torch.float32, device=x.device)
+    _build.launch(_build.family("s1", torch.float32), "coma_conv3d_s1_f32_tc", x.device,
+                  x.data_ptr(), w.data_ptr(), wpack.data_ptr(), _build.ptr(bias32),
+                  y.data_ptr(), b, cin, cout, d, h, wd, plan.k, int(per_sample),
+                  int(flip), *plan.brick, plan.ct, plan.at, plan.grid[0])
     return y
 
 

@@ -1,24 +1,20 @@
 """The float32 forms of the port's kernels, checked on the CPU, where no
-kernel runs: F1 (`csrc/conv3d_f32.cu`, cut by `ops/conv3d.py:f1_plan`),
-FB1 (`csrc/conv3d_dw_f32.cu`, cut by `ops/conv3d.py:fb1_plan`), the dtype
-rules of the wrappers, and the CLI's float32 on CUDA. F2, the stride-2 and
-transposed convs in f32, is checked in `tests/test_torch_port_f2_tc.py`.
+kernel runs: FB1 (`csrc/conv3d_dw_f32.cu`, cut by `ops/conv3d.py:fb1_plan`),
+the dtype rules of the wrappers, and the CLI's float32 on CUDA. F1, the
+stride-1 conv in f32, is checked in `tests/test_torch_port_f1_tc.py`; F2,
+the stride-2 and transposed convs, in `tests/test_torch_port_f2_tc.py`.
 
-(a) At every stride-1 conv shape the paths reach (the K1 cases of
-    `chip_smoke.py` phase 3, whose shapes the float32 paths share) and at
-    ragged ones, the F1 plan's blocks and threads cover every output
-    position exactly once, its channel tiles every output channel once, and
-    two stages fit 227 KB; at every KB1 and KB2 shape the FB1 plan's splits
-    cover every brick of every sample once, its bricks every position of
-    g's grid once, its tiles every channel pair once, within 227 KB and 288
-    threads. A shape neither can cut raises.
-(b) A float64 emulation of each kernel's index maps, cut as its plan says
-    -- the staged box with its zero fill (FB1's strided map: its even
-    positions first), the weights read through the strides and the flip
-    the C entry sets, FB1's per-split partials summed in split order --
-    equals the plain version (PyTorch's conv) within 1e-10, for shared and
-    per-sample weights, the forward and the input-gradient (flipped) roles,
-    and both weight-gradient maps.
+(a) The stride-1 conv shapes the paths reach (the K1 cases of
+    `chip_smoke.py` phase 3, whose shapes the float32 paths share) take
+    F1's wide and narrow tiles; at every KB1 and KB2 shape the FB1 plan's
+    splits cover every brick of every sample once, its bricks every
+    position of g's grid once, its tiles every channel pair once, within
+    227 KB and 288 threads. A shape it cannot cut raises.
+(b) A float64 emulation of FB1's index maps, cut as its plan says -- the
+    staged box with its zero fill (the strided map: its even positions
+    first), each split's partial summed in split order -- equals the plain
+    version (PyTorch's conv) within 1e-10, for shared and per-sample
+    weights and both weight-gradient maps.
 (c) `check_cuda_input` takes float32 and refuses a tensor of another dtype
     than its call's; a bf16 x with f32 weights raises in `check_conv_args`
     (never cast), and float16 raises.
@@ -49,15 +45,12 @@ from coma_unet_tpu_torch.ops.conv3d import (
     GRID_MAX,
     SMEM_MAX,
     check_conv_args,
-    conv3d_ref,
     conv3d_weight_ref,
     f1_plan,
     fb1_plan,
-    flip_t,
 )
 
 TOL = 1e-10
-F_THREADS, F_VW = 256, 4
 
 
 def _cdiv(a, b):
@@ -92,68 +85,14 @@ def _dw_shapes():
     return sorted((m, b, ci, co, d, h, w, k) for m, b, ci, d, h, w, co, k in shapes)
 
 
-RAGGED = [("s1", 2, 5, 3, 9, 10, 37, 3), ("s1", 1, 9, 17, 5, 3, 33, 1),
-          ("s1", 2, 3, 5, 9, 17, 35, 3), ("s1", 2, 5, 3, 5, 9, 33, 1)]
-
-
-def _thread_offsets():
-    """(dz, hy, w) of each of a block's F_THREADS x F_VW positions."""
-    tid = np.arange(F_THREADS)
-    wq, hy, dz = tid % 8, (tid // 8) % 8, tid // 64
-    i = np.arange(F_VW)
-    return (np.repeat(dz, F_VW), np.repeat(hy, F_VW),
-            (F_VW * wq[:, None] + i[None, :]).reshape(-1))
-
-
 def test_phase3_shapes_cover_every_conv_site():
     conv, dw = _conv_shapes(), _dw_shapes()
     assert {s[0] for s in conv} == {"s1"} and len(conv) >= 25
     assert {s[0] for s in dw} == {"s1", "s2"} and len(dw) >= 20
-    # the wide layers take 16 channels a block, the narrow ones 1, 4 or 8
-    assert f1_plan(2, 32, 32, 128, 128, 128, 3).q == 16
-    assert [f1_plan(2, 16, c, 128, 128, 128, 3).q for c in (1, 3, 8)] == [1, 4, 8]
-
-
-@pytest.mark.parametrize("shape", sorted(set(_conv_shapes()) | set(RAGGED)),
-                         ids=lambda s: "x".join(map(str, s)))
-def test_f_plan_covers_every_output_once(shape):
-    _, b, cin, cout, d, h, w, k = shape
-    plan = f1_plan(b, cin, cout, d, h, w, k)
-    assert plan.smem <= SMEM_MAX and plan.grid[1] <= GRID_MAX and plan.grid[2] <= GRID_MAX
-    assert plan.grid == (plan.tiles, _cdiv(cout, plan.q), b) and plan.k == k
-    # the channel tiles: every output channel once
-    chans = np.bincount((np.arange(plan.grid[1])[:, None] * plan.q
-                         + np.arange(plan.q)[None, :]).reshape(-1))[:cout]
-    assert (chans == 1).all()
-    # the spatial tiles: each block's threads' output positions, masked at
-    # the volume's edge
-    td, th, tw = plan.tile
-    tiles_h, tiles_w = _cdiv(h, th), _cdiv(w, tw)
-    assert plan.tiles == _cdiv(d, td) * tiles_h * tiles_w
-    dz, hy, wx = _thread_offsets()
-    counts = np.zeros(d * h * w, np.int32)
-    for chunk in np.array_split(np.arange(plan.tiles), max(1, plan.tiles // 512)):
-        t_w, t_h, t_d = chunk % tiles_w, (chunk // tiles_w) % tiles_h, chunk // (tiles_w * tiles_h)
-        pd_ = (t_d[:, None] * td + dz[None, :]).reshape(-1)
-        ph_ = (t_h[:, None] * th + hy[None, :]).reshape(-1)
-        pw_ = (t_w[:, None] * tw + wx[None, :]).reshape(-1)
-        keep = (pd_ < d) & (ph_ < h) & (pw_ < w)
-        counts += np.bincount(((pd_ * h + ph_) * w + pw_)[keep],
-                              minlength=counts.size).astype(np.int32)
-    assert (counts == 1).all()
-
-
-def test_f_plan_raises_on_shapes_it_cannot_cut():
-    with pytest.raises(ValueError):
-        f1_plan(1, 4, 16 * (GRID_MAX + 1), 8, 8, 8, 3)    # channel tiles
-    with pytest.raises(ValueError):
-        f1_plan(1, 4, 4, 2048, 1024, 1024, 3)              # 2^31 voxels
-    with pytest.raises(ValueError):
-        f1_plan(GRID_MAX + 1, 4, 4, 8, 8, 8, 3)            # samples
-    with pytest.raises(ValueError):
-        f1_plan(1, 4, 4, 8, 8, 8, 5)                       # k
-    with pytest.raises(ValueError):
-        f1_plan(0, 4, 4, 8, 8, 8, 3)
+    # the wide layers take 32 or 64 channels a block, the narrow ones 8 or 16
+    assert (f1_plan(2, 32, 32, 128, 128, 128, 3).at, f1_plan(2, 64, 64, 64, 64, 64, 3).at) == (
+        32, 64)
+    assert [f1_plan(2, 16, c, 128, 128, 128, 3).at for c in (1, 3, 8, 16)] == [8, 8, 8, 16]
 
 
 # ---------------------------------------------------------------- FB1 plan
@@ -214,81 +153,7 @@ def test_fb1_plan_raises_on_shapes_it_cannot_cut():
         fb1_plan("s1", 1, 4, 4 * 8 * (GRID_MAX + 1), 8, 8, 8, 3)
 
 
-# ------------------------------------------------------------ emulations
-def _weights(w, o, c, t, flip, per_sample, b, cout, cin, taps):
-    """The C entry's weight read: w's flat buffer at sample b, output o,
-    input c, tap t through the strides it sets (flip reads flip_t(w))."""
-    wb = cout * cin * taps if per_sample else 0
-    wo, wc = (taps, cout * taps) if flip else (cin * taps, taps)
-    tap = taps - 1 - t if flip else t
-    return w.reshape(-1)[b * wb + o * wo + c * wc + tap]
-
-
-def emulate_f(x, w, bias, plan, per_sample, flip):
-    """F1 as the kernel computes it, in x's dtype: per block the staged box
-    (zero outside), the stage's weights, the k^3 taps over the thread's
-    positions."""
-    b_n, cin = x.shape[:2]
-    cout = w.shape[-4] if flip else w.shape[-5]
-    k = plan.k
-    taps = k ** 3
-    d, h, wd = x.shape[2:]
-    y = torch.full((b_n, cout, d, h, wd), float("nan"), dtype=x.dtype)
-    td, th, tw = plan.tile
-    bd, bh, bw = plan.box
-    tiles_h, tiles_w = _cdiv(h, th), _cdiv(wd, tw)
-    o_all = torch.arange(cout)
-    c_all = torch.arange(cin)
-    for b in range(b_n):
-        # the stage's weights [o, c, t] as the kernel reads them
-        wt = torch.stack([_weights(w, o_all[:, None], c_all[None, :], t, flip, per_sample, b,
-                                   cout, cin, taps) for t in range(taps)], -1)
-        for tile in range(plan.tiles):
-            t_w, t_h, t_d = tile % tiles_w, (tile // tiles_w) % tiles_h, tile // (tiles_w * tiles_h)
-            g0 = (t_d * td, t_h * th, t_w * tw)
-            org = [g - k // 2 for g in g0]
-            box = torch.zeros((cin, bd, bh, plan.row), dtype=x.dtype)
-            src = [(max(o_, 0), min(o_ + n, s)) for o_, n, s in zip(org, (bd, bh, bw), (d, h, wd))]
-            if all(lo < hi for lo, hi in src):
-                box[:, src[0][0] - org[0]:src[0][1] - org[0],
-                    src[1][0] - org[1]:src[1][1] - org[1],
-                    src[2][0] - org[2]:src[2][1] - org[2]] = x[
-                        b, :, src[0][0]:src[0][1], src[1][0]:src[1][1], src[2][0]:src[2][1]]
-            n_d, n_h, n_w = min(td, d - g0[0]), min(th, h - g0[1]), min(tw, wd - g0[2])
-            acc = sum(torch.einsum("oc,cdhw->odhw", wt[:, :, (kd * k + kh) * k + kw],
-                                   box[:, kd:kd + td, kh:kh + th, kw:kw + tw])
-                      for kd, kh, kw in itertools.product(range(k), repeat=3))
-            y[b, :, g0[0]:g0[0] + n_d, g0[1]:g0[1] + n_h, g0[2]:g0[2] + n_w] = (
-                acc[:, :n_d, :n_h, :n_w])
-    if bias is not None:
-        y = y + bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
-    return y
-
-
-def _operands(mode, b, cin, cout, spatial, k, per_sample, flip, seed):
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn((b, cin) + spatial, generator=gen, dtype=torch.float64)
-    # flip: w is the forward layer's [cin_f = cout, cout_f = cin] weights
-    wshape = ((cin, cout) if flip else (cout, cin)) + (k, k, k)
-    w = torch.randn(((b,) if per_sample else ()) + wshape, generator=gen, dtype=torch.float64)
-    bias = None if flip else torch.randn((cout,), generator=gen, dtype=torch.float64)
-    return x, w, bias
-
-
-@pytest.mark.parametrize("mode,spatial,k", [("s1", (9, 10, 37), 3), ("s1", (5, 11, 34), 1)],
-    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
-@pytest.mark.parametrize("per_sample", [False, True])
-@pytest.mark.parametrize("flip", [False, True])
-def test_f_emulation_matches_plain(mode, spatial, k, per_sample, flip):
-    b, cin, cout = 2, 5, 6
-    x, w, bias = _operands(mode, b, cin, cout, spatial, k, per_sample, flip, seed=3)
-    plan = f1_plan(b, cin, cout, *spatial, k)
-    got = emulate_f(x, w, bias, plan, per_sample, flip)
-    want = conv3d_ref(x, flip_t(w) if flip else w, bias)
-    assert got.shape == want.shape
-    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
-
-
+# ------------------------------------------------------------ emulation
 def emulate_fb1(x, g, plan, per_sample):
     """FB1 as the kernel computes it, in x's dtype: each split's partial
     over its bricks (the staged x box, S2 split by parity along W, the g
