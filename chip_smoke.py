@@ -12,9 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               one nvcc per source in parallel, into build/coma_unet_tpu_torch/;
               prints ptxas's registers and spills per kernel, and counts the
               HMMA (tensor-core) instructions of each instantiation of the
-              tensor-core kernels, K1's, K2's, K3's, KB1's, KB2's, F1's and
-              F2's two maps', in `cuobjdump -sass` of the library: each must
-              have some.
+              tensor-core kernels, K1's, K2's, K3's, KB1's, KB2's, F1's, F2's
+              two maps' and FB1's, in `cuobjdump -sass` of the library: each
+              must have some.
   3. kernels: each kernel on bf16 inputs at the shapes the 128^3 b=2 serving
               forward and train step and the 216^3 template-space path give
               it -- the forward kernels K1-K4, the weight gradients KB1/KB2,
@@ -49,7 +49,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
               share of its byte bound. Then the float32 forms (`<family>_f32`:
               F1, csrc/conv3d_s1_f32_tc.cu; F2, csrc/conv3d_s2_f32_tc.cu and
-              csrc/conv3d_t2_f32_tc.cu; FB1, csrc/conv3d_dw_f32.cu; K4, KB3,
+              csrc/conv3d_t2_f32_tc.cu; FB1, csrc/conv3d_dw_f32_tc.cu; K4, KB3,
               the slab halves and KS templated) at the F32_SITES of the same
               shapes, on f32 inputs: within F32_TOL of max|plain| (KS bit for
               bit), two calls bit-identical, each printing the cut `f1_plan`,
@@ -79,7 +79,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               on the GPU against the CPU f32: the loss within F32_LOSS_TOL,
               each group within max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor,
               the CPU f32 route moved by an MRI one ulp up), the three planted
-              faults over a limit; each group's error against the same step
+              forward faults and FB1's (tap 0 of the stride-1 map's k=3 dW
+              zeroed) over a limit; each group's error against the same step
               in f64 on the CPU is printed for the card and for the CPU's
               f32.
   6. serving: the default ModelConfig at 128^3: three b=2 full-volume
@@ -298,11 +299,13 @@ PEAK_TF32X3 = 495e12 / 3
 HBM_BYTES = 3.35e12   # H100 SXM device memory bytes/s
 # the tensor-core kernels, K1 (csrc/conv3d_s1_tc.cu), K2 (csrc/conv3d_s2_tc.cu),
 # K3 (csrc/conv3d_t2_tc.cu), KB1 (csrc/conv3d_dw_tc.cu), KB2
-# (csrc/conv3d_dw_s2_tc.cu), F1 (csrc/conv3d_s1_f32_tc.cu) and F2's two maps
-# (csrc/conv3d_s2_f32_tc.cu, csrc/conv3d_t2_f32_tc.cu)
+# (csrc/conv3d_dw_s2_tc.cu), F1 (csrc/conv3d_s1_f32_tc.cu), F2's two maps
+# (csrc/conv3d_s2_f32_tc.cu, csrc/conv3d_t2_f32_tc.cu) and FB1
+# (csrc/conv3d_dw_f32_tc.cu)
 TC_KERNELS = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel",
               "conv3d_dw_tc_kernel", "conv3d_dw_s2_tc_kernel", "conv3d_s1_f32_tc_kernel",
-              "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel")
+              "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel",
+              "conv3d_dw_f32_tc_kernel")
 SOURCES = {
     "s1": ("conv3d_s1", "coma_unet_tpu_torch/csrc/conv3d_s1_tc.cu",
            "coma_unet_tpu/ops/pallas/conv3d_p1.py:231 _p1_fwd; "
@@ -336,14 +339,14 @@ SOURCES = {
                    "coma_unet_tpu/ops/pallas/norm_act.py:120 _apply_kernel "
                    "(launched at :207)"),
 }
-# the float32 forms (`<family>_f32`): F1 and F2's two maps tensor-core
-# kernels in 3xTF32, FB1 a SIMT kernel's two maps; K4, KB3, their slab
-# halves and KS are templated
+# the float32 forms (`<family>_f32`): F1, F2's two maps and FB1's two maps
+# tensor-core kernels in 3xTF32; K4, KB3, their slab halves and KS are
+# templated
 F32_SOURCES = {"s1": "coma_unet_tpu_torch/csrc/conv3d_s1_f32_tc.cu",
                "s2": "coma_unet_tpu_torch/csrc/conv3d_s2_f32_tc.cu",
                "t2": "coma_unet_tpu_torch/csrc/conv3d_t2_f32_tc.cu",
-               "s1_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu",
-               "strided_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32.cu"}
+               "s1_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32_tc.cu",
+               "strided_dw": "coma_unet_tpu_torch/csrc/conv3d_dw_f32_tc.cu"}
 SOURCES.update({family + "_f32": (name, F32_SOURCES.get(family, source), replaces)
                 for family, (name, source, replaces) in list(SOURCES.items())})
 # the sites of `_kernel_cases` that phase 3 also runs in float32
@@ -381,7 +384,7 @@ SMALL_KERNELS = ("conv3d_s2_tc_kernel", "conv3d_t2_tc_kernel", "conv3d_dw_s2_tc_
 # the same for the float32 step: F1, F2's two maps and their weight packing,
 # FB1 and its split-K sum, K4 and KB3
 F32_KERNELS = ("conv3d_s1_f32_tc_kernel", "conv3d_s2_f32_tc_kernel", "conv3d_t2_f32_tc_kernel",
-               "tf32_pack_weights", "conv3d_dw_f32_kernel", "dw_reduce_kernel",
+               "tf32_pack_weights", "conv3d_dw_f32_tc_kernel", "dw_reduce_kernel",
                "norm_act_kernel", "norm_act_bwd_kernel")
 
 
@@ -851,8 +854,8 @@ def _dw_checks(case: dict, got: torch.Tensor, kernel: str, site: str) -> str:
     again = case["kernel"]()
     check(bool(torch.equal(again, got)), f"{kernel} {site}: two calls differ")
     plan = case["plan"]
-    extra = (f" threads={plan.threads} smem={plan.smem}" if hasattr(plan, "threads")
-             else "")
+    extra = (f" swap={int(plan.swap)} mt={plan.mt} nt={plan.nt} threads={plan.threads} "
+             f"per_sm={plan.per_sm} smem={plan.smem}" if hasattr(plan, "threads") else "")
     return (f"  {kernel} {site}: brick={plan.brick} ct={plan.ct} at={plan.at} "
             f"bricks/split={plan.bps} splits={plan.splits}{extra}; two calls bit-identical")
 
@@ -1007,31 +1010,43 @@ def _no_tf32():
 
 
 F32_FAULTS = ("F1 tap 0 zeroed", "F2 parity class 7 dropped", "F2 stride-2 centre tap zeroed")
+# a fault no forward sees, planted in phase 5 only
+F32_DW_FAULTS = ("FB1 tap 0 zeroed",)
 
 
 @contextlib.contextmanager
 def _planted(fault: str):
     """A planted fault in the float32 convs: F1's forward with tap 0 of its
     k=3 weights zeroed, F2's transposed map with the output's parity class
-    (1, 1, 1) dropped (zeroed), or F2's stride-2 forward with its centre tap
-    (1, 1, 1) zeroed; each through the wrapper's launcher, so the kernels
-    run."""
+    (1, 1, 1) dropped (zeroed), F2's stride-2 forward with its centre tap
+    (1, 1, 1) zeroed, or FB1's stride-1 map at k = 3 with tap 0 of its dW
+    zeroed; each through the wrapper's launcher, so the kernels run."""
     import coma_unet_tpu_torch.ops.conv3d as conv
     import coma_unet_tpu_torch.ops.conv3d_strided as strided
 
-    module, name = (conv, "conv_f32") if fault == F32_FAULTS[0] else (strided, "conv_f2")
-    good = getattr(module, name)
+    if fault == F32_DW_FAULTS[0]:
+        module, name = conv, "dw_f32"
+        good = conv.dw_f32
 
-    def bad(plan, x, w, bias32, per_sample, flip):
-        tap = (0 if fault == F32_FAULTS[0] and plan.k == 3
-               else 1 if fault == F32_FAULTS[2] and plan.mode == "s2" else None)
-        if tap is not None and not flip:
-            w = w.clone()
-            w[..., tap, tap, tap] = 0.0
-        y = good(plan, x, w, bias32, per_sample, flip)
-        if fault == F32_FAULTS[1] and plan.mode == "t2" and not flip:
-            y[..., 1::2, 1::2, 1::2] = 0.0
-        return y
+        def bad(plan, x, g, per_sample):
+            out = good(plan, x, g, per_sample)
+            if plan.mode == 0 and plan.k == 3:
+                out[..., 0, 0, 0] = 0.0
+            return out
+    else:
+        module, name = (conv, "conv_f32") if fault == F32_FAULTS[0] else (strided, "conv_f2")
+        good = getattr(module, name)
+
+        def bad(plan, x, w, bias32, per_sample, flip):
+            tap = (0 if fault == F32_FAULTS[0] and plan.k == 3
+                   else 1 if fault == F32_FAULTS[2] and plan.mode == "s2" else None)
+            if tap is not None and not flip:
+                w = w.clone()
+                w[..., tap, tap, tap] = 0.0
+            y = good(plan, x, w, bias32, per_sample, flip)
+            if fault == F32_FAULTS[1] and plan.mode == "t2" and not flip:
+                y[..., 1::2, 1::2, 1::2] = 0.0
+            return y
 
     setattr(module, name, bad)
     try:
@@ -1248,7 +1263,7 @@ def phase_gradients(b: int = 2, tcds: bool = False, f32: bool = False) -> None:
     the float32 route on the card (the float32 kernels, TF32 off) against
     the CPU f32: the loss within F32_LOSS_TOL, each gradient group within
     max(F32_GRAD_TOL, F32_GRAD_RATIO x its floor), and each of F32_FAULTS
-    above one of them."""
+    and F32_DW_FAULTS above one of them."""
     import dataclasses
 
     from coma_unet_tpu_torch import ContraAttnUNet, LossConfig, ModelConfig
@@ -1368,7 +1383,7 @@ def _gradients_f32(ref_model, batch: dict, loss_config, loss_ref: float, rnc_ref
         rel_loss, rnc, grads, errs = reading()
         launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
         faults = {}
-        for fault in F32_FAULTS:
+        for fault in F32_FAULTS + F32_DW_FAULTS:
             with _planted(fault):
                 f_loss, _, _, f_errs = reading()
             worst = max(f_errs, key=f_errs.get)
@@ -3099,7 +3114,7 @@ def _f32_path(name: str, launches: dict, plain_cuda: dict, families, tf32: tuple
 F32_RECORDS = ((("s1_f32",), "conv3d_s1_f32_tc_kernel"), (("s2_f32",), "conv3d_s2_f32_tc_kernel"),
                (("t2_f32",), "conv3d_t2_f32_tc_kernel"),
                (("s1_f32", "s2_f32", "t2_f32"), "tf32_pack_weights"),
-               (("s1_dw_f32", "strided_dw_f32"), "conv3d_dw_f32_kernel"),
+               (("s1_dw_f32", "strided_dw_f32"), "conv3d_dw_f32_tc_kernel"),
                (("norm_act_f32",), "norm_act_kernel"),
                (("norm_act_bwd_f32",), "norm_act_bwd_kernel"))
 

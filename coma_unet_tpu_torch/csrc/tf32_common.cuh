@@ -1,8 +1,8 @@
 // Pieces of the float32 tensor-core kernels (F1: conv3d_s1_f32_tc.cu; F2:
-// conv3d_s2_f32_tc.cu and conv3d_t2_f32_tc.cu): f32 products to f32
-// accuracy from three TF32 mma.sync (3xTF32), the weight packing that splits
-// w into its TF32 hi and lo planes, the swizzled W tile and the f32 global
-// loads.
+// conv3d_s2_f32_tc.cu and conv3d_t2_f32_tc.cu; FB1: conv3d_dw_f32_tc.cu):
+// f32 products to f32 accuracy from three TF32 mma.sync (3xTF32), the
+// weight packing that splits w into its TF32 hi and lo planes, the swizzled
+// W tile and the f32 global loads.
 //
 // 3xTF32: an operand a is split as hi = tf32(a), lo = tf32(a - hi), both
 // rounded to nearest with ties away from zero (round_tf32); a b is then

@@ -12,9 +12,10 @@ as the port runs it: three times, then once with cuDNN deterministic. Each
 line prints, for a few groups, the card's rel L2 error against the CPU's
 f32 / against the CPU's f64, and whether the gradients equal the previous
 reading's bit for bit. Without `short` it goes on with F1 (`conv_f32`), F2
-(`conv_f2`) and FB1's stride-1 map (`dw_f32`) each replaced by its plain
-version, then all three with cuDNN deterministic. The swaps are this
-diagnostic's own; the port never runs a plain version on the card.
+(`conv_f2`), FB1's stride-1 map and FB1's strided map (both launched by
+`conv3d.dw_f32`) each replaced by its plain version, then all four with
+cuDNN deterministic. The swaps are this diagnostic's own; the port never
+runs a plain version on the card.
 """
 
 from __future__ import annotations
@@ -97,10 +98,16 @@ def main(tag: str, short: bool) -> None:
 
     good_f1, good_f2, good_dw = conv.conv_f32, strided.conv_f2, conv.dw_f32
 
-    def dw_plain(plan, x, g, per_sample):
-        if plan.mode == 0:
-            return conv.conv3d_weight_ref(x, g, plan.k, per_sample)
-        return good_dw(plan, x, g, per_sample)
+    def dw_plain(maps):
+        # FB1's maps in `maps` (0: stride-1; 1: strided, whose (full, half)
+        # the wrapper passes as (x, g) for the stride-2 conv and (g, x) for
+        # the transposed one) by PyTorch's weight gradient
+        def swapped(plan, x, g, per_sample):
+            if plan.mode in maps:
+                return conv.conv3d_weight_ref(x, g, plan.k, per_sample,
+                                              stride=2 if plan.mode == 1 else 1)
+            return good_dw(plan, x, g, per_sample)
+        return swapped
 
     conv.conv_f32 = f1_plain
     reading("F1->cudnn #0")
@@ -109,10 +116,12 @@ def main(tag: str, short: bool) -> None:
     strided.conv_f2 = f2_plain
     reading("F2->cudnn")
     strided.conv_f2 = good_f2
-    conv.dw_f32 = dw_plain
+    conv.dw_f32 = dw_plain((0,))
     reading("FB1(s1)->cudnn")
+    conv.dw_f32 = dw_plain((1,))
+    reading("FB1(strided)->cudnn")
     torch.backends.cudnn.deterministic = True
-    conv.conv_f32, strided.conv_f2 = f1_plain, f2_plain
+    conv.conv_f32, strided.conv_f2, conv.dw_f32 = f1_plain, f2_plain, dw_plain((0, 1))
     reading("all->cudnn deterministic #0")
     reading("all->cudnn deterministic #1")
     conv.conv_f32, strided.conv_f2, conv.dw_f32 = good_f1, good_f2, good_dw

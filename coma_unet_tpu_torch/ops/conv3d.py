@@ -19,8 +19,8 @@ chunks of Cin, cut as `s1_plan` says. As the input gradient it reads
 `dw_plan`. Both take bf16. Their float32 forms, for a CUDA tensor of dtype
 float32: F1 (`csrc/conv3d_s1_f32_tc.cu`, cut by `f1_plan`) is K1's design on
 the tensor cores in 3xTF32 (every product three TF32 `mma.sync`, so the sums
-keep f32's accuracy), over 8-channel chunks; FB1 (`csrc/conv3d_dw_f32.cu`,
-cut by `fb1_plan`) runs on the CUDA cores in f32 FMAs.
+keep f32's accuracy), over 8-channel chunks; FB1 (`csrc/conv3d_dw_f32_tc.cu`,
+cut by `fb1_plan`) is KB1's and KB2's per-tap GEMM in 3xTF32.
 """
 
 from __future__ import annotations
@@ -295,10 +295,6 @@ SMEM_MAX = 227 * 1024   # shared memory a CTA may have on the H100
 INT31 = 2 ** 31
 
 
-def _round4(n: int) -> int:
-    return 4 * _cdiv(n, 4)
-
-
 class F1Plan(NamedTuple):
     """How one F1 call is cut: as `S1Plan`, with the taps per axis `k`,
     the blocks an SM the tile holds `per_sm` (its registers and shared
@@ -363,37 +359,44 @@ def conv_f32(plan: F1Plan, x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-# FB1 (csrc/conv3d_dw_f32.cu): a block owns 4 cg channels of x x qo og
-# channels of g x k^3 taps of dW and walks a run of bricks of g's grid; a
-# thread owns 4 channels of x x qo of g x the k taps along W of one
-# (td, th) pair.
-FB1_CC = 4
-FB1_MAX_THREADS = 288
-FB1_THREADS = 2 * 2048 * 132  # threads a launch aims for: two waves of full SMs
-FB1_MIN_BRICKS = 4            # bricks per split at least, for the partials' writes
-FB1_MAX_POSITIONS = 16384     # positions per split at most, for the f32 sums' error
+# FB1 (csrc/conv3d_dw_f32_tc.cu): the float32 weight gradients on the tensor
+# cores in 3xTF32, a per-tap GEMM over positions, M = channels of X (x, or
+# the strided map's full) and N = channels of G (g, or half), swapped for a
+# layer of fewer than FB1_SWAP channels of X. A block owns FB1_MC channels
+# along M per m-tile x 8 along N per n-tile x k^3 taps and walks a run of
+# bricks of G's grid of one sample; its 8 warps each own 3 or 4 of the 27
+# taps (k = 3) or share the brick's k8 steps (k = 1).
+FB1_BH, FB1_BW = 4, 16  # a brick's extent along H and W; a W row is two k8 steps
+FB1_WARPS = 8           # a block's warps: k = 3 warp w owns taps w + 8 i
+FB1_MC = 16             # channels a m-tile (M), FB1_NC an n-tile (N)
+FB1_NC = 8
+FB1_SWAP = 8            # fewer channels of X than this put G's channels on M
+FB1_BLOCKS = 132        # blocks an SM holds times this: one wave on the H100
 
 
 class FdwPlan(NamedTuple):
-    """How one FB1 call is cut. `mode` 0 (S1) or 1 (S2, the strided map).
-    A block of `threads` = k^2 cg og threads owns `ct` = 4 cg channels of x
-    (S2: full) and `at` = qo og channels of g (S2: half); the bricks of g's
-    grid of each sample (`bricks` of `brick` positions, w fastest) are cut
-    into `splits_per_sample` runs of `bps` (`positions` positions), each
-    writing its partial dW to `workspace` floats, summed in split order by a
-    second launch. `box` is x's staged box a brick, its rows `row` floats;
-    `smem` the bytes of two stages; `grid` (x tiles, g tiles, splits)."""
+    """How one FB1 call is cut. `mode` 0 (S1) or 1 (S2, the strided map),
+    `k` taps per axis; `swap` puts G's channels on mma's M; a warp holds
+    `mt` m-tiles x `nt` n-tiles of its taps. A block of `threads` owns `ct`
+    channels of X (x; S2: full) and `at` of G (g; S2: half); it stages X's
+    `box` (positions, each in a row of `row` floats) and G's tile per brick
+    of `brick` positions, two in flight (`smem` bytes), and fits `per_sm`
+    blocks an SM. The bricks of G's grid of each sample (`bricks`, w
+    fastest) are cut into `splits_per_sample` runs of `bps` (`positions`
+    positions), each writing its partial to `workspace` floats, summed in
+    split order by a second launch; `grid` is (X tiles, G tiles, splits)."""
     mode: int
     k: int
-    qo: int
-    cg: int
-    og: int
+    swap: bool
+    mt: int
+    nt: int
     threads: int
     brick: Tuple[int, int, int]
     box: Tuple[int, int, int]
     row: int
     ct: int
     at: int
+    per_sm: int
     bricks: int
     bps: int
     positions: int
@@ -406,15 +409,19 @@ class FdwPlan(NamedTuple):
 
 def fb1_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int, w: int,
              k: int = 3) -> FdwPlan:
-    """The cut of FB1 for x [b, cin, d, h, w] (S2: full) and g [b, cout,
-    ...] on g's grid (S1: x's; `mode` "s2": the stride-2 grid of x, k = 3):
-    qo = 4 channels of g a thread (1 for layers of fewer than 4), og <= 8
-    thread groups along g's channels (16 for S2 and k = 1), cg along x's as
-    many as the block of at most 288 (k = 1: 256) threads holds, bricks of
-    1 x 4 x 32 positions (S2: 1 x 2 x 32), runs of FB1_MIN_BRICKS bricks up
-    to FB1_MAX_POSITIONS positions, so that the launch has about
-    FB1_THREADS threads and at most GRID_MAX splits. Raises ValueError for
-    a shape it cannot cut."""
+    """The cut of FB1 for X [b, cin, d, h, w] (S1: x; "s2": the stride-2
+    conv's full) and G [b, cout, ...] on G's grid (S1: X's; "s2": the
+    stride-2 grid, k = 3): with fewer than FB1_SWAP channels of X (S1 only)
+    G's channels on M, mt = 1 m-tile (2 for more than 16 channels of G at
+    k = 3) and nt = 1 n-tile, else X's on M, mt = 1 and nt = 1, 2 or 4 (the
+    fewest n-tiles of 8 that hold G's channels, up to 4; S2 4, for its
+    path's 64 channels of half); bricks of (4, 4, 16) positions for S1
+    k = 3, (2, 4, 16) for k = 1 and (1, 4, 16) for S2; runs of bricks so
+    that the launch has at most FB1_BLOCKS x `per_sm` blocks (one wave), or
+    one split a sample where the tiles and samples alone exceed that, at
+    least one brick a split and at most GRID_MAX splits. Raises ValueError
+    for a shape it cannot cut: a mode and k the kernel lacks, a volume of
+    2^31 voxels or more, more G tiles or splits than a launch grid holds."""
     m = {"s1": 0, "s2": 1}[mode]
     if k not in ((1, 3) if m == 0 else (3,)):
         raise ValueError(f"fb1_plan: {mode} takes k in {(1, 3) if m == 0 else (3,)}, "
@@ -422,29 +429,39 @@ def fb1_plan(mode: str, b: int, cin: int, cout: int, d: int, h: int, w: int,
     if min(b, cin, cout, d, h, w) <= 0 or d * h * w >= INT31:
         raise ValueError(f"fb1_plan: cannot cut x [{b}, {cin}, {d}, {h}, {w}] and "
                          f"{cout} channels of g")
-    qo = 4 if cout >= 4 else 1
-    og = min(_cdiv(cout, qo), 16 if m == 1 or k == 1 else 8)
-    cg = max(1, min(_cdiv(cin, FB1_CC), (256 if k == 1 else 32) // og))
-    threads = k * k * cg * og
-    brick = (1, 2 if m == 1 else 4, 32)
-    size = (_half(d), _half(h), _half(w)) if m == 1 else (d, h, w)
+    swap = m == 0 and cin < FB1_SWAP
+    if swap:
+        mt, nt = (2 if k == 3 and cout > FB1_MC else 1), 1
+        ct, at = FB1_NC * nt, FB1_MC * mt
+    else:
+        mt = 1
+        nt = 4 if m == 1 or cout > 2 * FB1_NC else 1 if cout <= FB1_NC else 2
+        ct, at = FB1_MC * mt, FB1_NC * nt
+    brick = (1 if m == 1 else 4 if k == 3 else 2, FB1_BH, FB1_BW)
     if m == 1:
-        box = (2 * brick[0] + 1, 2 * brick[1] + 1, 2 * brick[2] + 1)
+        box = tuple(2 * n + 1 for n in brick)
+        size = (_half(d), _half(h), _half(w))
     else:
         box = tuple(n + k - 1 for n in brick)
-    row = box[2]
-    ct, at = FB1_CC * cg, qo * og
+        size = (d, h, w)
+    row = ct + 8 if ct % 16 == 0 else ct
     positions = brick[0] * brick[1] * brick[2]
-    smem = 2 * 4 * (_round4(ct * box[0] * box[1] * row) + at * (positions + 4))
-    dw = split_plan(b, cin, cout, size, k ** 3, brick, ct, at,
-                    _cdiv(FB1_THREADS, threads), FB1_MIN_BRICKS,
-                    FB1_MAX_POSITIONS // positions)
-    if (threads > FB1_MAX_THREADS or smem > SMEM_MAX or dw.grid[1] > GRID_MAX
-            or dw.grid[2] > GRID_MAX):
+    stage = box[0] * box[1] * box[2] * row + at * (positions + 4)
+    # k = 1: the warps' sums, summed through shared memory at the end
+    red = FB1_WARPS * mt * nt * 4 * 32 if k == 1 else 0
+    smem = 4 * max(2 * stage, red)
+    per_sm = 2 if k == 1 else 1
+    # splits a sample: as many as one wave holds (a block more would take a
+    # second wave), at least one
+    tiles = _cdiv(cin, ct) * _cdiv(cout, at)
+    wave = FB1_BLOCKS * per_sm // (tiles * b) * tiles * b
+    dw = split_plan(b, cin, cout, size, k ** 3, brick, ct, at, wave, 1, INT31)
+    if (smem > SMEM_MAX or dw.grid[1] > GRID_MAX or dw.grid[2] > GRID_MAX
+            or dw.grid[0] >= INT31):
         raise ValueError(f"fb1_plan: {mode} cannot cut x [{b}, {cin}, {d}, {h}, "
-                         f"{w}] and {cout} channels of g: {threads} threads, "
-                         f"{smem} bytes of shared memory, grid {dw.grid}")
-    return FdwPlan(m, k, qo, cg, og, threads, brick, box, row, ct, at,
+                         f"{w}] and {cout} channels of g: {smem} bytes of shared "
+                         f"memory, grid {dw.grid}")
+    return FdwPlan(m, k, swap, mt, nt, 32 * FB1_WARPS, brick, box, row, ct, at, per_sm,
                    dw.bricks, dw.bps, dw.positions, dw.splits_per_sample,
                    dw.splits, dw.workspace, dw.grid, smem)
 
@@ -460,10 +477,10 @@ def dw_f32(plan: FdwPlan, x: torch.Tensor, g: torch.Tensor,
     out = torch.empty(((b,) if per_sample else ()) + (cout, cin, k, k, k),
                       dtype=torch.float32, device=x.device)
     family = _build.family(("s1_dw", "strided_dw")[plan.mode], torch.float32)
-    _build.launch(family, "coma_conv3d_dw_f32", x.device,
+    _build.launch(family, "coma_conv3d_dw_f32_tc", x.device,
                   x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
                   plan.mode, b, cin, cout, d, h, wd, k, int(per_sample),
-                  plan.qo, plan.cg, plan.og, *plan.brick, plan.bps, plan.smem)
+                  int(plan.swap), plan.mt, plan.nt, *plan.brick, plan.bps)
     return out
 
 

@@ -29,9 +29,10 @@ bf16. Their float32 forms, for a CUDA tensor of dtype float32: F2, K2's and
 K3's designs in f32 on the tensor cores, every product as three TF32
 `mma.sync` (3xTF32: f32 accuracy), a block holding up to 64 output channels
 of the stride-2 map (`csrc/conv3d_s2_f32_tc.cu`) or 32 of the transposed one
-(`csrc/conv3d_t2_f32_tc.cu`), both cut by `f2_plan`; and FB1's strided map
-on the CUDA cores in f32 FMAs (`csrc/conv3d_dw_f32.cu`, cut by
-`fb1_plan("s2", ...)`).
+(`csrc/conv3d_t2_f32_tc.cu`), both cut by `f2_plan`; and FB1's strided map,
+KB2's design in 3xTF32 (`csrc/conv3d_dw_f32_tc.cu`, cut by
+`fb1_plan("s2", ...)`), launched through `conv3d.dw_f32`, the launcher of
+both of FB1's maps.
 
 `conv3d_s2` and `conv3d_t2` are `torch.autograd.Function`s, closed under
 AD as in the JAX package (`conv3d_strided.py:961-1079`): the input gradient
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from coma_unet_tpu_torch.ops import _build
+from coma_unet_tpu_torch.ops import conv3d as _conv3d
 from coma_unet_tpu_torch.ops.conv3d import (
     GRID_MAX,
     INT31,
@@ -60,7 +62,6 @@ from coma_unet_tpu_torch.ops.conv3d import (
     conv3d_ref,
     conv3d_weight_ref,
     device_check,
-    dw_f32,
     fb1_plan,
     flip_t,
     split_plan,
@@ -160,8 +161,8 @@ def conv3d_strided_dw(full: torch.Tensor, half: torch.Tensor,
         raise ValueError(f"conv3d_strided_dw: half {tuple(half.shape)} is not "
                          f"the stride-2 grid of full {tuple(full.shape)}")
     if dtype == torch.float32:
-        return dw_f32(fb1_plan("s2", b, cf, cp, d, h, wd), full, half,
-                      per_sample)
+        return _conv3d.dw_f32(fb1_plan("s2", b, cf, cp, d, h, wd), full, half,
+                              per_sample)
     plan = sdw_plan(b, cf, cp, d, h, wd)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=full.device)
     out = torch.empty(((b,) if per_sample else ()) + (cp, cf, 3, 3, 3),
