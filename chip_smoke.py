@@ -43,11 +43,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               2-byte loads); K4's two slab halves, `norm_stats` (its f64
               (count, mean, M2) within KERNEL_TOL of max|plain| a column)
               and `norm_apply`, at phase 14's half-slab shapes [1, 32, 64,
-              128, 128] and [1, 1, 64, 128, 128] and at the odd sizes. K1, K2, K3, KB1, KB2, K4 and KB3 cases run
-              twice and must be bit-identical; each prints the cut
-              `s1_plan`, `s2_plan`, `t2_plan`, `dw_plan`, `sdw_plan` or
-              `na_plan` chose, and each K3 and KB2 case its TFLOP/s and the
-              share of its byte bound. Then the float32 forms (`<family>_f32`:
+              128, 128], [1, 1, 64, 128, 128] and [1, 64, 32, 64, 64]
+              (SP_SLAB_SHAPES lists all of phase 14's) and at the odd
+              sizes. K1, K2, K3, KB1, KB2, K4 and KB3 cases run twice and
+              must be bit-identical, the slab halves also after a call on
+              rows of another shape (A, B, A: the statistics' workspace is
+              left clean); each prints the cut `s1_plan`, `s2_plan`,
+              `t2_plan`, `dw_plan`, `sdw_plan`, `na_plan` or `slab_plan`
+              (segments, grid, waves) chose, and each K3 and KB2 case its
+              TFLOP/s and the share of its byte bound. Then the float32 forms (`<family>_f32`:
               F1, csrc/conv3d_s1_f32_tc.cu; F2, csrc/conv3d_s2_f32_tc.cu and
               csrc/conv3d_t2_f32_tc.cu; FB1, csrc/conv3d_dw_f32_tc.cu; K4, KB3,
               the slab halves and KS templated) at the F32_SITES of the same
@@ -122,7 +126,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               adapted ROI weights; `-resume_training` to epochs 3 must start at
               epoch 2 from parameters bit-identical to the saved ones, the step
               count going on 4 -> 6; `validate` from that run's epoch-2
-              checkpoint must print its epoch-2 CSV values within METRIC_TOL;
+              checkpoint must print its epoch-2 CSV values within METRIC_TOL
+              (avg_corr's floor is 1e-6 of the largest ROI correlation);
               `infer` must write finite 128^3 volumes. Every kernel family of
               the path must launch and no plain version may run on the GPU.
               Prints the loop's median step beside phase 7's, the loader-wait
@@ -370,9 +375,11 @@ F32_SITES = {
     "norm_act_bwd": ("head.conv1", "merge0", "gate0.psi", "down0.conv1", "216 head.conv1",
                      "odd sizes", "odd sizes, x 2 bytes off 16"),
     "norm_stats": ("half slab head.conv1", "half slab gate0.psi",
-                   "half slab final_pred_head", "odd sizes", "odd sizes, x 2 bytes off 16"),
+                   "half slab final_pred_head", "half slab down0.conv1", "odd sizes",
+                   "odd sizes, x 2 bytes off 16"),
     "norm_apply": ("half slab head.conv1", "half slab gate0.psi",
-                   "half slab final_pred_head", "odd sizes", "odd sizes, x 2 bytes off 16"),
+                   "half slab final_pred_head", "half slab down0.conv1", "odd sizes",
+                   "odd sizes, x 2 bytes off 16"),
     "phase_split": ("hsplit 216",),
 }
 # kernels whose device time the profile prints by name, in or below its top
@@ -475,6 +482,17 @@ def sass_hmma(lib, kernel: str) -> dict:
         elif name in counts and "HMMA" in line:
             counts[name] += 1
     return counts
+
+
+# Every slab shape phase 14 sends each of K4's slab halves, per rank and
+# forward (two ranks, depth slabs of 64 of 128 planes), with its count:
+# level 0 head and merge0, the modulator, gate0.psi with the modulator's and
+# fusion's last layers and final_pred_head, fusion; level 1 down0 and
+# merge1, gate1, gate1.psi
+SP_SLAB_SHAPES = (((1, 32, 64, 128, 128), 4), ((1, 16, 64, 128, 128), 4),
+                  ((1, 1, 64, 128, 128), 4), ((1, 8, 64, 128, 128), 2),
+                  ((1, 64, 32, 64, 64), 3), ((1, 32, 32, 64, 64), 2),
+                  ((1, 1, 32, 64, 64), 1))
 
 
 def _kernel_cases():
@@ -583,12 +601,14 @@ def _kernel_cases():
               for act in ("none", "relu", "leakyrelu")]
     cases.append(("phase_split", "hsplit 216", (1, 32) + t0, None, None, "hsplit"))
     # K4's slab halves at the shapes of phase 14's half slabs (a rank's 64 of
-    # 128 planes), and off the path at odd sizes, also with x 2 bytes off 16
-    # (the scalar loads)
-    half = (64, 128, 128)
+    # 128 planes at level 0, 32 of 64 at level 1; SP_SLAB_SHAPES lists all
+    # of them), and off the path at odd sizes (rows start off 16 bytes),
+    # also with x 2 bytes off 16
+    half, half1 = (64, 128, 128), (32, 64, 64)
     slabs = [("half slab head.conv1", 1, 32, "relu", True, half),
              ("half slab gate0.psi", 1, 1, "none", False, half),
              ("half slab final_pred_head", 1, 1, "prelu", False, half),
+             ("half slab down0.conv1", 1, 64, "relu", True, half1),
              ("odd sizes", 2, 24, "prelu", True, (27, 18, 45)),
              ("odd sizes, x 2 bytes off 16", 2, 24, "prelu", True, (27, 18, 45))]
     for family in ("norm_stats", "norm_apply"):
@@ -677,27 +697,31 @@ def _case_calls(family, xshape, wshape, extra, entry, gen, dev):
                     plain=lambda: ops.hsplit_plain(x), library=None, inputs=(x,),
                     ops=0, rate=PEAK_F32)
     if family in ("norm_stats", "norm_apply"):
-        from coma_unet_tpu_torch.ops.norm_act import mean_rstd, row_partials, slab_plan
+        from coma_unet_tpu_torch.ops.norm_act import mean_rstd, row_partials, slab_plan_of
 
         x, alpha, scale, shift = _norm_inputs(xshape, *extra, gen, dev, dtype)
         act = extra[0]
+        # B of the A, B, A check: the same half on rows of another shape
+        other_shape = (1, 8, 24, 40, 40) if xshape[1] != 8 else (2, 3, 16, 16, 16)
+        xb = _norm_inputs(other_shape, "none", False, 0, gen, dev, dtype)[0]
         if family == "norm_stats":  # (count, mean, M2) of each row, f64
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             rows = xshape[0] * xshape[1]
             return dict(kernel=lambda: ops.norm_stats(x).unbind(1),
                         ref=lambda: ops.norm_stats_plain(x.float()).unbind(1),
                         plain=lambda: ops.norm_stats_plain(x),
                         library=lambda: torch.var_mean(x.reshape(rows, -1), dim=1),
                         inputs=(x,), ops=3 * x.numel(), rate=PEAK_F32,
-                        plan=slab_plan(xshape[0] * xshape[1], _voxels(xshape), sms))
+                        plan=slab_plan_of(x, 0), other=lambda: ops.norm_stats(xb))
         stats = mean_rstd(row_partials(x))
+        stats_b = mean_rstd(row_partials(xb))
         film = tuple(t for t in (scale, shift) if t is not None)
         return dict(kernel=lambda: ops.norm_apply(x, stats, alpha, act, scale, shift),
                     ref=lambda: ops.norm_apply_plain(x.float(), stats, alpha, act, scale,
                                                      shift),
                     plain=lambda: ops.norm_apply_plain(x, stats, alpha, act, scale, shift),
                     library=None, inputs=(x, stats) + film, ops=6 * x.numel(),
-                    rate=PEAK_F32, plan=None)
+                    rate=PEAK_F32, plan=slab_plan_of(x, 1, act),
+                    other=lambda: ops.norm_apply(xb, stats_b, None, "none"))
     if family in ("norm_act", "norm_act_bwd"):
         from coma_unet_tpu_torch.ops.norm_act import na_plan
 
@@ -873,17 +897,22 @@ def _norm_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
             f"bulk={plan.bulk}; two calls bit-identical")
 
 
-def _slab_checks(case: dict, got: tuple, kernel: str, site: str) -> str:
-    """One of K4's slab halves at one site: a second call must be
-    bit-identical to the first in every output. Returns a line with the cut
-    `slab_plan` chose (the statistics half)."""
-    again = case["kernel"]()
-    again = again if isinstance(again, tuple) else (again,)
-    check(all(bool(torch.equal(a, b)) for a, b in zip(again, got)),
-          f"{kernel} {site}: two calls differ")
+def _slab_checks(case: dict, got: tuple, kernel: str, site: str, rows: int) -> str:
+    """One of K4's slab halves at one site: a second call, and a third after
+    a call on rows of another shape (A, B, A: the statistics' kept workspace
+    is left clean), must be bit-identical to the first in every output.
+    Returns a line with the cut `slab_plan` chose: segments, grid, waves."""
+    for calls in ((case["kernel"],), (case["other"], case["kernel"])):
+        for call in calls:
+            again = call()
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(again, got)),
+              f"{kernel} {site}: calls differ ({len(calls) + 1} calls, A, ..., A)")
     plan = case["plan"]
-    cut = f"segs={plan.segs} seg={plan.seg}; " if plan else ""
-    return f"  {kernel} {site}: {cut}two calls bit-identical"
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    return (f"  {kernel} {site}: segs={plan.segs} seg={plan.seg} grid=({plan.segs}, "
+            f"{min(rows, 65535)}) ctas={plan.ctas} waves={plan.waves:.3f} of "
+            f"{plan.ctas / plan.waves / sms:.0f} an SM; A, A and A, B, A bit-identical")
 
 
 def phase_kernels(summary: dict, families=None) -> None:
@@ -934,7 +963,8 @@ def phase_kernels(summary: dict, families=None) -> None:
                 name = {"norm_act": "K4", "norm_act_bwd": "KB3"}[base] + (" f32" if f32 else "")
                 note = _norm_checks(case, got, name, site)
             elif base in ("norm_stats", "norm_apply"):
-                note = _slab_checks(case, got, f"K4 slab {family}", site)
+                note = _slab_checks(case, got, f"K4 slab {family}", site,
+                                    xshape[0] * xshape[1])
             elif base in ("s1", "s2", "t2"):
                 name = ({"s1": "F1", "s2": "F2", "t2": "F2"} if f32
                         else {"s1": "K1", "s2": "K2", "t2": "K3"})[base]
@@ -1688,6 +1718,33 @@ def _cli(argv, peaks: dict, name: str = "") -> tuple:
     return rc, out.getvalue(), seconds
 
 
+def _validate_matches_csv(got: dict, run: str, tag: str) -> float:
+    """`validate`'s printed overall metrics (`got`) against the epoch-2 column
+    of the training run's CSVs, within METRIC_TOL plus a floor of 1e-6 of the
+    key's largest value. avg_corr averages ROI correlations near +-1 that may
+    cancel to 0, so its floor is 1e-6 of the largest ROI correlation, not of
+    the mean. Returns the worst relative error."""
+    import os
+
+    from coma_unet_tpu_torch.data.table import read_csv, to_numeric
+
+    def csv(key):
+        return to_numeric(read_csv(os.path.join(
+            run, "validation_metric_results", f"{key}.csv"))["epoch_2"])
+
+    worst = 0.0
+    for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
+        want = csv(key)
+        have = np.atleast_1d(np.asarray(got[key], np.float64))
+        scale = np.nan_to_num(csv("roi_corr")) if key == "avg_corr" else want
+        floor = 1e-6 * float(np.abs(scale).max())
+        err = np.abs(have - want)
+        check(bool((err <= METRIC_TOL * np.abs(want) + floor).all()),
+              f"{tag}: validate {key} {have} vs the run's epoch-2 CSV {want}")
+        worst = max(worst, float((err / (np.abs(want) + floor + 1e-30)).max()))
+    return worst
+
+
 def phase_loop() -> dict:
     """The slice's main path: train, resume, validate and infer through the
     CLI on a synthetic 128^3 cohort, the flagship at full width."""
@@ -1813,16 +1870,7 @@ def phase_loop() -> dict:
         check(rc == 0, f"loop: validate returned {rc}")
         got = next(json.loads(line) for line in out.splitlines()
                    if line.startswith('{"validate"'))["validate"]
-        worst = 0.0
-        for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
-            want = np.asarray(read_csv(os.path.join(
-                resumed, "validation_metric_results", f"{key}.csv"))["epoch_2"])
-            have = np.atleast_1d(np.asarray(got[key], np.float64))
-            floor = 1e-6 * float(np.abs(want).max())
-            err = np.abs(have - want)
-            check(bool((err <= METRIC_TOL * np.abs(want) + floor).all()),
-                  f"loop: validate {key} {have} vs the run's epoch-2 CSV {want}")
-            worst = max(worst, float((err / (np.abs(want) + floor + 1e-30)).max()))
+        worst = _validate_matches_csv(got, resumed, "loop")
 
         rc, _, infer_s = _cli(["infer", "--config", config_file(3), "--input_lookup",
                                test_csv, "-checkpoint_path", epoch2, "--out_dir",
@@ -2411,16 +2459,7 @@ def phase_baselines(s: int = 128, parity_s: int = 32) -> dict:
         seconds["validate AttnUNET"] = secs
         got = next(json.loads(line) for line in out.splitlines()
                    if line.startswith('{"validate"'))["validate"]
-        worst = 0.0
-        for key in ("mae", "mape", "avg_corr", "roi_maes", "roi_mapes"):
-            want = np.asarray(read_csv(os.path.join(
-                resumed, "validation_metric_results", f"{key}.csv"))["epoch_2"])
-            have = np.atleast_1d(np.asarray(got[key], np.float64))
-            floor = 1e-6 * float(np.abs(want).max())
-            err = np.abs(have - want)
-            check(bool((err <= METRIC_TOL * np.abs(want) + floor).all()),
-                  f"baselines: validate {key} {have} vs the run's epoch-2 CSV {want}")
-            worst = max(worst, float((err / (np.abs(want) + floor + 1e-30)).max()))
+        worst = _validate_matches_csv(got, resumed, "baselines")
         infer("AttnUNET", "attn", epoch2, norm="batch")
         shutil.rmtree(os.path.join(tmp, "attn"))
 

@@ -260,9 +260,10 @@ __device__ __forceinline__ void arrive_and_wait(unsigned* counter, unsigned targ
   }
 }
 
-// Sums v over the CTA in a fixed order; the totals land in thread 0.
-template <int K>
-__device__ __forceinline__ void block_total(float (&v)[K], float (*red)[WARPS]) {
+// Sums v over the CTA of NW warps in a fixed order; the totals land in
+// thread 0.
+template <int K, int NW>
+__device__ __forceinline__ void block_total(float (&v)[K], float (*red)[NW]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -275,7 +276,7 @@ __device__ __forceinline__ void block_total(float (&v)[K], float (*red)[WARPS]) 
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       float t = 0.f;
-      for (int w = 0; w < WARPS; ++w) t += red[j][w];
+      for (int w = 0; w < NW; ++w) t += red[j][w];
       v[j] = t;
     }
   }
@@ -693,203 +694,395 @@ COMA_API int coma_norm_act_bwd_f32(const void* x, const void* g, const void* sta
 // here, the counterparts of the Pallas kernel's own two:
 //   coma_norm_stats: each row's partial of the slab, (count, mean, M2) in
 //     f64. Replaces norm_act.py `_stats_kernel` (its launch in
-//     `_norm_act_fwd_impl`). A first kernel takes one segment of one row a
-//     CTA and writes K4's shifted f32 partial (count, mean and M2 of x - s,
-//     s the row's first voxel of the slab); a second, one warp a row, merges
-//     the row's partials in f64 in segment order, as K4's rows do.
+//     `_norm_act_fwd_impl`).
 //   coma_norm_apply: y = act(scale * (x - mean) * rstd + shift) from the
 //     given per-row f32 mean and rstd, stored in x's type. Replaces
 //     `_apply_kernel`.
-// Both read x once (apply writes y once): bound by memory. They are simple
-// grid-stride kernels, 16-byte vectors where the rows allow; no float
-// atomics, so two calls give the same bits. Both are templated on the
+// Both read x once (apply writes y once): bound by memory, 3.35 TB/s on the
+// H100, and on the one-channel sites of the path (2 MB) by the launch and
+// one trip to memory. Both are cut by ops/norm_act.py:slab_plan: each row
+// into `segs` segments of `seg` voxels (a multiple of 8, at least 16 KB),
+// on a 2-D grid of (segment, row), rows folded past 65,535; the statistics
+// take as many segments a row as one wave of the kernel's own occupancy
+// holds (a second wave costs another round of CTA starts, reductions and
+// tickets for no more bytes in flight), the apply 16 KB pieces, which even
+// out over the SMs as they finish.
+// A CTA takes its segment in the row's aligned coordinates (`Piece`): the
+// 16-byte groups wholly inside it as vectors, each thread issuing
+// SLAB_UNROLL loads before it uses any, and the at most EPG - 1 elements at
+// each ragged end one at a time, so a row that starts off 16 bytes (N % EPG
+// != 0, or x off 16) still streams in vectors. The statistics half is one
+// launch: each CTA stores K4's shifted f32 partial (count, mean and M2 of
+// x - s, s the row's first voxel of the slab, summed over the CTA in a
+// fixed order) and takes a ticket on its row's counter (acquire-release);
+// the CTA that takes the last ticket stages the row's partials in shared
+// memory and merges them in f64 in segment order (K4's merge), writes
+// (count, mean, M2) and sets the counter back to 0. The result does not
+// depend on which CTA comes last, and there are no float atomics: two calls
+// give the same bits. The partials and the counters are a workspace the
+// wrapper keeps per device, zeroed once; calls on one device are ordered
+// on its current stream. The apply half reads its row's mean, rstd, scale,
+// shift and alpha once a CTA (no division per group) and cuts in y's
+// aligned coordinates: 16-byte stores, and 16-byte loads of x too where x
+// shares y's offset (element loads where not). Both are templated on the
 // element type like K4 (the `_f32` entries are the float32 forms).
 namespace {
 
 constexpr int SLAB_THREADS = 256;
+constexpr int SLAB_CTAS = 4;  // CTAs an SM holds of the statistics: at most 64 registers
+constexpr int SLAB_WARPS = SLAB_THREADS / 32;
+constexpr int SLAB_UNROLL = 4;  // 16-byte groups a thread loads before it uses them
+constexpr int64_t SLAB_ROWS_Y = 65535;  // rows a grid takes in y; more fold
+constexpr int SLAB_STAGE = 512;         // partials the merge stages at a time (a multiple of 32)
 
 template <class T>
-__device__ __forceinline__ bool slab_vec(const NaArgs<T>& a) {
-  return a.vec && a.n % Elem<T>::EPG == 0;
+struct SlabArgs {
+  const T* x;
+  const float* stats;  // apply: [rows, 2] (mean, rstd)
+  const float* scale;  // apply: [rows] or null
+  const float* shift;  // apply: [rows] or null
+  const float* alpha;  // apply: [1], read for prelu
+  T* y;                // apply: the output
+  float* part;         // stats: [rows, segs, 3] partials
+  unsigned* count;     // stats: [rows] tickets, 0 at launch and left 0
+  double* out;         // stats: [rows, 3] (count, mean, M2)
+  int64_t rows, n, seg;
+  int segs;
+  int off;  // elements from the 16-byte boundary below the aligned tensor
+            // (stats: x; apply: y) to its start
+};
+
+// Segment [e0, e1) of a row in its aligned coordinates: element e of the
+// row is element o + e of the aligned base, whose groups of EPG elements
+// are 16-byte aligned. Groups [g0, g1) lie wholly inside the segment;
+// elements [lo, a) and [b, hi) are its ragged ends (all of it where no
+// group fits).
+struct Piece {
+  int64_t lo, hi, g0, g1, a, b;
+};
+
+template <int EPG>
+__device__ __forceinline__ Piece piece(int64_t o, int64_t e0, int64_t e1) {
+  Piece p;
+  p.lo = o + e0;
+  p.hi = o + e1;
+  p.g0 = (p.lo + EPG - 1) / EPG;
+  p.g1 = p.hi / EPG;
+  if (p.g0 < p.g1) {
+    p.a = EPG * p.g0;
+    p.b = EPG * p.g1;
+  } else {
+    p.g1 = p.g0;
+    p.a = p.b = p.hi;
+  }
+  return p;
 }
 
-// One CTA: segment blockIdx.x of row blockIdx.y.
-template <class T>
-__global__ void __launch_bounds__(SLAB_THREADS) slab_partial_kernel(const NaArgs<T> a) {
-  constexpr int EPG = Elem<T>::EPG;
-  __shared__ float red[2][SLAB_THREADS / 32];
-  const int64_t row = blockIdx.y;
-  const int64_t e0 = blockIdx.x * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
-  const T* const xr = a.x + row * a.n;
-  const float shift0 = Elem<T>::load(xr[0]);
-  float s = 0.f, q = 0.f;
-  if (slab_vec(a)) {  // e0 and e1 are multiples of EPG (seg is a multiple of 8; n of EPG)
-    for (int64_t k = e0 / EPG + threadIdx.x; k < e1 / EPG; k += SLAB_THREADS) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + EPG * k);
+// Calls f(e, v) for each element e of the piece's ragged ends, v its value
+// in `base` as f32, spread over the CTA's threads in a fixed order,
+// SLAB_UNROLL elements a thread a trip, all loaded first.
+template <class T, class F>
+__device__ __forceinline__ void for_edges(const T* base, const Piece& p, F&& f) {
+  const int64_t head = p.a - p.lo, count = head + (p.hi - p.b);
+  for (int64_t i = threadIdx.x; i < count; i += SLAB_UNROLL * SLAB_THREADS) {
+    int64_t e[SLAB_UNROLL];
+    float v[SLAB_UNROLL];
 #pragma unroll
-      for (int j = 0; j < EPG; ++j) {
-        const float t = val<T>(v, j) - shift0;
-        s += t;
-        q = fmaf(t, t, q);
+    for (int u = 0; u < SLAB_UNROLL; ++u) {
+      const int64_t iu = i + u * SLAB_THREADS;
+      e[u] = iu < head ? p.lo + iu : p.b + iu - head;
+      if (iu < count) v[u] = Elem<T>::load(base[e[u]]);
+    }
+#pragma unroll
+    for (int u = 0; u < SLAB_UNROLL; ++u)
+      if (i + u * SLAB_THREADS < count) f(e[u], v[u]);
+  }
+}
+
+// Group k of `base` as 16 bytes: one vector load where VEC, else EPG
+// element loads (base is not 16-byte aligned there).
+template <bool VEC, class T>
+__device__ __forceinline__ uint4 load16(const T* base, int64_t k) {
+  constexpr int EPG = Elem<T>::EPG;
+  if constexpr (VEC) return *reinterpret_cast<const uint4*>(base + EPG * k);
+  uint4 v;
+  T* const pv = reinterpret_cast<T*>(&v);
+#pragma unroll
+  for (int j = 0; j < EPG; ++j) pv[j] = base[EPG * k + j];
+  return v;
+}
+
+// Calls f(k, v) for each group k of the piece that this thread takes, v
+// its 16 bytes of `base` (`load16`): SLAB_UNROLL groups a trip, all loaded
+// first.
+template <bool VEC, class T, class F>
+__device__ __forceinline__ void for_groups(const T* base, const Piece& p, F&& f) {
+  constexpr int EPG = Elem<T>::EPG;
+  for (int64_t k = p.g0 + threadIdx.x; k < p.g1; k += SLAB_UNROLL * SLAB_THREADS) {
+    uint4 v[SLAB_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SLAB_UNROLL; ++u) {
+      const int64_t ku = k + u * SLAB_THREADS;
+      if (ku < p.g1) v[u] = load16<VEC>(base, ku);
+    }
+#pragma unroll
+    for (int u = 0; u < SLAB_UNROLL; ++u) {
+      const int64_t ku = k + u * SLAB_THREADS;
+      if (ku < p.g1) f(ku, v[u]);
+    }
+  }
+}
+
+// Thread 0: adds one to the counter with acquire-release order (this CTA's
+// partial, stored before, is published; the partials of the CTAs that took
+// earlier tickets are seen) and returns the count before.
+__device__ __forceinline__ unsigned ticket(unsigned* counter) {
+  unsigned prev;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(prev)
+               : "l"(counter)
+               : "memory");
+  return prev;
+}
+
+template <class T>
+__global__ void __launch_bounds__(SLAB_THREADS, SLAB_CTAS)
+    slab_stats_kernel(const SlabArgs<T> a) {
+  constexpr int EPG = Elem<T>::EPG;
+  __shared__ float red[2][SLAB_WARPS];
+  __shared__ float stage[3 * SLAB_STAGE];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int sidx = blockIdx.x;
+  const int64_t e0 = (int64_t)sidx * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
+  for (int64_t row = blockIdx.y; row < a.rows; row += gridDim.y) {
+    const T* const xr = a.x + row * a.n;
+    const int64_t o = (uint64_t)(a.off + row * a.n) % EPG;
+    const T* const base = xr - o;
+    const Piece p = piece<EPG>(o, e0, e1);
+    const float s0 = Elem<T>::load(xr[0]);
+    float acc[2] = {0.f, 0.f};
+    const auto add = [&](float v) {
+      const float t = v - s0;
+      acc[0] += t;
+      acc[1] = fmaf(t, t, acc[1]);
+    };
+    for_groups<true>(base, p, [&](int64_t, const uint4& v) {
+#pragma unroll
+      for (int j = 0; j < EPG; ++j) add(val<T>(v, j));
+    });
+    for_edges(base, p, [&](int64_t, float v) { add(v); });
+    block_total(acc, red);
+    if (tid == 0) {
+      const float cnt = (float)(e1 - e0), m = acc[0] / cnt;
+      float* const pp = a.part + (row * a.segs + sidx) * 3;
+      pp[0] = cnt;
+      pp[1] = m;
+      pp[2] = fmaxf(fmaf(-acc[0], m, acc[1]), 0.f);
+      last = ticket(a.count + row) == (unsigned)a.segs - 1u;
+    }
+    __syncthreads();
+    // the last CTA of the row merges its partials in f64 in segment order,
+    // K4's merge (`run`, step 3): the CTA stages them in shared memory, up
+    // to SLAB_STAGE at a time, and one warp adds them, lane l those of
+    // segments l, l + 32, ...
+    if (last) {
+      const float* const pr = a.part + row * a.segs * 3;
+      const double nd = (double)a.n;
+      const bool once = a.segs <= SLAB_STAGE;  // both passes read one staging
+      double sn = 0.0, mt = 0.0, m2 = 0.0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int c0 = 0; c0 < a.segs; c0 += SLAB_STAGE) {
+          const int cnt = min(SLAB_STAGE, a.segs - c0);
+          if (pass == 0 || !once) {
+            __syncthreads();  // the last chunk's reads are done
+            for (int i = tid; i < 3 * cnt; i += SLAB_THREADS) stage[i] = __ldcg(pr + 3 * c0 + i);
+            __syncthreads();
+          }
+          if (tid < 32) {
+            for (int i = lane; i < cnt; i += 32) {
+              const float* const q = stage + 3 * i;
+              if (pass == 0) {
+                sn += (double)q[0] * (double)q[1];
+              } else {
+                const double d = (double)q[1] - mt;
+                m2 += (double)q[2] + (double)q[0] * d * d;
+              }
+            }
+          }
+        }
+        if (tid < 32) {
+          if (pass == 0) mt = warp_total(sn) / nd;
+          else m2 = warp_total(m2);
+        }
+      }
+      if (tid == 0) {
+        a.out[3 * row] = nd;
+        a.out[3 * row + 1] = (double)s0 + mt;
+        a.out[3 * row + 2] = m2;
+        a.count[row] = 0u;  // the next call finds it zero
       }
     }
-  } else {
-    for (int64_t e = e0 + threadIdx.x; e < e1; e += SLAB_THREADS) {
-      const float t = Elem<T>::load(xr[e]) - shift0;
-      s += t;
-      q = fmaf(t, t, q);
-    }
-  }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    q += __shfl_xor_sync(0xffffffffu, q, o);
-  }
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = q;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    s = q = 0.f;
-    for (int w = 0; w < SLAB_THREADS / 32; ++w) {
-      s += red[0][w];
-      q += red[1][w];
-    }
-    const float cnt = (float)(e1 - e0), m = s / cnt;
-    float* const p = a.part + (row * a.segs + blockIdx.x) * 3;
-    p[0] = cnt;
-    p[1] = m;
-    p[2] = fmaxf(q - s * m, 0.f);
+    __syncthreads();  // red and last are free for the next row
   }
 }
 
-// One warp a row: the row's partials merged in f64 in segment order into
-// (count, mean, M2), K4's merge (`run`, step 3).
-template <class T>
-__global__ void slab_merge_kernel(const NaArgs<T> a, double* out) {
-  const int64_t row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* const part = a.part + row * a.segs * 3;
-  const double nd = (double)a.n;
-  double sn = 0.0;
-  for (int i = lane; i < a.segs; i += 32) sn += (double)part[3 * i] * (double)part[3 * i + 1];
-  const double mt = warp_total(sn) / nd;
-  double m2 = 0.0;
-  for (int i = lane; i < a.segs; i += 32) {
-    const double d = (double)part[3 * i + 1] - mt;
-    m2 += (double)part[3 * i + 2] + (double)part[3 * i] * d * d;
-  }
-  m2 = warp_total(m2);
-  if (lane == 0) {
-    out[3 * row] = nd;
-    out[3 * row + 1] = (double)Elem<T>::load(a.x[row * a.n]) + mt;
-    out[3 * row + 2] = m2;
-  }
-}
-
-template <class T, int ACT>
-__global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const NaArgs<T> a) {
+// VEC: x shares y's offset, so x's groups load as 16-byte vectors too;
+// else element by element.
+template <class T, int ACT, bool VEC>
+__global__ void __launch_bounds__(SLAB_THREADS) slab_apply_kernel(const SlabArgs<T> a) {
   constexpr int EPG = Elem<T>::EPG;
   const float alpha = ACT == 3 ? a.alpha[0] : 0.f;
-  const int64_t stride = (int64_t)gridDim.x * SLAB_THREADS;
-  const int64_t first = (int64_t)blockIdx.x * SLAB_THREADS + threadIdx.x;
-  const auto u_of = [&](int64_t row, float x) {
+  const int64_t e0 = (int64_t)blockIdx.x * a.seg, e1 = e0 + a.seg < a.n ? e0 + a.seg : a.n;
+  for (int64_t row = blockIdx.y; row < a.rows; row += gridDim.y) {
+    const float mean = a.stats[2 * row], rstd = a.stats[2 * row + 1];
     const float sc = a.scale ? a.scale[row] : 1.f, sh = a.shift ? a.shift[row] : 0.f;
-    return activate<ACT>(sc * ((x - a.stats[2 * row]) * a.stats[2 * row + 1]) + sh, alpha);
-  };
-  if (slab_vec(a)) {  // a group of EPG lies in one row
-    for (int64_t k = first; k < a.rows * a.n / EPG; k += stride) {
-      const int64_t row = EPG * k / a.n;
-      const uint4 v = reinterpret_cast<const uint4*>(a.x)[k];
-      uint4 ov;
-      T* const o = reinterpret_cast<T*>(&ov);
+    const auto f = [&](float v) {
+      return Elem<T>::store(activate<ACT>(sc * ((v - mean) * rstd) + sh, alpha));
+    };
+    // y's aligned coordinates: 16-byte stores
+    const int64_t o = (uint64_t)(a.off + row * a.n) % EPG;
+    const T* const xb = a.x + row * a.n - o;
+    T* const yb = a.y + row * a.n - o;
+    const Piece p = piece<EPG>(o, e0, e1);
+    for_groups<VEC>(xb, p, [&](int64_t k, const uint4& v) {
+      uint4 w;
+      T* const pw = reinterpret_cast<T*>(&w);
 #pragma unroll
-      for (int j = 0; j < EPG; ++j) o[j] = Elem<T>::store(u_of(row, val<T>(v, j)));
-      reinterpret_cast<uint4*>(a.out)[k] = ov;
-    }
-  } else {
-    for (int64_t e = first; e < a.rows * a.n; e += stride)
-      a.out[e] = Elem<T>::store(u_of(e / a.n, Elem<T>::load(a.x[e])));
+      for (int j = 0; j < EPG; ++j) pw[j] = f(val<T>(v, j));
+      *reinterpret_cast<uint4*>(yb + EPG * k) = w;
+    });
+    for_edges(xb, p, [&](int64_t e, float v) { yb[e] = f(v); });
   }
 }
 
+// The apply kernel for activation act, with x's groups as vectors or not.
 template <class T>
-int norm_stats_entry(const void* x, void* scratch, void* stats, int64_t rows, int64_t n,
-                     int64_t seg, int64_t segs, void* stream) {
-  if (rows < 1 || rows > 65535 || n < 1 || seg < 8 || seg % 8 != 0 || segs < 1 ||
-      (segs - 1) * seg >= n || segs * seg < n || segs > (1 << 30))
-    return cudaErrorInvalidValue;
-  NaArgs<T> a{};
-  a.x = static_cast<const T*>(x);
-  a.part = static_cast<float*>(scratch);
+using ApplyKernel = void (*)(const SlabArgs<T>);
+
+template <class T>
+ApplyKernel<T> slab_apply_kernel_of(int64_t act, bool vec) {
+  switch (act) {
+    case 1: return vec ? &slab_apply_kernel<T, 1, true> : &slab_apply_kernel<T, 1, false>;
+    case 2: return vec ? &slab_apply_kernel<T, 2, true> : &slab_apply_kernel<T, 2, false>;
+    case 3: return vec ? &slab_apply_kernel<T, 3, true> : &slab_apply_kernel<T, 3, false>;
+    default: return vec ? &slab_apply_kernel<T, 0, true> : &slab_apply_kernel<T, 0, false>;
+  }
+}
+
+// Elements from the 16-byte boundary at or below p to p.
+template <class T>
+int slab_off(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) % 16 / sizeof(T));
+}
+
+// Fills the cut of `a` and checks it; false if it does not cover every
+// voxel of every row, or x is not aligned to its element size.
+template <class T>
+bool slab_cut(SlabArgs<T>& a, int64_t rows, int64_t n, int64_t seg, int64_t segs) {
+  if (rows < 1 || n < 1 || seg < 8 || seg % 8 != 0 || segs < 1 || segs > (1 << 30) ||
+      (segs - 1) * seg >= n || segs * seg < n ||
+      reinterpret_cast<uintptr_t>(a.x) % sizeof(T) != 0)
+    return false;
   a.rows = rows;
   a.n = n;
   a.seg = seg;
   a.segs = (int)segs;
-  a.vec = aligned16(x);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  slab_partial_kernel<T><<<dim3((unsigned)segs, (unsigned)rows), SLAB_THREADS, 0, s>>>(a);
-  slab_merge_kernel<T><<<(unsigned)rows, 32, 0, s>>>(a, static_cast<double*>(stats));
+  return true;
+}
+
+dim3 slab_grid(const int64_t rows, const int64_t segs) {
+  return dim3((unsigned)segs, (unsigned)(rows < SLAB_ROWS_Y ? rows : SLAB_ROWS_Y));
+}
+
+template <class T>
+int norm_stats_entry(const void* x, void* part, void* count, void* stats, int64_t rows,
+                     int64_t n, int64_t seg, int64_t segs, void* stream) {
+  SlabArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.part = static_cast<float*>(part);
+  a.count = static_cast<unsigned*>(count);
+  a.out = static_cast<double*>(stats);
+  if (!slab_cut(a, rows, n, seg, segs)) return cudaErrorInvalidValue;
+  a.off = slab_off<T>(x);
+  slab_stats_kernel<T>
+      <<<slab_grid(rows, segs), SLAB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
 template <class T>
 int norm_apply_entry(const void* x, const void* stats, const void* scale, const void* shift,
                      const void* alpha, void* y, int64_t rows, int64_t n, int64_t act,
-                     int64_t blocks, void* stream) {
-  if (rows < 1 || n < 1 || act < 0 || act > 3 || blocks < 1 || blocks > (1 << 30))
-    return cudaErrorInvalidValue;
-  NaArgs<T> a{};
+                     int64_t seg, int64_t segs, void* stream) {
+  SlabArgs<T> a{};
   a.x = static_cast<const T*>(x);
-  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.stats = static_cast<const float*>(stats);
   a.scale = static_cast<const float*>(scale);
   a.shift = static_cast<const float*>(shift);
   a.alpha = static_cast<const float*>(alpha);
-  a.out = static_cast<T*>(y);
-  a.rows = rows;
-  a.n = n;
-  a.vec = aligned16(x) && aligned16(y);
+  a.y = static_cast<T*>(y);
+  if (act < 0 || act > 3 || !slab_cut(a, rows, n, seg, segs) ||
+      reinterpret_cast<uintptr_t>(y) % sizeof(T) != 0)
+    return cudaErrorInvalidValue;
+  a.off = slab_off<T>(y);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)blocks);
-  switch (act) {
-    case 1: slab_apply_kernel<T, 1><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    case 2: slab_apply_kernel<T, 2><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    case 3: slab_apply_kernel<T, 3><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-    default: slab_apply_kernel<T, 0><<<grid, SLAB_THREADS, 0, s>>>(a); break;
-  }
+  const dim3 grid = slab_grid(rows, segs);
+  const bool vec = slab_off<T>(x) == a.off;
+  slab_apply_kernel_of<T>(act, vec)<<<grid, SLAB_THREADS, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+const void* slab_kernel(int64_t half, int64_t act) {
+  if (half == 0) return reinterpret_cast<const void*>(slab_stats_kernel<T>);
+  return reinterpret_cast<const void*>(slab_apply_kernel_of<T>(act, true));
 }
 
 }  // namespace
 
 // x [rows, n] bf16 (a slab of each row). stats receives [rows, 3] f64:
-// (count, mean, M2) of each row. scratch: rows * segs * 3 floats of
-// partials. Each of the segs segments of a row is seg voxels (a multiple of
-// 8; the last may be shorter); the cut comes from ops/norm_act.py:slab_plan.
-COMA_API int coma_norm_stats(const void* x, void* scratch, void* stats, int64_t rows, int64_t n,
-                             int64_t seg, int64_t segs, void* stream) {
-  return norm_stats_entry<bf16>(x, scratch, stats, rows, n, seg, segs, stream);
+// (count, mean, M2) of each row. part: rows * segs * 3 floats of partials;
+// count: rows 32-bit counters, zero at the call and left zero. Each of the
+// segs segments of a row is seg voxels (a multiple of 8; the last may be
+// shorter); the cut comes from ops/norm_act.py:slab_plan.
+COMA_API int coma_norm_stats(const void* x, void* part, void* count, void* stats, int64_t rows,
+                             int64_t n, int64_t seg, int64_t segs, void* stream) {
+  return norm_stats_entry<bf16>(x, part, count, stats, rows, n, seg, segs, stream);
 }
 
 // coma_norm_stats's float32 form: x [rows, n] f32.
-COMA_API int coma_norm_stats_f32(const void* x, void* scratch, void* stats, int64_t rows,
-                                 int64_t n, int64_t seg, int64_t segs, void* stream) {
-  return norm_stats_entry<float>(x, scratch, stats, rows, n, seg, segs, stream);
+COMA_API int coma_norm_stats_f32(const void* x, void* part, void* count, void* stats,
+                                 int64_t rows, int64_t n, int64_t seg, int64_t segs,
+                                 void* stream) {
+  return norm_stats_entry<float>(x, part, count, stats, rows, n, seg, segs, stream);
 }
 
 // x, y [rows, n] bf16; stats [rows, 2] f32 (mean, rstd); scale, shift [rows]
-// f32 or null; alpha [1] f32 (read for prelu only); act as coma_norm_act's.
+// f32 or null; alpha [1] f32 (read for prelu only); act as coma_norm_act's;
+// the cut (seg, segs) from ops/norm_act.py:slab_plan.
 COMA_API int coma_norm_apply(const void* x, const void* stats, const void* scale,
                              const void* shift, const void* alpha, void* y, int64_t rows,
-                             int64_t n, int64_t act, int64_t blocks, void* stream) {
-  return norm_apply_entry<bf16>(x, stats, scale, shift, alpha, y, rows, n, act, blocks, stream);
+                             int64_t n, int64_t act, int64_t seg, int64_t segs, void* stream) {
+  return norm_apply_entry<bf16>(x, stats, scale, shift, alpha, y, rows, n, act, seg, segs,
+                                stream);
 }
 
 // coma_norm_apply's float32 form: x, y [rows, n] f32.
 COMA_API int coma_norm_apply_f32(const void* x, const void* stats, const void* scale,
                                  const void* shift, const void* alpha, void* y, int64_t rows,
-                                 int64_t n, int64_t act, int64_t blocks, void* stream) {
-  return norm_apply_entry<float>(x, stats, scale, shift, alpha, y, rows, n, act, blocks, stream);
+                                 int64_t n, int64_t act, int64_t seg, int64_t segs,
+                                 void* stream) {
+  return norm_apply_entry<float>(x, stats, scale, shift, alpha, y, rows, n, act, seg, segs,
+                                 stream);
+}
+
+// The CTAs of one slab half an SM holds on the current device: half 0 the
+// statistics, 1 the apply with activation act; elem the element size (2
+// bf16, 4 f32). Returns the count, or minus the CUDA error.
+COMA_API int coma_slab_ctas_per_sm(int64_t half, int64_t act, int64_t elem) {
+  int ctas = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, elem == 4 ? slab_kernel<float>(half, act) : slab_kernel<bf16>(half, act),
+      SLAB_THREADS, 0);
+  return err == cudaSuccess ? ctas : -(int)err;
 }

@@ -73,8 +73,8 @@ _SIGNATURES = {
     "coma_conv3d_strided_dw": [_P] * 4 + [_I] * 13 + [_P],
     "coma_norm_act_bwd": [_P] * 10 + [_I] * 11 + [_P],
     "coma_hsplit": [_P] * 3 + [_I] * 2 + [_P],
-    "coma_norm_stats": [_P] * 3 + [_I] * 4 + [_P],
-    "coma_norm_apply": [_P] * 6 + [_I] * 4 + [_P],
+    "coma_norm_stats": [_P] * 4 + [_I] * 4 + [_P],
+    "coma_norm_apply": [_P] * 6 + [_I] * 5 + [_P],
     "coma_conv3d_s1_f32_tc": [_P] * 5 + [_I] * 15 + [_P],
     "coma_conv3d_s2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
     "coma_conv3d_t2_f32_tc": [_P] * 5 + [_I] * 14 + [_P],
@@ -82,8 +82,9 @@ _SIGNATURES = {
     "coma_norm_act_f32": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _P],
     "coma_norm_act_bwd_f32": [_P] * 10 + [_I] * 11 + [_P],
     "coma_hsplit_f32": [_P] * 3 + [_I] * 2 + [_P],
-    "coma_norm_stats_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "coma_norm_apply_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "coma_norm_stats_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "coma_norm_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "coma_slab_ctas_per_sm": [_I] * 3,
 }
 
 _lib = None

@@ -364,23 +364,45 @@ def norm_act(x: torch.Tensor, alpha: Optional[torch.Tensor],
 # `norm_apply` normalizes with the merged statistics. K4 itself, which
 # needs whole rows, runs wherever a rank holds them.
 
-SLAB_MIN_SEG = 8192      # voxels a CTA of `coma_norm_stats` takes at least
+SLAB_MIN_BYTES = 16384   # bytes a CTA of either half takes at least (one
+                         # trip of its 256 threads, four 16-byte loads each),
+                         # unless the row is shorter
+SLAB_PER_SM = 4          # CTAs of 256 threads an SM holds of the
+                         # statistics (csrc/norm_act.cu: SLAB_CTAS); the
+                         # wrappers ask the runtime for each compiled
+                         # kernel's own (`slab_plan_of`)
 
 
 class SlabPlan(NamedTuple):
-    """How `coma_norm_stats` cuts `rows` rows of `n` voxels: each row into
-    `segs` segments of `seg` voxels (a multiple of 8; the last one may be
-    shorter), one a CTA."""
+    """How K4's slab halves cut `rows` rows of `n` voxels: each row into
+    `segs` segments of `seg` voxels (a multiple of 8, so a segment starts
+    on a 16-byte group of the row; the last one may be shorter), one a CTA
+    of a (segment, row) grid of `ctas` = rows x segs CTAs, `waves` waves of
+    sms x per_sm."""
     segs: int
     seg: int
+    ctas: int
+    waves: float
 
 
-def slab_plan(rows: int, n: int, sms: int = NA_SMS) -> SlabPlan:
-    """About four CTAs an SM in all, none with fewer than SLAB_MIN_SEG
-    voxels unless the row is shorter."""
-    segs = max(1, min(_cdiv(n, SLAB_MIN_SEG), _cdiv(4 * sms, rows)))
+def slab_plan(rows: int, n: int, sms: int = NA_SMS, per_sm: int = SLAB_PER_SM,
+              elem: int = 2, min_bytes: int = SLAB_MIN_BYTES,
+              one_wave: bool = True) -> SlabPlan:
+    """The cut of either half: segments of at least `min_bytes` of
+    `elem`-byte values (or the whole row), as many a row as one wave of sms
+    x per_sm CTAs holds where `one_wave` (the statistics: the CTAs all start
+    together, a whole wave where the rows divide it, and a second wave
+    would cost each row's CTAs one more start, reduction and ticket, about
+    2 us, for no more bytes in flight), else as many as there are
+    `min_bytes` pieces (the apply: many short CTAs even out over the SMs as
+    they finish; `norm_times.py sweep` read 6-8 waves of them 8-10 % faster
+    than one wave at the wide half slab)."""
+    segs = max(1, n * elem // min_bytes)
+    if one_wave:
+        segs = max(1, min(sms * per_sm // rows, segs))
     seg = 8 * _cdiv(_cdiv(n, segs), 8)
-    return SlabPlan(_cdiv(n, seg), seg)
+    segs = _cdiv(n, seg)
+    return SlabPlan(segs, seg, rows * segs, rows * segs / (sms * per_sm))
 
 
 def row_partials(x: torch.Tensor) -> torch.Tensor:
@@ -439,24 +461,83 @@ def norm_apply_plain(x: torch.Tensor, stats: torch.Tensor,
     return apply_act(u, act or "none", alpha).to(x.dtype)
 
 
+# The statistics half's workspace on each device: (partials f32, one
+# counter a row int32), grown when a call needs more and kept between calls;
+# the kernel leaves the counters zero. Calls on one device are ordered on
+# its current stream, as the port makes them (each rank of the sharded
+# forward is a process of its own): two streams of one device at once would
+# share it.
+_SLAB_WORK: dict = {}
+
+
+class _SlabCall(NamedTuple):
+    family: str      # the counted family
+    entry: str       # its C entry
+    rows: int
+    n: int
+    plan: SlabPlan
+
+
+@functools.lru_cache(maxsize=256)
+def _slab_call(device: torch.device, dtype: torch.dtype, shape: torch.Size, half: int,
+               act: int) -> _SlabCall:
+    """What a call of slab half `half` (0 the statistics, 1 the apply with
+    activation number `act`) on a CUDA tensor of `shape` and `dtype` on
+    `device` launches: its entry, its rows and `slab_plan` at the device's
+    SM count and the CTAs an SM holds of the compiled kernel, as the runtime
+    computes them. Cached, so that the host's part of a call is a lookup,
+    one allocation and one launch. Raises for a dtype without kernels."""
+    name = "norm_apply" if half else "norm_stats"
+    if dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"{name}: the CUDA kernels take bfloat16 or float32, got {dtype}")
+    rows, n = shape[0] * shape[1], math.prod(shape[2:])
+    with torch.cuda.device(device):
+        ctas = _build.library().coma_slab_ctas_per_sm(half, act, dtype.itemsize)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if ctas <= 0:
+        raise RuntimeError(f"coma_slab_ctas_per_sm failed: CUDA error {-ctas}")
+    return _SlabCall(*_entry(name, dtype), rows, n,
+                     slab_plan(rows, n, sms, ctas, dtype.itemsize, one_wave=half == 0))
+
+
+def slab_plan_of(x: torch.Tensor, half: int, act: str = "none") -> SlabPlan:
+    """The plan of slab half `half` (0 `norm_stats`, 1 `norm_apply` with
+    `act`) on the CUDA tensor x."""
+    return _slab_call(x.device, x.dtype, x.shape, half, ACTS[act] if half else 0).plan
+
+
+def _contiguous(name: str, x: torch.Tensor) -> None:
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes a contiguous x, got "
+                         f"{tuple(x.shape)} with strides {x.stride()}")
+
+
+def _slab_work(device: torch.device, parts: int, rows: int):
+    part, count = _SLAB_WORK.get(device.index, (None, None))
+    if part is None or part.numel() < parts:
+        part = torch.empty(parts, dtype=torch.float32, device=device)
+    if count is None or count.numel() < rows:
+        count = torch.zeros(rows, dtype=torch.int32, device=device)
+    _SLAB_WORK[device.index] = (part, count)
+    return part, count
+
+
 def norm_stats(x: torch.Tensor) -> torch.Tensor:
     """Each row's (count, mean, M2) over x's spatial dims, [B * C, 3] f64:
     `coma_norm_stats` on a CUDA tensor (bf16, or its float32 form for f32),
-    the plain version on a CPU tensor."""
+    one launch into the device's kept workspace; the plain version on a CPU
+    tensor."""
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"norm_stats: unsupported device {x.device}")
         return norm_stats_plain(x)
-    dtype = _build.kernel_dtype("x", x)
-    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
-    rows, n = _rows(x)
-    plan = slab_plan(rows, n, _sms(x))
-    scratch = torch.empty(rows * plan.segs * 3, dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((rows, 3), dtype=torch.float64, device=x.device)
-    _build.launch(*_entry("norm_stats", dtype), x.device, x.data_ptr(),
-                  scratch.data_ptr(), out.data_ptr(), rows, n, plan.seg,
-                  plan.segs)
+    call = _slab_call(x.device, x.dtype, x.shape, 0, 0)
+    _contiguous("norm_stats", x)
+    part, count = _slab_work(x.device, call.rows * call.plan.segs * 3, call.rows)
+    out = torch.empty((call.rows, 3), dtype=torch.float64, device=x.device)
+    _build.launch(call.family, call.entry, x.device, x.data_ptr(), part.data_ptr(),
+                  count.data_ptr(), out.data_ptr(), call.rows, call.n, call.plan.seg,
+                  call.plan.segs)
     return out
 
 
@@ -466,7 +547,8 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(scale * (x - mean) * rstd + shift) with the per-row (mean, rstd)
     `stats` [B * C, 2] f32: `coma_norm_apply` on a CUDA tensor (bf16, or
-    its float32 form for f32), the plain version on a CPU tensor."""
+    its float32 form for f32), cut by `slab_plan`; the plain version on a
+    CPU tensor."""
     act = act or "none"
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -475,18 +557,17 @@ def norm_apply(x: torch.Tensor, stats: torch.Tensor,
             raise ValueError(f"norm_apply: unsupported device {x.device}")
         return norm_apply_plain(x, stats, alpha, act, scale, shift)
     alpha32, scale32, shift32 = _cuda_params(x, alpha, act, scale, shift)
-    dtype = _build.kernel_dtype("x", x)
-    _build.check_cuda_input("x", x, x.dim(), x.device, dtype)
-    rows, n = _rows(x)
-    if tuple(stats.shape) != (rows, 2):
+    call = _slab_call(x.device, x.dtype, x.shape, 1, ACTS[act])
+    _contiguous("norm_apply", x)
+    if tuple(stats.shape) != (call.rows, 2):
         raise ValueError(f"norm_apply: stats {tuple(stats.shape)} do not fit "
                          f"x {tuple(x.shape)}")
     _build.check_cuda_input("stats", stats, 2, x.device, torch.float32)
     y = torch.empty_like(x)
-    blocks = min(4 * _sms(x), _cdiv(rows * n, 8 * 256))
-    _build.launch(*_entry("norm_apply", dtype), x.device, x.data_ptr(),
-                  stats.data_ptr(), _build.ptr(scale32), _build.ptr(shift32),
-                  _build.ptr(alpha32), y.data_ptr(), rows, n, ACTS[act], blocks)
+    _build.launch(call.family, call.entry, x.device, x.data_ptr(), stats.data_ptr(),
+                  _build.ptr(scale32), _build.ptr(shift32), _build.ptr(alpha32),
+                  y.data_ptr(), call.rows, call.n, ACTS[act], call.plan.seg,
+                  call.plan.segs)
     return y
 
 
