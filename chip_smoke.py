@@ -42,10 +42,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               path (N % 8 = 6), also with x 2 bytes off 16 (the kernels'
               2-byte loads); K4's two slab halves, `norm_stats` (its f64
               (count, mean, M2) within KERNEL_TOL of max|plain| a column)
-              and `norm_apply`, at phase 14's half-slab shapes [1, 32, 64,
-              128, 128], [1, 1, 64, 128, 128] and [1, 64, 32, 64, 64]
-              (SP_SLAB_SHAPES lists all of phase 14's) and at the odd
-              sizes. K1, K2, K3, KB1, KB2, K4 and KB3 cases run twice and
+              and `norm_apply`, at phase 14's slab shapes [1, 32, 64, 128,
+              128], [1, 1, 64, 128, 128] and [1, 64, 32, 64, 64], its
+              uneven 216^3 slabs [1, 32, 112 or 104, 216, 216], [1, 1, 104,
+              216, 216] and [1, 64, 52, 108, 108] (SP_SLAB_SHAPES lists all
+              of phase 14's), an odd slab depth [1, 32, 13, 216, 216] and
+              at the odd sizes. K1, K2, K3, KB1, KB2, K4 and KB3 cases run twice and
               must be bit-identical, the slab halves also after a call on
               rows of another shape (A, B, A: the statistics' workspace is
               left clean); each prints the cut `s1_plan`, `s2_plan`,
@@ -201,30 +203,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               speed.
   14. spatial: `parallel/spatial.py`'s `make_spatial_infer_fn` on two rank
               processes sharing the one card over gloo, each holding a depth
-              slab (64 of 128 planes) of a 128^3 b=1 volume of the default
-              ModelConfig (weights from seed 0, the volume from `_batch`),
-              against one process's `make_infer_fn`: rank 0's assembled
-              `out` within max(SPATIAL_TOL, SPATIAL_RATIO x what the same
-              slab route reads on one rank holding the whole volume) rel
-              L2 (in bf16 the random-weight model moves `out` by 3e-2 for a
+              slab of a b=1 volume -- at 128^3 of the default ModelConfig
+              (even slabs, 64 of 128 planes) and at 216^3 of the
+              template-space config (uneven slabs: planes 0-111 and
+              112-215, then 56/52, 28/26, 14/13 and 7/7; the last rank's
+              upsample to level 3 is cut by one plane) -- weights from seed
+              0, the volume from `_batch`, against one process's
+              `make_infer_fn` at the same size: rank 0's assembled `out`
+              within max(SPATIAL_TOL, SPATIAL_RATIO x what the same slab
+              route reads on one rank holding the whole volume) rel L2 (in
+              bf16 the random-weight model moves `out` by 3e-2 for a
               last-bit change of one statistic, so no route whose
               statistics are summed in another order reads under 1e-2);
               two planted faults (every halo read as zeros; each rank's own
               norm statistics unmerged) above that limit, each with its
-              factor; every merged (mean, rstd)
-              bit-identical on both ranks; each rank launched K1, K2, K3 and
-              K4's two slab halves (`norm_stats`, `norm_apply`) and not the
-              whole-row K4, and no plain version on the GPU
-              (`launches_by_path["spatial"]`); each rank's activation peak
-              (the most allocated during the call less what was allocated
-              before it) at most SP_PEAK_RATIO x one process's. Prints the
-              median of SP_CALLS sharded forwards beside one process's, the
-              share of a call spent in the halo and statistics collectives,
-              each rank's peak and the phase's seconds. Then all of it again
-              with the model in float32 (TF32 off): within SPATIAL_TOL_F32,
-              the float32 families launched and no bf16 one, and a third
-              planted fault, one level's halo read one plane too far
-              (SP_OFF_LEVEL), above the limit.
+              factor; every merged (mean, rstd) bit-identical on both ranks;
+              each rank launched K1, K2, K3 and K4's two slab halves
+              (`norm_stats`, `norm_apply`) and not the whole-row K4, and no
+              plain version on the GPU (`launches_by_path["spatial"]` and
+              `["spatial 216"]`); each rank's activation peak (the most
+              allocated during the call less what was allocated before it)
+              at most SP_PEAK_RATIO x one process's. Prints each rank's
+              planes, the median of SP_CALLS sharded forwards beside one
+              process's, the share of a call spent in the halo and
+              statistics collectives, each rank's peak and the phase's
+              seconds. Then all of it again with the model in float32 (TF32
+              off): within SPATIAL_TOL_F32, the float32 families launched
+              and no bf16 one, and a third planted fault, level 1's halo
+              read one plane too far, above the limit.
   15. float32: the default ModelConfig in float32, widths uncut, weights from
               seed 0, TF32 off: the 128^3 b=2 forward (median of
               F32_FWD_CALLS, CUDA events), F32_STEPS RnC train steps at 128^3
@@ -238,6 +244,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               (the CLI must turn them off). Each path counted from 0: every
               float32 family it reaches launches, no bf16 family and no plain
               version on the GPU; times, peaks, launches and the flags.
+  16. side models: `train_convattn` SIDE_EPOCHS epochs of a `ConvAttn` (36
+              ROIs) on a synthetic ROI table read by `ImageDataset`, on the
+              card and on the CPU: finite falling losses, the first epoch
+              within SIDE_LOSS_TOL; the UQ heads, the weighted, N-pair (on
+              quartile templates written and loaded as NIfTI), cluster
+              N-pair and heteroscedastic losses on CUDA tensors against the
+              CPU within SIDE_TOL of max. No kernel of the port runs there.
+Each phase's seconds follow it ("phase <name>: <s> s").
 The last two lines are a JSON summary of the kernels, each with its
 `dtype` (`launches` from the tCDS train of phase 11 for bf16 and from phase
 15's train steps for float32, and for K4's slab halves from phase 14 in
@@ -360,9 +374,13 @@ F32_SITES = {
            "deep_modulator_3c.conv2", "gate0.W_g", "gate0.psi", "final_pred_head",
            "down0.conv1", "merge1", "216 head.conv1", "216 merge0", "216 gate0.psi",
            "216 down0.conv1", "conv3d_w64 64->64", "head.conv1 dx 32->32",
-           "merge0 dx 32->64", "merge1 dx 64->128", "216 head.conv1 dx 32->32"),
-    "s2": ("down0.conv0", "216 down0.conv0", "up0 dx 32->64", "odd sizes 24->40"),
-    "t2": ("up0", "216 up0", "down0.conv0 dx 64->32", "odd sizes 24->40"),
+           "merge0 dx 32->64", "merge1 dx 64->128", "216 head.conv1 dx 32->32",
+           "216 slab r0 head.conv1", "216 slab r1 head.conv1", "216 window head.conv1",
+           "216 slab r1 down0.conv1", "216 window down0.conv1"),
+    "s2": ("down0.conv0", "216 down0.conv0", "up0 dx 32->64", "odd sizes 24->40",
+           "216 slab r0 down0.conv0", "216 slab r1 down0.conv0", "216 window down0.conv0"),
+    "t2": ("up0", "216 up0", "down0.conv0 dx 64->32", "odd sizes 24->40",
+           "216 slab r0 up0", "216 slab r1 up0", "216 window up0"),
     "s1_dw": ("head.conv0", "head.conv1", "merge0", "deep_modulator_3c.conv2",
               "gate0.W_g", "gate0.psi", "down0.conv1", "merge1", "216 head.conv1",
               "216 merge0", "odd W k=3 (scalar loads)", "odd W k=1 (scalar loads)"),
@@ -375,10 +393,13 @@ F32_SITES = {
     "norm_act_bwd": ("head.conv1", "merge0", "gate0.psi", "down0.conv1", "216 head.conv1",
                      "odd sizes", "odd sizes, x 2 bytes off 16"),
     "norm_stats": ("half slab head.conv1", "half slab gate0.psi",
-                   "half slab final_pred_head", "half slab down0.conv1", "odd sizes",
+                   "half slab final_pred_head", "half slab down0.conv1",
+                   "216 slab r0 head.conv1", "216 slab r1 head.conv1",
+                   "odd slab depth 13", "odd sizes",
                    "odd sizes, x 2 bytes off 16"),
     "norm_apply": ("half slab head.conv1", "half slab gate0.psi",
-                   "half slab final_pred_head", "half slab down0.conv1", "odd sizes",
+                   "half slab final_pred_head", "half slab down0.conv1",
+                   "216 slab r1 head.conv1", "odd slab depth 13", "odd sizes",
                    "odd sizes, x 2 bytes off 16"),
     "phase_split": ("hsplit 216",),
 }
@@ -485,14 +506,20 @@ def sass_hmma(lib, kernel: str) -> dict:
 
 
 # Every slab shape phase 14 sends each of K4's slab halves, per rank and
-# forward (two ranks, depth slabs of 64 of 128 planes), with its count:
-# level 0 head and merge0, the modulator, gate0.psi with the modulator's and
-# fusion's last layers and final_pred_head, fusion; level 1 down0 and
-# merge1, gate1, gate1.psi
-SP_SLAB_SHAPES = (((1, 32, 64, 128, 128), 4), ((1, 16, 64, 128, 128), 4),
-                  ((1, 1, 64, 128, 128), 4), ((1, 8, 64, 128, 128), 2),
-                  ((1, 64, 32, 64, 64), 3), ((1, 32, 32, 64, 64), 2),
-                  ((1, 1, 32, 64, 64), 1))
+# forward, with its count: level 0 head and merge0, the modulator, gate0.psi
+# with the modulator's and fusion's last layers and final_pred_head, fusion;
+# level 1 down0 and merge1, gate1, gate1.psi. At 128^3 both ranks hold 64 of
+# 128 planes at level 0 and 32 of 64 at level 1; at 216^3 rank 0 holds 112
+# and 56, rank 1 104 and 52 (`plan_slabs`: the boundary is the multiple of
+# 16 nearest 108).
+def _sp_slab_shapes(d0: int, d1: int, s: int) -> tuple:
+    return (((1, 32, d0, s, s), 4), ((1, 16, d0, s, s), 4), ((1, 1, d0, s, s), 4),
+            ((1, 8, d0, s, s), 2), ((1, 64, d1, s // 2, s // 2), 3),
+            ((1, 32, d1, s // 2, s // 2), 2), ((1, 1, d1, s // 2, s // 2), 1))
+
+
+SP_SLAB_SHAPES = (_sp_slab_shapes(64, 32, 128) + _sp_slab_shapes(112, 56, 216)
+                  + _sp_slab_shapes(104, 52, 216))
 
 
 def _kernel_cases():
@@ -563,6 +590,22 @@ def _kernel_cases():
                   "dx"))
     cases.append(("t2", "odd sizes 24->40", (2, 24, 13, 9, 23), (40, 24, 3, 3, 3), True,
                   None))
+    # the depth-sharded forward at 216^3 on two ranks (phase 14): K1, K2 and
+    # K3 on each rank's slab of levels 0 and 1 (112 and 104 of 216 planes,
+    # 56 and 52 of 108) and on the boundary windows `Slab.conv` reruns: 3
+    # planes for a stride-1 conv's outer output plane, 4 for the stride-2
+    # conv's first, 2 coarse planes for the transposed conv's last (K1's
+    # bricks masked along depth as well as at the 24-wide edge tiles)
+    sp_convs = [("s1", "head.conv1", 32, 32, (112, 104, 3), t0),
+                ("s1", "down0.conv1", 64, 64, (52, 3), t1),
+                ("s2", "down0.conv0", 32, 64, (112, 104, 4), t0),
+                ("t2", "up0", 64, 32, (56, 52, 2), t1)]
+    for family, site, ci, co, depths, sp in sp_convs:
+        for d in depths:
+            tag = {112: "slab r0", 56: "slab r0", 104: "slab r1", 52: "slab r1"}.get(
+                d, "window")
+            cases.append((family, f"216 {tag} {site}", (1, ci, d) + sp[1:],
+                          (co, ci, 3, 3, 3), True, None))
     # KB1: x [B, Cin, ...] and the output cotangent [B, Cout, ...]; the path's
     # sites, and two off the path whose odd W takes the scalar loads and
     # whose channel counts pad both channel tiles
@@ -600,15 +643,25 @@ def _kernel_cases():
                (act, False, 0), "instance_norm")
               for act in ("none", "relu", "leakyrelu")]
     cases.append(("phase_split", "hsplit 216", (1, 32) + t0, None, None, "hsplit"))
-    # K4's slab halves at the shapes of phase 14's half slabs (a rank's 64 of
-    # 128 planes at level 0, 32 of 64 at level 1; SP_SLAB_SHAPES lists all
-    # of them), and off the path at odd sizes (rows start off 16 bytes),
-    # also with x 2 bytes off 16
+    # K4's slab halves at the shapes of phase 14's slabs (SP_SLAB_SHAPES
+    # lists all of them): at 128^3 a rank's 64 of 128 planes at level 0, 32
+    # of 64 at level 1; at 216^3 the uneven slabs, 112 and 104 of 216 planes,
+    # 56 and 52 of 108; an odd slab depth of 216^2 planes (the last rank's
+    # tail of a volume of odd depth); and off the path at odd sizes (rows
+    # start off 16 bytes), also with x 2 bytes off 16
     half, half1 = (64, 128, 128), (32, 64, 64)
     slabs = [("half slab head.conv1", 1, 32, "relu", True, half),
              ("half slab gate0.psi", 1, 1, "none", False, half),
              ("half slab final_pred_head", 1, 1, "prelu", False, half),
              ("half slab down0.conv1", 1, 64, "relu", True, half1),
+             ("216 slab r0 head.conv1", 1, 32, "relu", True, (112, 216, 216)),
+             ("216 slab r1 head.conv1", 1, 32, "relu", True, (104, 216, 216)),
+             ("216 slab r1 gate0.psi", 1, 1, "none", False, (104, 216, 216)),
+             ("216 slab r1 down0.conv1", 1, 64, "relu", True, (52, 108, 108)),
+             ("odd slab depth 13", 1, 32, "relu", True, (13, 216, 216)),
+             # the longest segments of the spatial path: phase 14's one-rank
+             # slab route at 216^3 holds all 216 planes
+             ("216 one-rank slab head.conv1", 1, 32, "relu", True, t0),
              ("odd sizes", 2, 24, "prelu", True, (27, 18, 45)),
              ("odd sizes, x 2 bytes off 16", 2, 24, "prelu", True, (27, 18, 45))]
     for family in ("norm_stats", "norm_apply"):
@@ -634,14 +687,23 @@ def _base(family: str) -> tuple:
     return family, torch.bfloat16
 
 
+NORM_MEAN = 3.0 + 2.0 ** -7   # the norm cases' mean of x (`_norm_inputs`)
+
+
 def _norm_inputs(xshape, act, film, offset, gen, dev, dtype=torch.bfloat16):
     # a mean large against the spread exercises the shifted stats; x starts
     # `offset` elements into its allocation. x holds bf16 values in either
     # dtype: two f32 computations of u differ in the last bits, and where u
     # lies that close to an activation's kink (u = 0) they take act'(u) from
-    # its two sides; on bf16's coarser grid of x no voxel lies that close
+    # its two sides; on bf16's coarser grid of x no voxel lies that close,
+    # unless a row's mean (the kink without FiLM) lies within an f32 step of
+    # a grid value. So the mean is 3 + 2^-7, half of bf16's step of 2^-6
+    # past the grid value 3: around 3 a 2.1 M-voxel row's mean, 3 + 9.2e-8,
+    # rounded to 3.0 in f32, and KB3 took act' = 1 at its voxels x = 3
+    # where f64 (and the plain version's f32 mean) take 0.01
     size = int(np.prod(xshape))
-    x = (3.0 + torch.randn(size + offset, generator=gen, device=dev)).bfloat16().to(dtype)
+    x = (NORM_MEAN + torch.randn(size + offset, generator=gen, device=dev)).bfloat16().to(
+        dtype)
     x = x[offset:].view(xshape)
     b, c = xshape[:2]
     alpha = torch.full((1,), 0.25, device=dev)
@@ -2877,7 +2939,7 @@ def phase_data_parallel() -> dict:
     return launches
 
 
-SPATIAL_TOL = 1e-2   # rel L2 of the depth-sharded 128^3 `out` against one process's, or
+SPATIAL_TOL = 1e-2   # rel L2 of the depth-sharded `out` against one process's, or
 SPATIAL_RATIO = 1.25  # SPATIAL_RATIO x what the same slab route reads on one rank, where
                       # that is larger: the random-weight flagship in bf16 moves `out` by
                       # 3.1e-2 when one statistic of its first norm moves by 2^-22
@@ -2886,18 +2948,32 @@ SPATIAL_TOL_F32 = 1e-4  # the same in float32, where the CPU reads 3e-6 (no floo
 SP_RANKS = 2
 SP_PEAK_RATIO = 0.65  # a rank's activation peak against one process's
 SP_CALLS = 3
-SP_OFF_LEVEL = 32     # the slab depth (of 64 planes a rank at level 0) of the one level
-                      # whose halo the off-by-one fault reads a plane too far
+SP_SIZES = (128, 216)  # 128^3: even slabs of 64 planes; 216^3 (template space):
+                       # uneven, 112 and 104, then 56/52, 28/26, 14/13, 7/7
 
 
-def _sp_setup(dtype: str = "bfloat16"):
-    """Phase 14's model (the default ModelConfig in `dtype`, weights from
-    seed 0) and its b=1 128^3 inputs, as numpy."""
-    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig
+def _sp_setup(dtype: str = "bfloat16", s: int = 128):
+    """Phase 14's model in `dtype` (weights from seed 0) and its b=1 s^3
+    inputs, as numpy: at 128 the default ModelConfig with 36 ROIs, at 216
+    the template-space config with its 8 ROIs."""
+    import dataclasses
 
-    model = ContraAttnUNet(ModelConfig(compute_dtype=dtype), device=DEVICE,
+    from coma_unet_tpu_torch import (
+        ContraAttnUNet,
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+        TEMPLATE_ROI_INDICES,
+    )
+
+    cfg, rois = ModelConfig(compute_dtype=dtype), 36
+    if s == 216:
+        cfg = dataclasses.replace(ExperimentConfig(data=DataConfig(
+            template_space=True)).normalized().model, compute_dtype=dtype)
+        rois = len(TEMPLATE_ROI_INDICES)
+    model = ContraAttnUNet(cfg, device=DEVICE,
                            generator=torch.Generator().manual_seed(0)).eval()
-    batch = _batch(np.random.default_rng(0), b=1, s=128)
+    batch = _batch(np.random.default_rng(0), b=1, s=s, r=rois)
     return model, tuple(batch[k] for k in ("mri", "covars", "roi_loc", "roi_std",
                                            "roi_compact"))
 
@@ -2914,12 +2990,13 @@ def _peak_call(fn) -> tuple:
 
 
 def _sp_rank(rank: int, init_method: str, tmp: str, dtype: str = "bfloat16") -> None:
-    """One rank of phase 14 on the one card (gloo): a warm-up call, then the
-    main path -- one depth-sharded forward with the launches counted from 0,
-    its activation peak and every merged (mean, rstd) recorded -- then
-    SP_CALLS timed calls, one call with the halo and statistics collectives
-    timed, and the planted faults (in float32 also the off-by-one halo).
-    Saves what it saw to rank<r>.pt."""
+    """One rank of phase 14 on the one card (gloo), at each of SP_SIZES: a
+    warm-up call, then the main path -- one depth-sharded forward with the
+    launches counted from 0, its activation peak and every merged (mean,
+    rstd) recorded -- then SP_CALLS timed calls, one call with the halo and
+    statistics collectives timed, and the planted faults (in float32 also
+    the off-by-one halo at level 1). Saves what it saw to rank<r>_<s>.pt."""
+    import gc
     import os
 
     from coma_unet_tpu_torch import ops
@@ -2933,70 +3010,85 @@ def _sp_rank(rank: int, init_method: str, tmp: str, dtype: str = "bfloat16") -> 
     mesh = pmesh.make_mesh(rank, SP_RANKS, f"{DEVICE}:0", init_method)
     good_halo, good_merge = spatial.Slab.halo, spatial.Slab.merge
     try:
-        model, args = _sp_setup(dtype)
-        infer = spatial.make_spatial_infer_fn(model, mesh)
-        infer(*args)
-        seen = []
+        for size in SP_SIZES:
+            model, args = _sp_setup(dtype, size)
+            infer = spatial.make_spatial_infer_fn(model, mesh)
+            infer(*args)
+            seen = []
 
-        def recording(self, partials):
-            merged = good_merge(self, partials)
-            seen.append(mean_rstd(merged).cpu())
-            return merged
+            def recording(self, partials):
+                merged = good_merge(self, partials)
+                seen.append(mean_rstd(merged).cpu())
+                return merged
 
-        spatial.Slab.merge = recording
-        ops.reset_counts()
-        out, peak = _peak_call(lambda: infer(*args))
-        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
-        spatial.Slab.merge = good_merge
-        times = []
-        for _ in range(SP_CALLS):
-            times.append(_timed(lambda: infer(*args)))
-        spent = [0.0]
+            spatial.Slab.merge = recording
+            ops.reset_counts()
+            out, peak = _peak_call(lambda: infer(*args))
+            launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+            spatial.Slab.merge = good_merge
+            times = []
+            for _ in range(SP_CALLS):
+                times.append(_timed(lambda: infer(*args)))
+            spent = [0.0]
 
-        def timed(fn):
-            def call(*a):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                result = fn(*a)
-                torch.cuda.synchronize()
-                spent[0] += time.perf_counter() - t0
-                return result
-            return call
+            def timed(fn):
+                def call(*a):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    result = fn(*a)
+                    torch.cuda.synchronize()
+                    spent[0] += time.perf_counter() - t0
+                    return result
+                return call
 
-        spatial.Slab.halo, spatial.Slab.merge = timed(good_halo), timed(good_merge)
-        timed_ms = _timed(lambda: infer(*args))
-        spatial.Slab.halo, spatial.Slab.merge = good_halo, good_merge
+            spatial.Slab.halo, spatial.Slab.merge = timed(good_halo), timed(good_merge)
+            timed_ms = _timed(lambda: infer(*args))
+            spatial.Slab.halo, spatial.Slab.merge = good_halo, good_merge
 
-        def zeros(self, x, below, above):
-            lower, upper = good_halo(self, x, below, above)
-            return torch.zeros_like(lower), torch.zeros_like(upper)
+            def zeros(self, x, below, above):
+                lower, upper = good_halo(self, x, below, above)
+                return torch.zeros_like(lower), torch.zeros_like(upper)
 
-        def off_by_one(self, x, below, above):
-            # at one level only: the plane one further from the slab
-            if x.shape[2] != SP_OFF_LEVEL:
-                return good_halo(self, x, below, above)
-            lower, upper = good_halo(self, x, 2 * below, 2 * above)
-            return lower[:, :, :below], upper[:, :, above:2 * above]
+            def off_by_one(self, x, below, above):
+                # at level 1 only (its width, the same on every rank): the
+                # plane one further from the slab
+                if x.shape[-1] != size // 2:
+                    return good_halo(self, x, below, above)
+                lower, upper = good_halo(self, x, 2 * below, 2 * above)
+                return lower[:, :, :below], upper[:, :, above:2 * above]
 
-        spatial.Slab.halo = zeros
-        zero_halo = infer(*args)
-        spatial.Slab.halo = good_halo
-        spatial.Slab.merge = lambda self, partials: partials
-        unmerged = infer(*args)
-        spatial.Slab.merge = good_merge
-        spatial.Slab.halo = off_by_one
-        off_halo = infer(*args)
-        spatial.Slab.halo = good_halo
-        cpu = (lambda t: None if t is None else t.float().cpu())
-        torch.save({"out": cpu(out), "zero_halo": cpu(zero_halo),
-                    "unmerged": cpu(unmerged), "off_by_one_halo": cpu(off_halo),
-                    "stats": seen, "peak": peak,
-                    "launches": launches, "plain_cuda": plain_cuda, "times": times,
-                    "collective_ms": 1e3 * spent[0], "timed_ms": timed_ms},
-                   os.path.join(tmp, f"rank{rank}.pt"))
+            spatial.Slab.halo = zeros
+            zero_halo = infer(*args)
+            spatial.Slab.halo = good_halo
+            spatial.Slab.merge = lambda self, partials: partials
+            unmerged = infer(*args)
+            spatial.Slab.merge = good_merge
+            off_halo = None
+            if dtype == "float32":
+                spatial.Slab.halo = off_by_one
+                off_halo = infer(*args)
+                spatial.Slab.halo = good_halo
+            cpu = (lambda t: None if t is None else t.float().cpu())
+            torch.save({"out": cpu(out), "zero_halo": cpu(zero_halo),
+                        "unmerged": cpu(unmerged), "off_by_one_halo": cpu(off_halo),
+                        "stats": seen, "peak": peak,
+                        "planes": _planes(spatial.plan_slabs(size, spatial.level_strides(
+                            model.config), SP_RANKS), rank),
+                        "launches": launches, "plain_cuda": plain_cuda, "times": times,
+                        "collective_ms": 1e3 * spent[0], "timed_ms": timed_ms},
+                       os.path.join(tmp, f"rank{rank}_{size}.pt"))
+            del model, infer, out, zero_halo, unmerged, off_halo
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         spatial.Slab.halo, spatial.Slab.merge = good_halo, good_merge
         pmesh.destroy_mesh()
+
+
+def _planes(plan, rank: int) -> tuple:
+    """Rank `rank`'s (first, last) plane at level 0 of a `SlabPlan`."""
+    planes = plan.planes(rank)
+    return (planes.start, planes.stop - 1)
 
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3005,11 +3097,12 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def phase_spatial(dtype: str = "bfloat16") -> dict:
     """Phase 14: `make_spatial_infer_fn` on two gloo ranks sharing the one
-    card, each on a depth slab of a 128^3 volume, against one process's
-    `make_infer_fn`; the model in `dtype`. Returns rank 0's launches over
-    its main-path call. In float32 (TF32 off) the limit is SPATIAL_TOL_F32,
-    and a third planted fault, one level's halo off by one plane, must read
-    above it."""
+    card, each on a depth slab of a 128^3 volume (even slabs) and of a
+    216^3 template-space volume (uneven slabs, the last rank's odd from
+    level 3), against one process's `make_infer_fn`; the model in `dtype`.
+    Returns each size's launches on rank 0 over its main-path call. In
+    float32 (TF32 off) the limit is SPATIAL_TOL_F32, and a third planted
+    fault, level 1's halo off by one plane, must read above it."""
     t_phase = time.perf_counter()
     f32 = dtype == "float32"
     guard = _no_tf32() if f32 else contextlib.nullcontext()
@@ -3017,50 +3110,74 @@ def phase_spatial(dtype: str = "bfloat16") -> dict:
         return _spatial(dtype, f32, t_phase)
 
 
-def _spatial(dtype: str, f32: bool, t_phase: float) -> dict:
+def _sp_reference(dtype: str, size: int, tag: str, tmp: str) -> dict:
+    """One process's `make_infer_fn` at `size` (its out, activation peak
+    and median time) and, in bf16, the floor: the slab route (K4's two
+    halves, the merged f64 statistics) on one rank that holds the whole
+    volume."""
     import gc
+    import os
+
+    from coma_unet_tpu_torch.infer import make_infer_fn
+    from coma_unet_tpu_torch.parallel import mesh as pmesh
+    from coma_unet_tpu_torch.parallel.spatial import make_spatial_infer_fn
+
+    model, args = _sp_setup(dtype, size)
+    infer = make_infer_fn(model)
+    infer(*args)
+    want, peak_one = _peak_call(lambda: infer(*args))
+    want = want.float().cpu()
+    one_ms = statistics.median(_timed(lambda: infer(*args)) for _ in range(SP_CALLS))
+    check(tuple(want.shape) == (1, 1) + (size,) * 3 and bool(torch.isfinite(want).all()),
+          f"{tag}: one process's out {tuple(want.shape)}")
+    floor = None
+    if dtype != "float32":
+        mesh = pmesh.make_mesh(0, 1, f"{DEVICE}:0",
+                               "file://" + os.path.join(tmp, f"one{size}"))
+        try:
+            floor = _rel_l2(make_spatial_infer_fn(model, mesh)(*args).float().cpu(), want)
+        finally:
+            pmesh.destroy_mesh()
+    del model, infer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(want=want, peak_one=peak_one, one_ms=one_ms, floor=floor)
+
+
+def _spatial(dtype: str, f32: bool, t_phase: float) -> dict:
     import os
     import shutil
     import tempfile
 
     import torch.multiprocessing as mp
 
-    from coma_unet_tpu_torch import ops
-    from coma_unet_tpu_torch.infer import make_infer_fn
-    from coma_unet_tpu_torch.parallel import mesh as pmesh
-    from coma_unet_tpu_torch.parallel.spatial import make_spatial_infer_fn
-
     tag = "spatial float32" if f32 else "spatial"
-    model, args = _sp_setup(dtype)
-    infer = make_infer_fn(model)
-    infer(*args)
-    want, peak_one = _peak_call(lambda: infer(*args))
-    want = want.float().cpu()
-    one_ms = statistics.median(_timed(lambda: infer(*args)) for _ in range(SP_CALLS))
-    check(tuple(want.shape) == (1, 1, 128, 128, 128) and bool(torch.isfinite(want).all()),
-          f"{tag}: one process's out {tuple(want.shape)}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
     try:
-        # the floor: the slab route (K4's two halves, the merged f64
-        # statistics) on one rank that holds the whole volume
-        mesh = pmesh.make_mesh(0, 1, f"{DEVICE}:0", "file://" + os.path.join(tmp, "one"))
-        try:
-            floor = _rel_l2(make_spatial_infer_fn(model, mesh)(*args).float().cpu(), want)
-        finally:
-            pmesh.destroy_mesh()
-        limit = SPATIAL_TOL_F32 if f32 else max(SPATIAL_TOL, SPATIAL_RATIO * floor)
-        del model, infer
-        gc.collect()
-        torch.cuda.empty_cache()
+        refs = {size: _sp_reference(dtype, size, f"{tag} {size}^3", tmp)
+                for size in SP_SIZES}
         t_ranks = time.perf_counter()
         mp.start_processes(_sp_rank, args=("file://" + os.path.join(tmp, "store"), tmp, dtype),
                            nprocs=SP_RANKS, join=True, start_method="spawn")
         ranks_s = time.perf_counter() - t_ranks
-        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
-               for r in range(SP_RANKS)]
+        got = {size: [torch.load(os.path.join(tmp, f"rank{r}_{size}.pt"),
+                                 weights_only=True) for r in range(SP_RANKS)]
+               for size in SP_SIZES}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for size in SP_SIZES:
+        launches[size] = _sp_check(f"{tag} {size}^3", f32, refs[size], got[size])
+    print(f"{tag}: ranks {ranks_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
+
+def _sp_check(tag: str, f32: bool, ref: dict, got: list) -> dict:
+    """Phase 14's checks and lines at one size. Returns rank 0's launches."""
+    from coma_unet_tpu_torch import ops
+
+    want, floor = ref["want"], ref["floor"]
+    limit = SPATIAL_TOL_F32 if f32 else max(SPATIAL_TOL, SPATIAL_RATIO * floor)
     out = got[0]["out"]
     check(all(g["out"] is None for g in got[1:]), f"{tag}: a rank other than 0 holds out")
     check(tuple(out.shape) == tuple(want.shape) and bool(torch.isfinite(out).all()),
@@ -3080,9 +3197,10 @@ def _spatial(dtype: str, f32: bool, t_phase: float) -> dict:
     need = ("s1", "s2", "t2") + ops.SLAB_FAMILIES
     if f32:
         need = tuple(f + "_f32" for f in need)
+    peak_one = ref["peak_one"]
     for r, g in enumerate(got):
-        print(f"{tag} rank {r} launches: {g['launches']}; plain on cuda: "
-              f"{g['plain_cuda']}")
+        print(f"{tag} rank {r} (planes {g['planes'][0]}-{g['planes'][1]}) launches: "
+              f"{g['launches']}; plain on cuda: {g['plain_cuda']}")
         for family in need:
             check(g["launches"].get(family, 0) > 0,
                   f"{tag}: {family}: no launch on rank {r}")
@@ -3098,21 +3216,22 @@ def _spatial(dtype: str, f32: bool, t_phase: float) -> dict:
               f"peak {g['peak'] / 2**30:.3f} GiB > {SP_PEAK_RATIO} x one process's "
               f"{peak_one / 2**30:.3f} GiB")
     sharded_ms = statistics.median(got[0]["times"])
-    print(f"{tag} 128^3 b=1 on {SP_RANKS} gloo ranks sharing the one card, depth slabs "
-          f"of 64 planes: out rel L2 {err:.3e} from one process's, the slab route on one "
-          f"rank {floor:.3e} (limit {limit:.3e}: {rule}); planted faults: "
+    print(f"{tag} b=1 on {SP_RANKS} gloo ranks sharing the one card, depth slabs of "
+          f"{[g['planes'][1] + 1 - g['planes'][0] for g in got]} planes: out rel L2 "
+          f"{err:.3e} from one process's"
+          + ("" if f32 else f", the slab route on one rank {floor:.3e}")
+          + f" (limit {limit:.3e}: {rule}); planted faults: "
           + ", ".join(f"{name} {e:.3e} ({e / limit:.1f}x the limit)"
                       for name, e in faults.items())
           + f"; {len(stats[0])} merged (mean, rstd) bit-identical on every rank")
     print(f"{tag} forward: median of {SP_CALLS} {sharded_ms:.2f} ms on rank 0 "
-          f"({[round(t, 2) for t in got[0]['times']]}) vs one process's {one_ms:.2f} ms; "
-          f"halo and statistics collectives {got[0]['collective_ms']:.2f} ms of a "
-          f"{got[0]['timed_ms']:.2f} ms call with them timed "
-          f"({got[0]['collective_ms'] / got[0]['timed_ms']:.1%}); activation peaks "
-          + ", ".join(f"rank {r} {g['peak'] / 2**30:.3f} GiB ({g['peak'] / peak_one:.3f}x)"
-                      for r, g in enumerate(got))
-          + f" vs one process's {peak_one / 2**30:.3f} GiB (limit {SP_PEAK_RATIO}x); "
-          f"ranks {ranks_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+          f"({[round(t, 2) for t in got[0]['times']]}) vs one process's "
+          f"{ref['one_ms']:.2f} ms; halo and statistics collectives "
+          f"{got[0]['collective_ms']:.2f} ms of a {got[0]['timed_ms']:.2f} ms call with "
+          f"them timed ({got[0]['collective_ms'] / got[0]['timed_ms']:.1%}); activation "
+          "peaks " + ", ".join(f"rank {r} {g['peak'] / 2**30:.3f} GiB "
+                               f"({g['peak'] / peak_one:.3f}x)" for r, g in enumerate(got))
+          + f" vs one process's {peak_one / 2**30:.3f} GiB (limit {SP_PEAK_RATIO}x)")
     return got[0]["launches"]
 
 
@@ -3338,41 +3457,175 @@ def phase_float32() -> dict:
     return paths
 
 
+SIDE_ROWS, SIDE_ROIS = 96, 36
+SIDE_EPOCHS = 4
+SIDE_BATCH = 32
+SIDE_LOSS_TOL = 1e-4  # |card - CPU| / CPU of train_convattn's first-epoch loss
+SIDE_TOL = 1e-5       # the heads and losses on the card against the CPU, of max|CPU|
+
+
+def phase_side_models() -> None:
+    """Phase 16, the side models and losses on the card: `train_convattn`
+    SIDE_EPOCHS epochs of a `ConvAttn` (36 ROIs, batches of SIDE_BATCH) on a
+    synthetic ROI table read by `ImageDataset` -- finite losses that fall,
+    the first epoch within SIDE_LOSS_TOL of the same run on the CPU; the
+    UQ heads `MLP` and `AleatoricUncertaintyNet`, the four weighted losses,
+    `npair_loss` on quartile templates written as NIfTI files and loaded by
+    `load_quartile_templates`, `cluster_npair_loss` and
+    `heteroscedastic_loss` on CUDA tensors against the CPU within SIDE_TOL
+    of max|CPU|. TF32 off. No kernel of the port runs here."""
+    import os
+    import shutil
+    import tempfile
+
+    from coma_unet_tpu_torch import losses
+    from coma_unet_tpu_torch.data.image_dataset import ImageDataset
+    from coma_unet_tpu_torch.data.table import write_rows
+    from coma_unet_tpu_torch.io import write_nifti
+    from coma_unet_tpu_torch.losses.templates import (
+        load_quartile_templates,
+        select_npair_templates,
+    )
+    from coma_unet_tpu_torch.models.convattn import ConvAttn, train_convattn
+    from coma_unet_tpu_torch.models.uq import MLP, AleatoricUncertaintyNet
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_side_")
+    try:
+        table = os.path.join(tmp, "rois.csv")
+        suvr = rng.uniform(0.8, 2.5, size=(SIDE_ROWS, SIDE_ROIS))
+        write_rows(table, [{f"roi_{j}": float(v) for j, v in enumerate(row)}
+                           for row in suvr])
+        ds = ImageDataset(table)
+        check(len(ds) == SIDE_ROWS and ds[0][0].shape == (SIDE_ROIS,),
+              f"side models: ImageDataset {len(ds)} rows, item {ds[0][0].shape}")
+        ds.set_mean_std(ds.get_mris().mean(0), ds.get_mris().std(0))
+        weights = np.linspace(0.5, 1.5, SIDE_ROIS).astype(np.float32)
+        with _no_tf32():
+            runs = {}
+            for dev in (DEVICE, "cpu"):
+                model = ConvAttn(SIDE_ROIS, output_size=SIDE_ROIS, device=dev)
+                t0 = time.perf_counter()
+                state, epochs = train_convattn(model, ds, weights, epochs=SIDE_EPOCHS,
+                                               batch_size=SIDE_BATCH, seed=0)
+                runs[dev] = (epochs, time.perf_counter() - t0, state)
+            card, cpu = runs[DEVICE][0], runs["cpu"][0]
+            check(all(np.isfinite(card)) and card[-1] < card[0],
+                  f"side models: train_convattn losses on the card {card}")
+            drift = abs(card[0] - cpu[0]) / abs(cpu[0])
+            check(drift <= SIDE_LOSS_TOL, f"side models: first-epoch loss {card[0]} on the "
+                  f"card vs {cpu[0]} on the CPU ({drift:.2e} > {SIDE_LOSS_TOL})")
+            check(next(iter(runs[DEVICE][2].values())).is_cuda,
+                  "side models: the trained state is not on the card")
+
+            gen = torch.Generator().manual_seed(1)
+            x = torch.randn((8, 24), generator=gen)
+            q, q_hat = torch.randn(8, generator=gen), torch.randn(8, generator=gen)
+            s2 = torch.rand(8, generator=gen) + 0.2
+            pred, target = torch.randn((8, 5), generator=gen), torch.randn((8, 5), generator=gen)
+            w5 = torch.rand(5, generator=gen) + 0.5
+            levels = [(torch.randn((4, f), generator=gen), torch.randn((4, f), generator=gen),
+                       torch.randn((4, 7, f), generator=gen)) for f in (16, 32)]
+            paths = {"pos": [], "neg": []}
+            for tag, base in (("pos", 10.0), ("neg", 0.0)):
+                for i in range(4):
+                    path = os.path.join(tmp, f"ab{tag}_quart{i + 1}.nii")
+                    vol = base + i + rng.uniform(0.0, 0.5, size=(12, 12, 12))
+                    write_nifti(path, vol.astype(np.float32), spacing=(2.0, 2.0, 2.0))
+                    paths[tag].append(path)
+            templates = load_quartile_templates(paths["pos"], paths["neg"],
+                                                target=(16, 16, 16), resize=False)
+            pos, negs = (torch.from_numpy(t) for t in select_npair_templates(templates, 1, 2))
+            anchor = pos[None] + 0.1 * torch.randn((3, pos.numel()), generator=gen)
+
+            def heads_and_losses(dev):
+                mv = lambda t: t.to(dev)  # noqa: E731
+                mlp = MLP(24, (32, 16), 3, device=dev,
+                          generator=torch.Generator().manual_seed(2))
+                uq = AleatoricUncertaintyNet(24, hidden=32, device=dev,
+                                             generator=torch.Generator().manual_seed(3))
+                with torch.no_grad():
+                    out = {"MLP": mlp(mv(x)),
+                           "AleatoricUncertaintyNet sigma2": uq(mv(x), mv(q_hat))[0],
+                           "AleatoricUncertaintyNet confidence": uq(mv(x), mv(q_hat))[1]}
+                for name in ("weighted_mse", "weighted_l1", "weighted_cc", "weighted_cccl"):
+                    out[name] = getattr(losses, name)(mv(pred), mv(target), mv(w5))
+                out["npair_loss"] = losses.npair_loss(mv(anchor), mv(pos), mv(negs))
+                out["cluster_npair_loss"] = losses.cluster_npair_loss(
+                    *[[mv(t[i]) for t in levels] for i in range(3)], temperature=0.5)
+                out["heteroscedastic_loss"] = losses.heteroscedastic_loss(
+                    mv(q), mv(q_hat), mv(s2))
+                return out
+
+            on_card, on_cpu = heads_and_losses(DEVICE), heads_and_losses("cpu")
+        errs = {}
+        for name, want in on_cpu.items():
+            got = on_card[name]
+            check(got.is_cuda and got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"side models: {name} on the card {got.device} {tuple(got.shape)}")
+            errs[name] = float((got.cpu() - want).abs().max() / want.abs().max())
+            check(errs[name] <= SIDE_TOL, f"side models: {name} on the card misses the "
+                  f"CPU by {errs[name]:.2e} of max > {SIDE_TOL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"side models: train_convattn {SIDE_EPOCHS} epochs on the card "
+          f"{[round(v, 6) for v in card]} ({runs[DEVICE][1]:.2f} s) vs the CPU "
+          f"{[round(v, 6) for v in cpu]} ({runs['cpu'][1]:.2f} s): first epoch "
+          f"{drift:.2e} apart (limit {SIDE_LOSS_TOL})")
+    print("side models: on the card against the CPU, max error over max: "
+          + ", ".join(f"{name} {e:.1e}" for name, e in errs.items())
+          + f" (limit {SIDE_TOL}); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _phase(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase_device()
-    phase_build()
+    _phase("1 device", phase_device)
+    _phase("2 build", phase_build)
     if "--parity-seeds" in sys.argv:  # phase 8 alone, at seeds 0 .. n-1
         for seed in range(int(sys.argv[sys.argv.index("--parity-seeds") + 1])):
             phase_parity(s=88, b=1, template=True, seed=seed)
         return 0
     summary: dict = {}
-    phase_kernels(summary)
-    phase_parity(f32=True)
-    phase_gradients()
-    phase_gradients(b=3, f32=True)
-    paths = {"serving": phase_serving(), "training": phase_training()}
+    _phase("3 kernels", phase_kernels, summary)
+    _phase("4 parity", phase_parity, f32=True)
+    _phase("5 gradients b=2", phase_gradients)
+    _phase("5 gradients b=3", phase_gradients, b=3, f32=True)
+    paths = {"serving": _phase("6 serving", phase_serving),
+             "training": _phase("7 training", phase_training)}
     torch.cuda.empty_cache()
-    phase_parity(s=88, b=1, template=True)
-    paths["template"] = phase_template()
+    _phase("8 template parity", phase_parity, s=88, b=1, template=True)
+    paths["template"] = _phase("9 template space", phase_template)
     torch.cuda.empty_cache()
-    paths["loop"] = phase_loop()
+    paths["loop"] = _phase("10 loop", phase_loop)
     torch.cuda.empty_cache()
-    paths["tcds"] = phase_tcds()
+    paths["tcds"] = _phase("11 tcds", phase_tcds)
     torch.cuda.empty_cache()
-    paths["baselines"] = phase_baselines()
+    paths["baselines"] = _phase("12 baselines", phase_baselines)
     torch.cuda.empty_cache()
-    paths["data_parallel"] = phase_data_parallel()
+    paths["data_parallel"] = _phase("13 data parallel", phase_data_parallel)
     torch.cuda.empty_cache()
-    paths["spatial"] = phase_spatial()
+    sp = _phase("14 spatial", phase_spatial)
+    paths["spatial"], paths["spatial 216"] = sp[128], sp[216]
     torch.cuda.empty_cache()
-    paths["float32 spatial"] = phase_spatial("float32")
+    sp = _phase("14 spatial float32", phase_spatial, "float32")
+    paths["float32 spatial"], paths["float32 spatial 216"] = sp[128], sp[216]
     torch.cuda.empty_cache()
-    paths.update(phase_float32())
+    paths.update(_phase("15 float32", phase_float32))
+    torch.cuda.empty_cache()
+    _phase("16 side models", phase_side_models)
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]

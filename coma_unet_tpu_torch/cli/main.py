@@ -35,10 +35,11 @@ JAX CLI's does.
 `infer --spatial_parallel S` > 1 (without `--sliding_window`, which ignores
 it, as the JAX CLI does) synthesizes each volume on D x S ranks, D the
 data-parallel size: each rank holds a depth slab of the volume and its
-activations (`parallel/spatial.py`), and rank 0 writes the volumes. It
-exits with status 2 before anything is written where D x S exceeds the
-visible cards (`--device cuda`), where some level of the volume does not
-split evenly over the ranks, for a `-model_type` other than ContraAttnUNET
+activations (`parallel/spatial.py`; the slabs may be uneven, and the
+last rank's odd), and rank 0 writes the volumes. It exits with status 2
+before anything is written where D x S exceeds the visible cards
+(`--device cuda`), where the volume's deepest level holds too few planes
+to give every rank one, for a `-model_type` other than ContraAttnUNET
 (the reference's spatial forward passes `with_projections=False`, which no
 baseline takes) and with `--save_attention`, whose export needs the whole
 forward in one process. A config's `train.spatial_parallel` S trains with

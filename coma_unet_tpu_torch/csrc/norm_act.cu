@@ -260,10 +260,10 @@ __device__ __forceinline__ void arrive_and_wait(unsigned* counter, unsigned targ
   }
 }
 
-// Sums v over the CTA of NW warps in a fixed order; the totals land in
-// thread 0.
-template <int K, int NW>
-__device__ __forceinline__ void block_total(float (&v)[K], float (*red)[NW]) {
+// Sums v (float or double) over the CTA of NW warps in a fixed order; the
+// totals land in thread 0.
+template <class A, int K, int NW>
+__device__ __forceinline__ void block_total(A (&v)[K], A (*red)[NW]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -275,7 +275,7 @@ __device__ __forceinline__ void block_total(float (&v)[K], float (*red)[NW]) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      float t = 0.f;
+      A t = 0;
       for (int w = 0; w < NW; ++w) t += red[j][w];
       v[j] = t;
     }
@@ -712,9 +712,10 @@ COMA_API int coma_norm_act_bwd_f32(const void* x, const void* g, const void* sta
 // SLAB_UNROLL loads before it uses any, and the at most EPG - 1 elements at
 // each ragged end one at a time, so a row that starts off 16 bytes (N % EPG
 // != 0, or x off 16) still streams in vectors. The statistics half is one
-// launch: each CTA stores K4's shifted f32 partial (count, mean and M2 of
-// x - s, s the row's first voxel of the slab, summed over the CTA in a
-// fixed order) and takes a ticket on its row's counter (acquire-release);
+// launch: each CTA stores a shifted partial (count, mean and M2 of x - s,
+// s the row's first voxel of the slab; each 16-byte group summed in f32,
+// the groups and the CTA's threads in f64 in a fixed order; stored as f32)
+// and takes a ticket on its row's counter (acquire-release);
 // the CTA that takes the last ticket stages the row's partials in shared
 // memory and merges them in f64 in segment order (K4's merge), writes
 // (count, mean, M2) and sets the counter back to 0. The result does not
@@ -849,7 +850,7 @@ template <class T>
 __global__ void __launch_bounds__(SLAB_THREADS, SLAB_CTAS)
     slab_stats_kernel(const SlabArgs<T> a) {
   constexpr int EPG = Elem<T>::EPG;
-  __shared__ float red[2][SLAB_WARPS];
+  __shared__ double red[2][SLAB_WARPS];
   __shared__ float stage[3 * SLAB_STAGE];
   __shared__ int last;
   const int tid = threadIdx.x, lane = tid % 32;
@@ -861,24 +862,35 @@ __global__ void __launch_bounds__(SLAB_THREADS, SLAB_CTAS)
     const T* const base = xr - o;
     const Piece p = piece<EPG>(o, e0, e1);
     const float s0 = Elem<T>::load(xr[0]);
-    float acc[2] = {0.f, 0.f};
-    const auto add = [&](float v) {
-      const float t = v - s0;
-      acc[0] += t;
-      acc[1] = fmaf(t, t, acc[1]);
-    };
+    // the shifted sums of each 16-byte group in f32, added to the thread's
+    // f64 sums (the ragged ends' values one by one): a thread's run of a
+    // long segment (about 1,300 values at 216^3's level-0 slabs) adds no
+    // f32 rounding that grows with its length, and M2 = sum t^2 - m sum t
+    // cancels in f64
+    double acc[2] = {0.0, 0.0};
     for_groups<true>(base, p, [&](int64_t, const uint4& v) {
+      float s = 0.f, q = 0.f;
 #pragma unroll
-      for (int j = 0; j < EPG; ++j) add(val<T>(v, j));
+      for (int j = 0; j < EPG; ++j) {
+        const float t = val<T>(v, j) - s0;
+        s += t;
+        q = fmaf(t, t, q);
+      }
+      acc[0] += (double)s;
+      acc[1] += (double)q;
     });
-    for_edges(base, p, [&](int64_t, float v) { add(v); });
+    for_edges(base, p, [&](int64_t, float v) {
+      const double t = (double)(v - s0);
+      acc[0] += t;
+      acc[1] = fma(t, t, acc[1]);
+    });
     block_total(acc, red);
     if (tid == 0) {
-      const float cnt = (float)(e1 - e0), m = acc[0] / cnt;
+      const double cnt = (double)(e1 - e0), m = acc[0] / cnt;
       float* const pp = a.part + (row * a.segs + sidx) * 3;
-      pp[0] = cnt;
-      pp[1] = m;
-      pp[2] = fmaxf(fmaf(-acc[0], m, acc[1]), 0.f);
+      pp[0] = (float)cnt;
+      pp[1] = (float)m;
+      pp[2] = (float)fmax(fma(-acc[0], m, acc[1]), 0.0);
       last = ticket(a.count + row) == (unsigned)a.segs - 1u;
     }
     __syncthreads();

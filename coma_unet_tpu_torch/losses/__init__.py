@@ -5,6 +5,9 @@ from coma_unet_tpu_torch.losses.composite import (  # noqa: F401
     LossOutputs,
 )
 from coma_unet_tpu_torch.losses.contrastive import (  # noqa: F401
+    cluster_npair_loss,
+    heteroscedastic_loss,
+    npair_loss,
     rnc_loss,
     triplet_loss,
     truncated_cds,
@@ -16,4 +19,10 @@ from coma_unet_tpu_torch.losses.roi_losses import (  # noqa: F401
     roi_rse,
     update_roi_weights,
     update_voxel_weights,
+)
+from coma_unet_tpu_torch.losses.weighted import (  # noqa: F401
+    weighted_cc,
+    weighted_cccl,
+    weighted_l1,
+    weighted_mse,
 )

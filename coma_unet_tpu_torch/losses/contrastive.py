@@ -1,5 +1,6 @@
 """Contrastive losses (counterpart of `coma_unet_tpu/losses/contrastive.py`:
-`rnc_loss`, `triplet_loss`, `truncated_cds`), as closed-form broadcast
+`rnc_loss`, `triplet_loss`, `truncated_cds`, `npair_loss`,
+`cluster_npair_loss`, `heteroscedastic_loss`), as closed-form broadcast
 reductions. `valid` ([N] 0/1) drops the loader's wrap-padded rows from every
 term, so each loss equals its value on the valid subset.
 """
@@ -87,3 +88,44 @@ def truncated_cds(anchor_projs: Sequence[torch.Tensor],
     for w, a, p, ng in zip(weights, anchor_projs, pos_projs, neg_projs):
         total = total + w * triplet_loss(a, p, ng, margin=margin, valid=valid)
     return total
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    an = a / torch.clamp(torch.linalg.norm(a, dim=dim, keepdim=True), min=1e-8)
+    bn = b / torch.clamp(torch.linalg.norm(b, dim=dim, keepdim=True), min=1e-8)
+    return torch.sum(an * bn, dim=dim)
+
+
+def npair_loss(anchor: torch.Tensor, pos_template: torch.Tensor,
+               neg_templates: torch.Tensor) -> torch.Tensor:
+    """The template N-pair loss: softmax over the cosine similarity to the
+    matching abeta-x-quartile template against the other 7. anchor [B, E];
+    pos_template [E] or [B, E]; neg_templates [M, E]."""
+    if pos_template.dim() == 1:
+        pos_template = pos_template[None, :]
+    pos_sim = _cosine(anchor, pos_template)                          # [B]
+    neg_sim = _cosine(anchor[:, None, :], neg_templates[None, :, :])  # [B, M]
+    numerator = torch.exp(pos_sim)
+    denominator = numerator + torch.sum(torch.exp(neg_sim), dim=-1)
+    return torch.mean(-torch.log(numerator / denominator))
+
+
+def cluster_npair_loss(anchor_projs: Sequence[torch.Tensor],
+                       pos_projs: Sequence[torch.Tensor],
+                       neg_projs: Sequence[torch.Tensor],
+                       temperature: float = 1.0) -> torch.Tensor:
+    """`ClusterNPairLoss`: the N-pair loss per level with several
+    negatives, summed over the levels; neg_projs[i] is [B, M, F]."""
+    total = anchor_projs[0].new_zeros((), dtype=torch.float32)
+    for a, p, ng in zip(anchor_projs, pos_projs, neg_projs):
+        num = torch.exp(_cosine(a, p) / temperature)
+        den = num + torch.sum(torch.exp(_cosine(a[:, None, :], ng) / temperature), dim=-1)
+        total = total + torch.mean(-torch.log(num / den))
+    return total
+
+
+def heteroscedastic_loss(q: torch.Tensor, q_hat: torch.Tensor,
+                         sigma2: torch.Tensor) -> torch.Tensor:
+    """`HeteroscedasticLoss`: mean of (q - q_hat)^2 / (2 sigma^2) +
+    log sigma^2."""
+    return torch.mean(torch.square(q - q_hat) / (2.0 * sigma2) + torch.log(sigma2))

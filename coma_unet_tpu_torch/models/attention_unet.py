@@ -15,9 +15,12 @@ a small test configuration takes the same routes as the 128^3 flagship.
 
 Under `depth_sharded` (`parallel/spatial.py`) the forward runs as it is on
 one rank's depth slab: the blocks take the halos and the merged norm
-statistics. The upsample's crop to its skip never cuts depth there: the
-slab plan splits every level evenly, so an upsample of a slab of n planes
-gives 2n, the skip's slab; a crop of H or W is the same on every plane.
+statistics. The upsample's crop to its skip cuts depth on the last rank
+alone: every other rank's slab is even at each level above the deepest, so
+its upsample of n planes gives 2n, the skip's slab, while the last rank's
+skip may hold an odd tail, 2n - 1, as the whole volume's does at 216^3; a
+depth crop anywhere else is a fault and raises (`Slab.check_crop`). A crop
+of H or W is the same on every plane.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from coma_unet_tpu_torch.models.blocks import (
     ConvBlock,
     Convolution,
     UpBlock,
+    current_slab,
     resolve_device,
 )
 
@@ -132,6 +136,9 @@ class AttentionUNet(nn.Module):
                 # the up 14 -> 28 meets the skip of 27): crop the upsample
                 # to the skip, as the JAX package does
                 ed, eh, ew = encoder[i].shape[2:]
+                slab = current_slab()
+                if slab is not None and up.shape[2] != ed:
+                    slab.check_crop(up.shape[2], ed)
                 up = up[:, :, :ed, :eh, :ew]
             att, psi = getattr(self, f"gate{i}")(up, encoder[i])
             merged = getattr(self, f"merge{i}")(torch.cat([att, up], dim=1))

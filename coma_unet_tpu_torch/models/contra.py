@@ -121,9 +121,9 @@ class ContraAttnUNet(nn.Module):
 
     def _modulator(self, x, out, covariate, roi_loc, roi_std, roi_compact):
         """The modulator head. Inside `depth_sharded` x is the rank's depth
-        slab: the prompts are checked against the whole volume and the rank
-        takes its slab of each; the brain mask and the painting are
-        voxel-local."""
+        slab: the prompts are checked against the whole volume (the slab
+        plan's depth) and the rank takes its slab of each; the brain mask
+        and the painting are voxel-local."""
         cfg, dtype = self.config, self.dtype
         b = x.shape[0]
         slab = current_slab()
@@ -131,7 +131,7 @@ class ContraAttnUNet(nn.Module):
         prompts = (self.pos_dynamic_prompt, self.neg_dynamic_prompt,
                    self.general_dynamic_prompt)
         if slab is not None:
-            volume = (volume[0] * slab.world,) + volume[1:]
+            volume = (slab.plan.sizes[0],) + volume[1:]
             prompts = tuple(slab.local(p) for p in prompts)
         if tuple(cfg.prompt_shape) != volume:
             raise ValueError(

@@ -3,8 +3,15 @@ half of `coma_unet_tpu/parallel/mesh.py`: `make_mesh`'s `spatial` axis,
 `shard_batch(..., spatial=True)` and `make_spatial_infer_fn`).
 
 One volume is synthesized by N ranks, one process a device, each holding a
-depth slab of the volume and of every activation: at level i of the U-Net
-(depth D_i = D / 2^i) rank r holds planes [r D_i / N, (r + 1) D_i / N).
+depth slab of the volume and of every activation. Level i of the U-Net
+holds D_i planes, D_{i+1} = ceil(D_i / 2) (a k = 3 stride-2 conv with
+padding 1), so 216 planes give 216, 108, 54, 27, 14. Rank r's first plane
+at level 0, b_r, is the multiple of 2^L nearest r D / N (L the number of
+depth strides), and at level i it is b_r / 2^i; the last rank takes the
+tail (`plan_slabs`). Every slab but the last is then even at each level a
+stride-2 conv reads, and every stride-2 window starts on an even global
+plane; the last rank's slab may be odd, and its upsample then gives one
+plane more than its skip, which the decoder crops (`Slab.check_crop`).
 All N ranks of the group are depth slabs: the JAX spec splits D over the
 mesh's `data` axis and H over its `spatial` axis, which gives the same
 numbers (`ROADMAP.md` §3). The model runs unchanged inside `depth_sharded`
@@ -26,10 +33,12 @@ blocks the rank's `Slab`:
     (K4's `norm_stats` where the block runs the kernels, plain ops
     otherwise), gathers the ranks' partials the same way, and merges them
     in rank order (`Slab.merge`), so every rank holds bit-identical mean
-    and rstd; the apply is K4's `norm_apply` or plain ops.
+    and rstd whatever the slabs' counts; the apply is K4's `norm_apply` or
+    plain ops.
 
-The slab plan refuses a volume that some level does not split evenly
-over the ranks (`plan_slabs`). Inference only, as in the JAX package.
+The slab plan refuses only a volume whose deepest level holds too few
+planes to give every rank one (the JAX package pads there instead).
+Inference only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,37 +62,50 @@ from coma_unet_tpu_torch.parallel.mesh import Mesh, all_reduce_
 
 @dataclass(frozen=True)
 class SlabPlan:
-    """The volume's depth at each level (`sizes[0]` the input's) and the
-    number of ranks, which splits every level evenly."""
+    """The volume's depth at each level (`sizes[0]` the input's), each
+    rank's first plane at level 0 (`starts`, from 0 up) and the factor by
+    which each level is smaller along depth (`factors`, 1 at level 0)."""
 
     sizes: Tuple[int, ...]
-    world: int
+    starts: Tuple[int, ...]
+    factors: Tuple[int, ...]
+
+    @property
+    def world(self) -> int:
+        return len(self.starts)
 
     def planes(self, rank: int, level: int = 0) -> slice:
-        """Rank `rank`'s global planes at `level`."""
-        n = self.sizes[level] // self.world
-        return slice(rank * n, (rank + 1) * n)
+        """Rank `rank`'s global planes at `level`: from its level-0 start
+        over the level's factor up to the next rank's, the last rank to
+        the level's end."""
+        f = self.factors[level]
+        hi = (self.starts[rank + 1] // f if rank + 1 < self.world
+              else self.sizes[level])
+        return slice(self.starts[rank] // f, hi)
 
 
 def plan_slabs(depth: int, strides, world: int) -> SlabPlan:
     """The slabs of a volume of `depth` planes over `world` ranks for a
     U-Net whose levels are `strides` apart along depth (a stride is an int
-    or a (d, h, w) triple). Raises ValueError naming the first level whose
-    depth does not halve exactly or that `world` does not split evenly."""
-    sizes = [int(depth)]
+    or a (d, h, w) triple; level i + 1 holds ceil(D_i / s) planes). Each
+    rank starts at the multiple of the deepest level's factor nearest
+    r depth / world (ties up). Raises ValueError naming the deepest level
+    where it would leave some rank no plane."""
+    sizes, factors = [int(depth)], [1]
     for s in strides:
         s = s if isinstance(s, int) else s[0]
-        if sizes[-1] % s:
-            raise ValueError(
-                f"level {len(sizes)} of a volume of depth {depth} would hold "
-                f"{sizes[-1]} / {s} planes: uneven slabs are not ported")
-        sizes.append(sizes[-1] // s)
-    for level, size in enumerate(sizes):
-        if size % world:
-            raise ValueError(
-                f"level {level} holds {size} planes, which {world} ranks do "
-                f"not split evenly (a volume of depth {depth})")
-    return SlabPlan(tuple(sizes), int(world))
+        sizes.append(-(-sizes[-1] // s))
+        factors.append(factors[-1] * s)
+    f, level = factors[-1], len(sizes) - 1
+    starts = tuple(f * ((2 * r * depth + world * f) // (2 * world * f))
+                   for r in range(world))
+    plan = SlabPlan(tuple(sizes), starts, tuple(factors))
+    if any(plan.planes(r, level).stop <= plan.planes(r, level).start
+           for r in range(world)):
+        raise ValueError(
+            f"level {level} holds {sizes[level]} planes, too few for {world} "
+            f"ranks to hold one each (a volume of depth {depth})")
+    return plan
 
 
 def level_strides(config) -> tuple:
@@ -95,14 +117,27 @@ class Slab:
     """This rank's place in a depth-sharded forward: what `depth_sharded`
     hands the blocks."""
 
-    def __init__(self, mesh: Mesh):
-        self.mesh = mesh
+    def __init__(self, mesh: Mesh, plan: SlabPlan):
+        if plan.world != mesh.size:
+            raise ValueError(f"a plan for {plan.world} ranks on a group of "
+                             f"{mesh.size}")
+        self.mesh, self.plan = mesh, plan
         self.rank, self.world = mesh.rank, mesh.size
+        self.last = self.rank == self.world - 1
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's planes (axis 2) of a full-depth tensor."""
-        n = t.shape[2] // self.world
-        return t[:, :, self.rank * n:(self.rank + 1) * n]
+        """This rank's planes (axis 2) of a tensor of the volume's depth."""
+        return t[:, :, self.plan.planes(self.rank)]
+
+    def check_crop(self, have: int, want: int) -> None:
+        """An upsample of `have` planes cut to its skip's `want`: only the
+        last rank's odd slab gives one plane more; anywhere else the slabs
+        are misaligned, and this raises."""
+        if not self.last or have != want + 1:
+            raise RuntimeError(
+                f"rank {self.rank} of {self.world}: an upsample of {have} "
+                f"planes meets a skip of {want}; only the last rank's odd "
+                f"slab is cut, by one plane")
 
     def halo(self, x: torch.Tensor, below: int, above: int):
         """(the `below` planes under this rank's slab of x, the `above`
@@ -124,8 +159,9 @@ class Slab:
 
     def merge(self, partials: torch.Tensor) -> torch.Tensor:
         """Each row's (count, mean, M2) [rows, 3] f64 over the whole
-        volume, from this rank's partials of its slab: the ranks' partials
-        gathered in zero-padded slots and merged in rank order."""
+        volume, from this rank's partials of its slab: the ranks' partials,
+        each with its own slab's count, gathered in zero-padded slots and
+        merged in rank order."""
         slots = torch.zeros((self.world,) + tuple(partials.shape),
                             dtype=torch.float64, device=partials.device)
         slots[self.rank] = partials
@@ -178,8 +214,9 @@ class Slab:
 
 
 def gather_depth(out: torch.Tensor, mesh: Mesh) -> Optional[torch.Tensor]:
-    """The ranks' slabs of `out` concatenated along depth on rank 0 (on its
-    device), None on the other ranks: each slab travels to rank 0 alone."""
+    """The ranks' slabs of `out`, of any depths, concatenated along depth in
+    rank order on rank 0 (on its device), None on the other ranks: each
+    slab travels to rank 0 alone."""
     slabs = [None] * mesh.size if mesh.rank == 0 else None
     dist.gather_object(out.cpu(), slabs, dst=0)
     if mesh.rank != 0:
@@ -207,11 +244,12 @@ def make_spatial_infer_fn(model: torch.nn.Module, mesh: Mesh) -> Callable:
     @torch.no_grad()
     def infer(mri, covars, roi_loc, roi_std, roi_compact):
         mri, roi_compact = torch.as_tensor(mri), torch.as_tensor(roi_compact)
-        planes = plan_slabs(mri.shape[2], levels, mesh.size).planes(mesh.rank)
+        plan = plan_slabs(mri.shape[2], levels, mesh.size)
+        planes = plan.planes(mesh.rank)
         args = [t.to(device) for t in (
             mri[:, :, planes], torch.as_tensor(covars), torch.as_tensor(roi_loc),
             torch.as_tensor(roi_std), roi_compact[:, planes])]
-        with depth_sharded(Slab(mesh)):
+        with depth_sharded(Slab(mesh, plan)):
             out = model(*args, with_projections=False).out
         return gather_depth(out, mesh)
 

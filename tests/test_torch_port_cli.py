@@ -12,8 +12,8 @@ bfloat16 and float32 exits with status 2 before a model is built;
 the baselines and `--norm batch` run. `infer --spatial_parallel 2` on two
 gloo ranks writes the volumes of the single-process `infer`, a config's
 `train.spatial_parallel` trains as the run without it, and a baseline,
-`--save_attention`, a volume the ranks cannot split or more ranks than
-cards exit with status 2 before writing. `train` and `validate` with
+`--save_attention`, more ranks than the deepest level has planes or more
+ranks than cards exit with status 2 before writing. `train` and `validate` with
 `--data_parallel 2` on two gloo ranks give the single-process numbers, the
 run's checkpoint resumes in one process, a batch the ranks cannot split or
 more ranks than cards exit with status 2 before writing, and a rank that
@@ -267,13 +267,15 @@ def test_float32_on_cuda_builds_a_float32_model(cohort, tmp_path, monkeypatch,
     ("infer", ["--spatial_parallel", "2"], "queue 1 item 5"),
     ("validate", ["-model_type", "UNET"], "queue 1 item 4"),
     ("train", ["--norm", "batch"], "queue 1 item 4"),
+    ("infer", ["--spatial_parallel", "3"], "queue 1 item 5"),
 ])
 def test_deferred_options_raise(cohort, tmp_path, monkeypatch, capsys, cmd,
                                 flag, item):
     """The options that once waited on their ROADMAP.md item run. Queue 1
     item 5, spatial parallelism: `infer --spatial_parallel 2` (two gloo
-    ranks, each on a depth slab) writes the volumes that `infer` in one
-    process writes, within 1e-5 of their max; a config's
+    ranks, each on a depth slab) and 3 (slabs of 6, 4 and 6 planes) write
+    the volumes that `infer` in one process writes, within 1e-5 of their
+    max; a config's
     `train.spatial_parallel = 2` trains to the validation CSVs of the run
     without it, bit for bit, since the reference's spatial axis only
     replicates its step. Queue 1 item 4 (the baselines, batch norm): its
@@ -445,7 +447,8 @@ def test_spatial_refusals_exit_2_before_writing(cohort, tmp_path, capsys,
                                                monkeypatch, how):
     """`infer --spatial_parallel` with a baseline (the reference's spatial
     forward passes with_projections=False, which none takes), with
-    `--save_attention`, with 3 ranks (16 planes do not split) or on CUDA
+    `--save_attention`, with 9 ranks (the deepest level's 8 planes cannot
+    give each one; 3 ranks, uneven, run) or on CUDA
     beyond the visible cards (here none), and `train` with a config's
     `train.spatial_parallel` 2 on CUDA, exit with status 2 before any rank
     starts and before anything is written."""
@@ -455,10 +458,10 @@ def test_spatial_refusals_exit_2_before_writing(cohort, tmp_path, capsys,
     monkeypatch.setattr(cli, "_launch", lambda *a, **k: pytest.fail("launched"))
     argv = ["infer", "--config", _config_file(tmp_path / "config.json"),
             "--input_lookup", cohort["lookup"], "--out_dir", str(tmp_path / "out"),
-            "--spatial_parallel", "3" if how == "uneven" else "2"]
+            "--spatial_parallel", "9" if how == "uneven" else "2"]
     device, why = ["--device", "cpu"], {
         "baseline": "ContraAttnUNET only", "attention": "--save_attention",
-        "uneven": "level 0 holds 16 planes", "cards": "CUDA devices"}[how]
+        "uneven": "level 1 holds 8 planes", "cards": "CUDA devices"}[how]
     if how == "baseline":
         argv += ["-model_type", "UNET"]
     elif how == "attention":

@@ -104,8 +104,9 @@ class Cfg:
 
 def test_phase3_shapes_cover_every_f1_site():
     shapes = _phase3_shapes()
-    # 28 shapes of x and w, one of them with shared and per-sample weights
-    assert len(shapes) == 29 and len({s[:7] for s in shapes}) == 28
+    # 28 shapes of x and w, one of them with shared and per-sample weights;
+    # and 5 of the depth-sharded 216^3 forward (slabs and 3-plane windows)
+    assert len(shapes) == 34 and len({s[:7] for s in shapes}) == 33
     plans = [f1_plan(*s) for s in shapes]
     assert {(p.k, p.brick[0], p.at) for p in plans} >= {(3, 4, 64), (3, 8, 32), (3, 4, 16),
                                                         (3, 4, 8), (1, 4, 16), (1, 4, 8)}

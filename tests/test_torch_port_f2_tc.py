@@ -77,9 +77,10 @@ RAGGED = [("s2", 2, 3, 70, 9, 17, 35, False), ("s2", 1, 12, 5, 7, 3, 67, True),
 
 def test_phase3_shapes_cover_every_f2_site():
     shapes = _phase3_shapes()
-    # down0.conv0 (= up0's input gradient), its 216^3 and eval forms and the
-    # odd sizes, for each map
-    assert [s[0] for s in shapes].count("s2") == 4 and [s[0] for s in shapes].count("t2") == 4
+    # down0.conv0 (= up0's input gradient), its 216^3 and eval forms, the
+    # odd sizes, and the depth-sharded 216^3 forward's two slabs and window,
+    # for each map
+    assert [s[0] for s in shapes].count("s2") == 7 and [s[0] for s in shapes].count("t2") == 7
     plans = [f2_plan(*s) for s in shapes]
     assert {(p.mode, p.at) for p in plans} == {("s2", 64), ("t2", 32)}
     path = [p for s, p in zip(shapes, plans) if s[2:4] in ((32, 64), (64, 32))]

@@ -246,8 +246,11 @@ def test_port_source_imports_no_jax():
     # the native runtime, the analysis modules and data parallelism are
     # scanned too, and the registry and its baselines
     assert {"runtime", "analysis", "parallel"} <= {p.parent.name for p in files}
-    assert {"baselines.py", "swin.py", "registry.py"} <= {
+    assert {"baselines.py", "swin.py", "registry.py", "convattn.py", "uq.py"} <= {
         p.name for p in files if p.parent.name == "models"}
+    # the side models' losses and dataset
+    assert {"losses/weighted.py", "losses/templates.py", "data/image_dataset.py"} <= {
+        f"{p.parent.name}/{p.name}" for p in files}
     for path in files:
         tree = ast.parse(path.read_text())
         docs = {id(node) for node in _docstrings(tree)}

@@ -158,17 +158,18 @@ def _draw(rng, port, triplet=False):
     raise AssertionError("no batch clear of the output ReLU's kink in 32 draws")
 
 
-def _flagship_params(rng, batch):
+def _flagship_params(rng, batch, config=TINY):
     """The port's own seeded init with seeded numpy noise on every leaf (the
     regime of `tests/test_torch_port_train.py`, without compiling the flax
     init): the port's state dict and the flax `params` tree it maps from,
-    each leaf placed through `from_flax`'s own key and layout map."""
-    port = ContraAttnUNet(ModelConfig(**TINY), device="cpu",
+    each leaf placed through `from_flax`'s own key and layout map, for the
+    ModelConfig fields `config` (TINY's by default)."""
+    port = ContraAttnUNet(ModelConfig(**config), device="cpu",
                           generator=torch.Generator().manual_seed(0))
     state = {k: (v.numpy() + 0.05 * rng.normal(size=tuple(v.shape))).astype(
         np.float32) for k, v in port.state_dict().items()}
     shapes = jax.eval_shape(lambda k: FlaxContra(JaxModelConfig(
-        **TINY, **JAX_ONLY)).init(k, *(jnp.asarray(batch[a]) for a in ARGS),
+        **config, **JAX_ONLY)).init(k, *(jnp.asarray(batch[a]) for a in ARGS),
                                   train=False), jax.random.PRNGKey(0))["params"]
 
     def leaf(path, shape):

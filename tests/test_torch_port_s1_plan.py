@@ -67,9 +67,10 @@ def test_phase3_shapes_cover_every_k1_site():
     shapes = _phase3_shapes()
     # 23 forward sites, conv3d_w64 and 9 input gradients, of which those of
     # head.conv1 and down0.conv1 (32->32, 64->64 per sample) at both sizes
-    # share their forward shapes
-    assert len(shapes) == 33 - 4
-    assert {s[3] for s in shapes} >= {128, 64, 216, 108}
+    # share their forward shapes; and the depth-sharded 216^3 forward's
+    # slabs and 3-plane windows of head.conv1 and down0.conv1
+    assert len(shapes) == 33 - 4 + 5
+    assert {s[3] for s in shapes} >= {128, 64, 216, 108, 112, 104, 52, 3}
     assert {s[-2] for s in shapes} == {1, 3}
     # every output-channel tile and both brick depths
     plans = [s1_plan(*s) for s in shapes]

@@ -78,16 +78,20 @@ PLAN_SHAPES = _phase3_shapes() + [
 def test_phase3_shapes_cover_every_k2_site():
     shapes = _phase3_shapes()
     # down0.conv0 at both sizes and the eval's b=2, up0's input gradient at
-    # both sizes, and the odd sizes
-    assert len(shapes) == 6
-    assert sorted({s[3] for s in shapes}) == [27, 128, 216]
-    assert all(s[1:3] == (32, 64) for s in shapes[:5])
+    # both sizes, the odd sizes, and down0.conv0 on the depth-sharded 216^3
+    # forward's slabs (112 and 104 of 216 planes) and its 4-plane window
+    assert len(shapes) == 9
+    assert sorted({s[3] for s in shapes}) == [4, 27, 104, 112, 128, 216]
+    assert all(s[1:3] == (32, 64) for s in shapes[:5] + shapes[6:])
     plans = [s2_plan(*s) for s in shapes]
     assert {p.at for p in plans} == {64} and {p.grid[1] for p in plans} == {1}
     # about one block an SM at the path's shapes, each walking many bricks
     assert [p.grid for p in plans[:5]] == [(66, 1, 2), (132, 1, 1), (66, 1, 2),
                                            (66, 1, 2), (132, 1, 1)]
     assert [p.bricks for p in plans[:3]] == [32 * 16 * 4] + [54 * 27 * 7] * 2
+    # one block an SM on the slabs and the window's 189 bricks
+    assert [p.grid for p in plans[6:]] == [(132, 1, 1)] * 3
+    assert [p.bricks for p in plans[6:]] == [28 * 27 * 7, 26 * 27 * 7, 27 * 7]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))

@@ -11,12 +11,14 @@ CPU, where no kernel runs.
     slab shape of phase 3 and phase 14 as closely as its rows allow (a
     whole wave where they divide it), or takes every segment SLAB_MIN_BYTES
     allows, while the apply's takes pieces of SLAB_MIN_BYTES.
-(b) A numpy emulation of the one-launch statistics -- per thread the shifted
-    f32 sums in the kernel's order, the CTA's fixed reduction, the partial,
-    the tickets and the last CTA's f64 merge in segment order -- matches
-    `row_partials` (f64) within STATS_TOL of max|plain| a column, also where
-    rows start off 16 bytes, and gives the same bits for every arrival order
-    of the segments, leaving every counter zero.
+(b) A numpy emulation of the one-launch statistics -- each 16-byte group's
+    shifted sums in f32 added to its thread's f64 sums in the kernel's
+    order, the CTA's fixed reduction in f64, the f32 partial, the tickets
+    and the last CTA's f64 merge in segment order -- matches `row_partials`
+    (f64) within STATS_TOL of max|plain| a column, also where rows start off
+    16 bytes, and within LONG_TOL over a segment longer than any of the
+    path's, and gives the same bits for every arrival order of the
+    segments, leaving every counter zero.
 (c) The emulation of both halves over 2 and 4 depth slabs, merged by
     `merge_partials`, matches the Pallas `_norm_act_fwd_impl` on the whole
     rows in interpret mode within PALLAS_TOL of max|plain|, for every
@@ -53,6 +55,7 @@ from coma_unet_tpu_torch.ops.norm_act import (  # noqa: E402
 THREADS, UNROLL = 256, 4   # csrc/norm_act.cu: SLAB_THREADS, SLAB_UNROLL
 EPS = 1e-5
 STATS_TOL = 1e-5     # f32 partials of bf16 values against two-pass f64
+LONG_TOL = 1e-6      # the same over a segment of 2,560 values a thread
 PALLAS_TOL = 1e-5    # the Pallas kernel's E[x^2] - mean^2 in f32 at a mean of 0.5
 APPLY_TOL = 1e-6     # the same f32 operations; the card may fuse a multiply-add
 
@@ -129,9 +132,16 @@ def test_slab_plan_fills_one_wave_on_the_path(per_sm, elem):
         plan = slab_plan(rows, n, sms, per_sm, elem)
         most = n * elem // SLAB_MIN_BYTES  # segments of at least SLAB_MIN_BYTES
         assert plan.ctas <= wave, (rows, n, plan)
-        if plan.segs < most:  # one more segment a row would overflow the wave
-            assert rows * (plan.segs + 1) > wave, (rows, n, plan)
-            if wave % rows == 0:
+        if plan.segs < most:  # a finer cut would overflow the wave
+            # segments are whole multiples of 8 values: the next finer cut,
+            # 8 values shorter, may add more than one segment a row (at
+            # [1, 1, 104, 216, 216] 1,055 segments of 4,600 leave one CTA of
+            # 1,056 idle; 4,592 would make 1,057)
+            finer = -(-n // (plan.seg - 8))
+            assert rows * finer > wave, (rows, n, plan)
+            if (rows, n) == (1, 104 * 216 * 216) and (per_sm, elem) == (8, 4):
+                assert (plan.segs, plan.seg) == (1_055, 4_600)  # one CTA idle
+            elif wave % rows == 0:  # no other path shape leaves one idle
                 assert plan.ctas == wave, (rows, n, plan)
         else:
             assert plan.segs == max(1, most) or plan.seg * plan.segs - n < 8 * plan.segs
@@ -148,36 +158,22 @@ def test_slab_plan_fills_one_wave_on_the_path(per_sm, elem):
 
 
 # ---------------------------------------------- (b) the statistics' arithmetic
-def _thread_elements(p, epg):
-    """Each thread's aligned element indices in the order it takes them (its
-    groups k = g0 + t + THREADS i, SLAB_UNROLL a trip, then its ragged-end
-    elements), padded with -1: [THREADS, L]."""
-    lo, hi, g0, g1, a, b = p
-    head, count = a - lo, (a - lo) + (hi - b)
-    rows = []
-    for t in range(THREADS):
-        idx = [e for k in range(g0 + t, g1, THREADS) for e in range(epg * k, epg * k + epg)]
-        idx += [lo + i if i < head else b + i - head for i in range(t, count, THREADS)]
-        rows.append(idx)
-    width = max(1, max(len(r) for r in rows))
-    return np.array([r + [-1] * (width - len(r)) for r in rows], dtype=np.int64)
-
-
 def _fma32(a, b, c):
     """fmaf in f32: the f64 product of two f32 values is exact."""
-    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
+    return (a * b + c).astype(np.float32)
 
 
 def _block_total(v):
     """`block_total` over SLAB_THREADS / 32 warps: a butterfly in each warp,
-    then warp 0..7 in order, in f32."""
-    w = v.reshape(THREADS // 32, 32).astype(np.float32)
+    then warp 0..7 in order, in f64."""
+    w = np.asarray(v, np.float64).reshape(THREADS // 32, 32)
     lanes = np.arange(32)
     for o in (16, 8, 4, 2, 1):
-        w = (w + w[:, lanes ^ o]).astype(np.float32)
-    t = np.float32(0.0)
+        w = w + w[:, lanes ^ o]
+    t = 0.0
     for x in w[:, 0]:
-        t = np.float32(t + x)
+        t = t + x
     return t
 
 
@@ -204,22 +200,35 @@ def _merge(parts, n, s0):
 
 
 def _cta_partial(xr, o, e0, e1, epg):
-    """One CTA's partial of row values xr (f32) for segment [e0, e1): the
-    shifted (count, mean, M2) in f32, as the kernel forms it."""
-    p = piece(o, e0, e1, epg)
-    idx = _thread_elements(p, epg)
+    """One CTA's partial of row values xr (f32) for segment [e0, e1), as the
+    kernel forms it: thread t takes the groups g0 + t, g0 + t + THREADS,
+    ..., each group's shifted values summed in f32 and the group's sums
+    added to the thread's f64 sums; then the ragged-end elements i = t, t +
+    THREADS, ... one by one in f64; the CTA's fixed reduction in f64; the
+    (count, mean, M2) stored as f32."""
+    lo, hi, g0, g1, a, b = piece(o, e0, e1, epg)
     s0 = xr[0]
-    s = np.zeros(THREADS, np.float32)
-    q = np.zeros(THREADS, np.float32)
-    for col in range(idx.shape[1]):
-        live = idx[:, col] >= 0
-        t = (xr[np.where(live, idx[:, col] - o, 0)] - s0).astype(np.float32)
-        s = np.where(live, (s + t).astype(np.float32), s)
-        q = np.where(live, _fma32(t, t, q), q)
+    s = np.zeros(THREADS)
+    q = np.zeros(THREADS)
+    for k0 in range(g0, g1, THREADS):
+        ks = np.arange(k0, min(k0 + THREADS, g1))
+        gs = np.zeros(len(ks), np.float32)
+        gq = np.zeros(len(ks), np.float32)
+        for j in range(epg):
+            t = (xr[epg * ks + j - o] - s0).astype(np.float32)
+            gs = (gs + t).astype(np.float32)
+            gq = _fma32(t, t, gq)
+        s[:len(ks)] += gs
+        q[:len(ks)] += gq
+    head = a - lo
+    for i in range(head + (hi - b)):
+        t = np.float64(np.float32(xr[(lo + i if i < head else b + i - head) - o] - s0))
+        s[i % THREADS] += t
+        q[i % THREADS] += t * t  # exact product of an f32 value: the kernel's fma
     s, q = _block_total(s), _block_total(q)
-    cnt = np.float32(e1 - e0)
-    m = np.float32(s / cnt)
-    return np.array([cnt, m, max(_fma32(-s, m, q), np.float32(0.0))], np.float32)
+    cnt = float(e1 - e0)
+    m = s / cnt
+    return np.array([cnt, m, max(q - s * m, 0.0)], np.float32)
 
 
 def emulate_stats(x, plan, epg, off=0, order=None, count=None):
@@ -277,6 +286,21 @@ def test_stats_emulation_matches_f64_in_any_arrival_order(case, epg, off):
     for _ in range(3):  # any arrival order: the same bits
         again, count = emulate_stats(x, plan, epg, off, rng.permutation(plan.ctas))
         assert np.array_equal(again, got) and not count.any()
+
+
+@pytest.mark.parametrize("epg", [8, 4], ids=["bf16", "f32"])
+def test_stats_emulation_holds_a_long_segment(epg):
+    # one CTA a row, 2,560 values a thread: longer than any segment of
+    # phase 3 or phase 14 (about 2,460 at the one-rank 216^3 slab
+    # [1, 32, 216, 216, 216]); f32 sums over a thread's whole run read 2e-5
+    rows, n = 2, 2 * 327_680 + 6
+    plan = slab_plan(rows, n, 1, 2, 16 // epg)
+    assert plan.segs == 1 and n // THREADS > 2_500
+    x = _bf16_rows(rows, n, seed=5)
+    want = row_partials(torch.from_numpy(x).reshape(rows, 1, n)).numpy()
+    got, count = emulate_stats(x, plan, epg, 3)
+    assert not count.any()
+    assert max(_rel_cols(got, want)) < LONG_TOL
 
 
 # ------------------------------------------------- (d) the apply's arithmetic

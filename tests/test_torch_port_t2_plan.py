@@ -81,10 +81,11 @@ PLAN_SHAPES = _phase3_shapes() + [
 def test_phase3_shapes_cover_every_k3_site():
     shapes = _phase3_shapes()
     # up0 at both sizes and the eval's b=2, down0.conv0's input gradient at
-    # both sizes, and the odd sizes
-    assert len(shapes) == 6
-    assert sorted({s[3] for s in shapes}) == [13, 64, 108]
-    assert all(s[1:3] == (64, 32) for s in shapes[:5])
+    # both sizes, the odd sizes, and up0 on the depth-sharded 216^3
+    # forward's slabs (56 and 52 of 108 planes) and its 2-plane window
+    assert len(shapes) == 9
+    assert sorted({s[3] for s in shapes}) == [2, 13, 52, 56, 64, 108]
+    assert all(s[1:3] == (64, 32) for s in shapes[:5] + shapes[6:])
     plans = [t2_plan(*s) for s in shapes]
     assert {p.at for p in plans} == {32}
     # about one block an SM at the path's shapes, each walking many bricks
@@ -93,6 +94,9 @@ def test_phase3_shapes_cover_every_k3_site():
     assert [p.bricks for p in plans[:3]] == [32 * 16 * 4] + [54 * 27 * 7] * 2
     # the odd case pads its second output-channel tile (40 = 32 + 8)
     assert plans[5].grid[1] == 2
+    # one block an SM on the slabs and the window's 189 bricks
+    assert [p.grid for p in plans[6:]] == [(132, 1, 1)] * 3
+    assert [p.bricks for p in plans[6:]] == [28 * 27 * 7, 26 * 27 * 7, 27 * 7]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
