@@ -251,6 +251,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               quartile templates written and loaded as NIfTI), cluster
               N-pair and heteroscedastic losses on CUDA tensors against the
               CPU within SIDE_TOL of max. No kernel of the port runs there.
+  17. analysis: the default ModelConfig flagship (seed 0) through
+              `analysis.extract_bottleneck_encodings` over ANALYSIS_BATCHES
+              b=2 128^3 batches inside `utils.profiling.trace`: features
+              [8, 262144], finite; K1, K2, K3 and K4 launched, no plain
+              version on the card; the trace file holds K1 records (their
+              count printed beside the launches). Phase 4's 64^3 b=2 model:
+              its bottleneck features on the card (bf16) within PARITY_TOL
+              rel L2 of the CPU's f32. `probe_abeta_from_embeddings` on the
+              card's features (ANALYSIS_FEATURES kept, abeta four 1s and
+              four 0s): finite r2 and rfe_r2, its host seconds.
+              ANALYSIS_CALLS b=2 extractions timed by `StepTimer` (p50) and
+              CUDA events (median). `ops.gaussian_smooth` of a [2, 1, 128^3]
+              float32 volume within SMOOTH_TOL of the CPU's (TF32 off),
+              `ops.resize_nearest_device` bit-equal to the CPU's.
 Each phase's seconds follow it ("phase <name>: <s> s").
 The last two lines are a JSON summary of the kernels, each with its
 `dtype` (`launches` from the tCDS train of phase 11 for bf16 and from phase
@@ -3578,6 +3592,148 @@ def phase_side_models() -> None:
           + f" (limit {SIDE_TOL}); phase {time.perf_counter() - t_phase:.1f} s")
 
 
+ANALYSIS_BATCHES = 4   # b=2 batches of 128^3 through `extract_bottleneck_encodings`
+ANALYSIS_CALLS = 5     # extraction calls timed by StepTimer and by CUDA events
+ANALYSIS_FEATURES = 4096  # features the probe keeps (its RFE bound)
+SMOOTH_TOL = 1e-6      # |card - CPU| of `gaussian_smooth`, of max|CPU| (TF32 off)
+
+
+def phase_analysis() -> dict:
+    """Phase 17, the analysis on the card: the default ModelConfig flagship
+    (seed 0, left in training mode, which the extraction restores) through
+    `extract_bottleneck_encodings` over ANALYSIS_BATCHES
+    b=2 batches at 128^3 inside `profiling.trace`: [8, 262144] finite
+    features, K1, K2, K3 and K4 launched and no plain version on the card,
+    a trace file holding K1 records (their count printed beside the
+    launches: the profiler may miss some); the 64^3 b=2 bottleneck features
+    of phase 4's model (FiLM given a signal) in bf16 on the card against
+    its f32 forward on the CPU within PARITY_TOL rel L2;
+    `probe_abeta_from_embeddings` on the card's features with
+    ANALYSIS_FEATURES features kept and abeta four 1s and four 0s (`r2`
+    and `rfe_r2` finite; its host seconds); ANALYSIS_CALLS b=2 extractions
+    timed by `StepTimer` and by CUDA events; `gaussian_smooth` of a
+    [2, 1, 128^3] float32 volume within SMOOTH_TOL of the CPU's (TF32 off)
+    and `resize_nearest_device` bit-equal to the CPU's. Returns the
+    extraction's launches."""
+    import dataclasses
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from coma_unet_tpu_torch import ContraAttnUNet, ModelConfig, ops
+    from coma_unet_tpu_torch.analysis import (
+        extract_bottleneck_encodings,
+        probe_abeta_from_embeddings,
+    )
+    from coma_unet_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    # left in training mode: the extraction runs it as eval and puts it back
+    model = ContraAttnUNet(ModelConfig(), device=DEVICE,
+                           generator=torch.Generator().manual_seed(0))
+    loader = [_batch(np.random.default_rng(100 + i), b=2, s=128)
+              for i in range(ANALYSIS_BATCHES)]
+    # four 1s, then four 0s: the probe's held-out rows (6 and 2 of
+    # RandomState(0)'s permutation) hold one of each
+    abeta = np.repeat(np.asarray([1.0, 0.0], np.float32), ANALYSIS_BATCHES)
+    for i, batch in enumerate(loader):
+        batch["abeta"] = abeta[2 * i:2 * i + 2]
+        batch["covars"][:, 0] = batch["abeta"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            x, ab = extract_bottleneck_encodings(model, loader)
+        extract_s = time.perf_counter() - t0
+        launches, plain_cuda = dict(ops.LAUNCHES), dict(ops.PLAIN_ON_CUDA)
+        traces = glob.glob(os.path.join(tmp, "*.json"))
+        check(len(traces) == 1, f"analysis: trace files {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        k1_records = sum(1 for e in events if e.get("cat") == "kernel"
+                         and "conv3d_s1_tc_kernel" in e.get("name", ""))
+        trace_mb = os.path.getsize(traces[0]) / 2**20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = 2 * ANALYSIS_BATCHES
+    check(x.shape == (n, 512 * 8 ** 3) and x.dtype == np.float32,
+          f"analysis: features {x.shape} {x.dtype}")
+    check(bool(np.isfinite(x).all()), "analysis: non-finite features")
+    check(model.training, "analysis: the extraction left the model in eval mode")
+    check(np.array_equal(ab, abeta), f"analysis: abeta {ab}")
+    for family in ops.FWD_FAMILIES:
+        check(launches.get(family, 0) > 0, f"analysis: {family} did not launch")
+    check(sum(plain_cuda.values()) == 0, f"analysis: plain on the GPU: {plain_cuda}")
+    check(k1_records > 0, "analysis: the trace holds no K1 record")
+    print(f"analysis: {n} volumes at 128^3 -> features {x.shape} in {extract_s:.2f} s "
+          f"(trace on); launches {launches}; plain on cuda {plain_cuda}; trace "
+          f"{trace_mb:.1f} MB with {k1_records} K1 records against {launches.get('s1', 0)} "
+          f"K1 launches")
+
+    # the 64^3 features against the f32 forward on the CPU (phase 4's model)
+    s = 64
+    cpu_cfg = ModelConfig(prompt_shape=(s, s, s), compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    ref_model = ContraAttnUNet(cpu_cfg, device="cpu", generator=gen).eval()
+    _film_signal(ref_model, gen)
+    gpu_model = ContraAttnUNet(dataclasses.replace(cpu_cfg, compute_dtype="bfloat16"),
+                               device=DEVICE).eval()
+    gpu_model.load_state_dict(ref_model.state_dict())
+    small = _batch(np.random.default_rng(1), b=2, s=s)
+    small["covars"][:, 0] = [1.0, 0.0]
+    got, _ = extract_bottleneck_encodings(gpu_model, [small])
+    t0 = time.perf_counter()
+    want, _ = extract_bottleneck_encodings(ref_model, [small])
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    check(got.shape == want.shape == (2, 512 * 4 ** 3), f"analysis: 64^3 {got.shape}")
+    check(rel <= PARITY_TOL, f"analysis: 64^3 features rel L2 {rel} > {PARITY_TOL}")
+    print(f"analysis: 64^3 b=2 bottleneck features, bf16 card vs f32 CPU: rel L2 "
+          f"{rel:.4e} (limit {PARITY_TOL}); cpu f32 {cpu_s:.1f} s")
+    del ref_model, gpu_model
+
+    t0 = time.perf_counter()
+    probe = probe_abeta_from_embeddings(x, abeta, n_features=ANALYSIS_FEATURES)
+    probe_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in probe.values()), f"analysis: probe {probe}")
+    print(f"analysis: probe r2 {probe['r2']!r}, rfe_r2 {probe['rfe_r2']!r} "
+          f"({ANALYSIS_FEATURES} features, {n} rows); host {probe_s:.3f} s")
+
+    timer, event_ms = profiling.StepTimer(), []
+    for i in range(ANALYSIS_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with timer.measure():
+            start.record()
+            extract_bottleneck_encodings(model, [loader[i % ANALYSIS_BATCHES]])
+            end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    print(f"analysis: b=2 128^3 extraction (host copy in, features out): StepTimer "
+          f"p50 {timer.p50() * 1e3:.2f} ms, CUDA events median "
+          f"{statistics.median(event_ms):.2f} ms over {ANALYSIS_CALLS} calls "
+          f"({[round(t, 2) for t in event_ms]})")
+    del model
+
+    vol = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (2, 1, 128, 128, 128)).astype(np.float32))
+    with _no_tf32():
+        smooth_card = ops.gaussian_smooth(vol.to(DEVICE)).cpu()
+    smooth_cpu = ops.gaussian_smooth(vol)
+    smooth_err = float((smooth_card - smooth_cpu).abs().max() / smooth_cpu.abs().max())
+    check(smooth_err <= SMOOTH_TOL, f"analysis: gaussian_smooth {smooth_err} > {SMOOTH_TOL}")
+    ratios, out_shape = (1.25, 0.8, 1.0 / 3.0), (103, 160, 384)
+    resized = ops.resize_nearest_device(vol[0, 0].to(DEVICE), ratios, out_shape).cpu()
+    check(torch.equal(resized, ops.resize_nearest_device(vol[0, 0], ratios, out_shape)),
+          "analysis: resize_nearest_device on the card differs from the CPU")
+    print(f"analysis: gaussian_smooth [2,1,128^3] f32 card vs CPU {smooth_err:.2e} of max "
+          f"(limit {SMOOTH_TOL}); resize_nearest_device {tuple(resized.shape)} bit-equal; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _phase(name: str, fn, *args, **kwargs):
     """fn(*args, **kwargs), then a line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -3626,6 +3782,8 @@ def main() -> int:
     paths.update(_phase("15 float32", phase_float32))
     torch.cuda.empty_cache()
     _phase("16 side models", phase_side_models)
+    torch.cuda.empty_cache()
+    paths["analysis"] = _phase("17 analysis", phase_analysis)
     kernels = []
     for family, (name, source, replaces) in SOURCES.items():
         entry = summary[family]

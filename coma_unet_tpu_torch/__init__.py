@@ -14,7 +14,9 @@ metric suite (`metrics/`), at 128^3 and in template space at 216^3; the
 loop, the data pipeline and the CLI; the model registry and the seven
 baselines (`models/registry.py`, `baselines.py`, `swin.py`); data
 parallelism and depth-sharded (spatial) inference over a
-`torch.distributed` group (`parallel/`). Models build
+`torch.distributed` group (`parallel/`); the analysis (`analysis/`: the
+attention export, the embedding probe, per-ROI statistics) and the
+profiler (`utils/profiling.py`). Models build
 on the GPU unless asked for the CPU (`device="cpu"`).
 """
 
@@ -24,6 +26,7 @@ from coma_unet_tpu_torch.config import (  # noqa: F401
     LossConfig,
     ModelConfig,
     ROI_INDICES,
+    ROI_NAMES,
     TEMPLATE_ROI_INDICES,
     TrainConfig,
 )

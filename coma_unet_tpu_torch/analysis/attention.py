@@ -12,26 +12,24 @@ import numpy as np
 import torch
 
 from coma_unet_tpu_torch.io.volume import write_tensor_to_nii
-from coma_unet_tpu_torch.models.registry import apply_model, has_attention_maps
-
-_INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
+from coma_unet_tpu_torch.models.registry import (apply_model, device_args,
+                                                 eval_mode, has_attention_maps)
 
 
 def export_attention_maps(model: torch.nn.Module, batch, save_path: str,
                           sample_ids: Optional[Sequence[str]] = None,
                           spacing=(2.0, 2.0, 2.0)) -> List[str]:
     """Run one forward of `batch` (arrays or tensors, moved to the model's
-    device) and write each level's psi map of each sample as
+    device; the model in eval mode, as the JAX package's `train=False`)
+    and write each level's psi map of each sample as
     `<save_path>/<sid>_attn_level{i}.nii`; returns the written paths. A
     model whose output carries no psi maps (the baselines) raises
     ValueError before anything is written."""
     if not has_attention_maps(model):
         raise ValueError(f"{type(model).__name__} returns no attention maps "
                          f"to export")
-    device = next(model.parameters()).device
-    args = [None if batch.get(k) is None else torch.as_tensor(batch[k], device=device)
-            for k in _INPUTS]
-    with torch.inference_mode():
+    args = device_args(model, batch)
+    with eval_mode(model), torch.inference_mode():
         outs = apply_model(model, *args, with_projections=False)
     os.makedirs(save_path, exist_ok=True)
     b = args[0].shape[0]

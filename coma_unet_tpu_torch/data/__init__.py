@@ -21,10 +21,13 @@ from coma_unet_tpu_torch.data.datasets import (  # noqa: F401
     VolumeDataset,
 )
 from coma_unet_tpu_torch.data.lookup import (  # noqa: F401
+    INVALID_IDS,
+    create_splits_lookup_tables,
     extract_id,
     filter_for_holdout,
     get_id_from_path,
     load_lookup_csv,
+    remove_invalid,
 )
 from coma_unet_tpu_torch.data.pipeline import (  # noqa: F401
     DataLoader,

@@ -8,11 +8,13 @@ the column is not numeric; Age, Education and Cognition MinMax-scaled over
 the table, and a missing value replaced by the table's mean in the scaled
 space; a missing abeta -> -1; the first row wins for a duplicated id.
 
-`QuartileTable` maps an id to its tau quartile (`quartile_lub`).
+`QuartileTable` maps an id to its tau quartile (`quartile_lub`) and, where
+the table has the column, to its `Abeta_Covar`.
 
 `PredictionTable` wraps the per-subject per-ROI tau predictions
-(id -> {roi_name: {"loc": m, "std": s}}, JSON or a pickled .npy dict) and
-exports them as dense [R] arrays in `ROI_INDICES` order.
+(id -> {roi_name: {"loc": m, "std": s}}, JSON or a pickled .npy dict),
+exports them as dense [R] arrays in `ROI_INDICES` order and merges two
+tables.
 """
 
 from __future__ import annotations
@@ -147,7 +149,8 @@ def _key(v: Any) -> str:
 
 
 class QuartileTable:
-    """id -> tau quartile (`quartile_lub`)."""
+    """id -> tau quartile (`quartile_lub`); `abeta`: id -> `Abeta_Covar`
+    (empty without the column)."""
 
     def __init__(self, csv_path_or_table, id_column: str = "ADNI_ID",
                  quartile_column: str = "quartile_lub"):
@@ -155,6 +158,10 @@ class QuartileTable:
         self.map: Dict[str, int] = {
             _key(r[id_column]): int(r[quartile_column])
             for r in _iterrows(table) if not is_na(r[quartile_column])}
+        self.abeta: Dict[str, float] = {}
+        if "Abeta_Covar" in table:
+            self.abeta = {_key(r[id_column]): float(r["Abeta_Covar"])
+                          for r in _iterrows(table) if not is_na(r["Abeta_Covar"])}
 
     def quartile(self, sid: str) -> int:
         return self.map.get(str(sid), -1)
@@ -183,6 +190,12 @@ class PredictionTable:
 
     def __contains__(self, sid: str) -> bool:
         return str(sid) in self.table
+
+    def merge(self, other: "PredictionTable") -> "PredictionTable":
+        """Both tables' subjects; where both hold one, this table's entry."""
+        merged = dict(other.table)
+        merged.update(self.table)
+        return PredictionTable(merged)
 
     def roi_arrays(self, sid: str) -> Tuple[np.ndarray, np.ndarray]:
         """Dense [R] loc/std arrays in ROI_INDICES order (NaN -> 0)."""

@@ -2,7 +2,9 @@
 `coma_unet_tpu/data/lookup.py`, without pandas).
 
 The split lookup CSVs have `MRI`, `tau` and `roi` path columns; subject ids
-are parsed out of xnat-style paths; a holdout list filters training samples.
+are parsed out of xnat-style paths; a denylist of faulty samples and a
+holdout list filter samples; `create_splits_lookup_tables` writes each
+fold's test and training lookup CSVs.
 """
 
 from __future__ import annotations
@@ -10,7 +12,11 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Iterable, List, Sequence, Union
 
-from coma_unet_tpu_torch.data.table import read_csv
+from coma_unet_tpu_torch.data.table import (Table, read_csv, table_from_rows,
+                                            write_csv)
+
+# faulty samples that `remove_invalid` drops by default; extend via config
+INVALID_IDS: tuple = ()
 
 
 def extract_id(path: str) -> str:
@@ -68,3 +74,32 @@ def filter_for_holdout(ids: Iterable[str],
     """Keep-mask that excludes the holdout subjects."""
     hs = set(holdout_ids)
     return [i not in hs for i in ids]
+
+
+def remove_invalid(ids: Iterable[str],
+                   invalid: Sequence[str] = INVALID_IDS) -> List[str]:
+    """`ids` without the denylisted faulty samples."""
+    bad = set(invalid)
+    return [i for i in ids if i not in bad]
+
+
+def create_splits_lookup_tables(all_rows: Union[Table, Sequence[Dict[str, Any]]],
+                                fold_ids: Sequence[Sequence[str]],
+                                out_dir: str, id_column: str = "tau") -> None:
+    """For fold k (from 1), `test_lookup_{k}.csv` with the rows whose
+    `extract_id(row[id_column])` is in `fold_ids[k - 1]` and
+    `training_lookup_{k}.csv` with the others, in `all_rows`' order and
+    columns (a `Table`, or row dicts as `pd.DataFrame(rows)` reads
+    them), written as `DataFrame.to_csv(index=False)` writes them."""
+    if not isinstance(all_rows, Table):
+        all_rows = table_from_rows(list(all_rows))
+    os.makedirs(out_dir, exist_ok=True)
+    ids = [extract_id(p) for p in all_rows[id_column]]
+    for k, test_ids in enumerate(fold_ids):
+        test = set(test_ids)
+        in_test = [i in test for i in ids]
+        for name, keep in (("test", in_test), ("training", [not t for t in in_test])):
+            write_csv(os.path.join(out_dir, f"{name}_lookup_{k + 1}.csv"),
+                      all_rows.columns,
+                      [[v for v, m in zip(all_rows[c], keep) if m]
+                       for c in all_rows.columns])

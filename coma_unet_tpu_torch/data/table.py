@@ -143,8 +143,16 @@ def write_csv(path: str, header: Optional[Sequence[str]],
         writer.writerows(zip(*cells))
 
 
+def table_from_rows(rows: Sequence[Dict[str, Any]]) -> Table:
+    """`pd.DataFrame(rows)`: a column for every key of any row, in the
+    order the keys first appear; a row without a key has NaN there."""
+    columns = list(dict.fromkeys(k for r in rows for k in r))
+    return Table(columns, {c: [r.get(c, float("nan")) for r in rows]
+                           for c in columns})
+
+
 def write_rows(path: str, rows: Sequence[Dict[str, Any]]) -> None:
-    """Write a list of dicts, the columns in the first row's key order
-    (`pd.DataFrame(rows).to_csv(path, index=False)`)."""
-    columns = list(rows[0]) if rows else []
-    write_csv(path, columns, [[r.get(c) for r in rows] for c in columns])
+    """Write a list of dicts (`pd.DataFrame(rows).to_csv(path,
+    index=False)`)."""
+    table = table_from_rows(rows)
+    write_csv(path, table.columns, [table[c] for c in table.columns])

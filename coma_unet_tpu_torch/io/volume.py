@@ -7,6 +7,9 @@
     default) -> float32, NaN -> 0, a channel dim in front.
   * `write_tensor_to_nii`: an array or tensor -> NIfTI.
   * `pad_volume`, `load_template`: center pad/crop to the model's shape.
+  * `mask_volume`, `reduce_image_size`: zero outside a mask; crop to the
+    nonzero bounding box.
+  * `convert_npy_to_nii`: a saved .npy array -> NIfTI.
 
 Arrays are (z, y, x) like SimpleITK's `GetArrayFromImage`, with the channel
 dim in front: [1, D, H, W].
@@ -82,9 +85,34 @@ def pad_volume(target: Sequence[int] = (128, 128, 128)) -> Callable:
     return _apply
 
 
+def mask_volume(vol: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """A copy of `vol`, zero where `mask` == 0."""
+    out = vol.copy()
+    out[mask == 0] = 0
+    return out
+
+
 def load_template(path: str, target: Sequence[int] = (128, 128, 128),
                   resize: bool = True) -> np.ndarray:
     """A template-space ROI mask resized and padded to `target`:
     [D, H, W]."""
     vol = load_nifti_vol(path, resize=resize)
     return center_pad_crop(vol[0], tuple(target))
+
+
+def reduce_image_size(vol: np.ndarray) -> np.ndarray:
+    """[..., D, H, W] cropped to the bounding box of the voxels that are
+    nonzero in any leading index; unchanged when every voxel is zero."""
+    arr = np.asarray(vol)
+    spatial = arr.reshape((-1,) + arr.shape[-3:]).any(axis=0)
+    if not spatial.any():
+        return arr
+    sl = tuple(slice(int(i.min()), int(i.max()) + 1) for i in np.nonzero(spatial))
+    return arr[(Ellipsis,) + sl]
+
+
+def convert_npy_to_nii(npy_path: str, nii_path: str,
+                       spacing=(2.0, 2.0, 2.0)) -> None:
+    """The array saved at `npy_path` (as `write_tensor_to_nii` takes it)
+    written as the NIfTI file `nii_path`."""
+    write_tensor_to_nii(np.load(npy_path), nii_path, spacing=spacing)

@@ -5,6 +5,15 @@ from coma_unet_tpu_torch.models.attention_unet import (  # noqa: F401
     AttentionUNet,
     UNetFeatures,
 )
+from coma_unet_tpu_torch.models.blocks import (  # noqa: F401
+    AttentionGate,
+    CondConvolution,
+    ConvBlock,
+    Convolution,
+    ProjectionHead,
+    StackedFusionConvLayers,
+    UpBlock,
+)
 from coma_unet_tpu_torch.models.contra import (  # noqa: F401
     ContraAttnUNet,
     ContraOutputs,

@@ -17,8 +17,9 @@ built-ins throughout, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -93,6 +94,9 @@ class PlainOutputs:
     attention: Tuple[torch.Tensor, ...] = ()
 
 
+MODEL_INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
+
+
 def apply_model(model: nn.Module, mri, covars=None, roi_loc=None,
                 roi_std=None, roi_compact=None, with_projections: bool = True):
     """`model`'s forward, its output in the flagship's form: a plain volume
@@ -103,7 +107,29 @@ def apply_model(model: nn.Module, mri, covars=None, roi_loc=None,
 
 
 def has_attention_maps(model: nn.Module) -> bool:
-    """Whether the model's output carries the attention gates' psi maps:
-    the flagship's does; the baselines return the volume alone, as in the
-    JAX package, gated or not."""
+    """Whether the model's output carries the attention gates' psi maps
+    and the encoder features: the flagship's does; the baselines return
+    the volume alone, as in the JAX package, gated or not."""
     return isinstance(model, ContraAttnUNet)
+
+
+def device_args(model: nn.Module, batch) -> List[Optional[torch.Tensor]]:
+    """`apply_model`'s inputs after the model, `MODEL_INPUTS` of `batch`
+    (a dict of arrays or tensors) on the model's device; a missing one is
+    None."""
+    device = next(model.parameters()).device
+    return [None if batch.get(k) is None
+            else torch.as_tensor(batch[k], device=device) for k in MODEL_INPUTS]
+
+
+@contextlib.contextmanager
+def eval_mode(model: nn.Module) -> Iterator[nn.Module]:
+    """`model` in eval mode for the block (batch norm on its running
+    statistics, which stay as they are; no dropout), as the JAX package's
+    `train=False`; its earlier mode comes back after."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)

@@ -10,8 +10,10 @@ also in its float32 form (`s1_f32` and so on: `F32_FAMILIES`,
 `conv3d_s1`, `conv3d_s2`, `conv3d_t2`
 and `norm_act` are autograd Functions whose backward runs kernels too;
 `instance_norm` and `conv3d_w64` are entry points over K4 and K1. The
-per-ROI sums and SSIM of the metric suite are PyTorch built-ins, as the JAX
-package leaves them to XLA."""
+per-ROI sums and SSIM of the metric suite, `gaussian_smooth` and
+`resize_nearest_device` are PyTorch built-ins, as the JAX package leaves
+them to XLA; `resize_nearest`, `resize_linear` and `center_pad_crop` run
+on the host in numpy."""
 
 from coma_unet_tpu_torch.ops._build import (  # noqa: F401
     BWD_FAMILIES,
@@ -63,6 +65,12 @@ from coma_unet_tpu_torch.ops.phase_split import (  # noqa: F401
     hsplit,
     hsplit_plain,
 )
+from coma_unet_tpu_torch.ops.preprocess import center_pad_crop  # noqa: F401
+from coma_unet_tpu_torch.ops.resize import (  # noqa: F401
+    resize_linear,
+    resize_nearest,
+    resize_nearest_device,
+)
 from coma_unet_tpu_torch.ops.roi import (  # noqa: F401
     compact_roi,
     make_roi_lut,
@@ -72,4 +80,5 @@ from coma_unet_tpu_torch.ops.roi import (  # noqa: F401
     roi_sums,
     roi_weight_mask,
 )
+from coma_unet_tpu_torch.ops.smooth import gaussian_smooth  # noqa: F401
 from coma_unet_tpu_torch.ops.ssim import ssim3d  # noqa: F401

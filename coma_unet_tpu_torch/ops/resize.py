@@ -1,5 +1,7 @@
-"""Spacing-based volume resampling on the host (counterpart of the numpy
-half of `coma_unet_tpu/ops/resize.py`).
+"""Spacing-based volume resampling (counterpart of
+`coma_unet_tpu/ops/resize.py`): nearest-neighbour and trilinear on the
+host in numpy, and nearest-neighbour on a tensor's device for a fixed
+output shape, index for index the host's.
 
 SimpleITK's resample-to-2mm semantics: the output size is
 ``round(size * spacing / new_spacing)`` per axis (numpy's round), identity
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def output_size(size: Sequence[int], spacing: Sequence[float],
@@ -60,4 +63,20 @@ def resize_linear(vol: np.ndarray, spacing: Sequence[float],
         w = frac.reshape(shape)
         out = (np.take(out, lo, axis=axis) * (1.0 - w)
                + np.take(out, hi, axis=axis) * w)
+    return out
+
+
+def resize_nearest_device(vol: torch.Tensor, ratios,
+                          out_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """Nearest-neighbour resample of a [D, H, W] tensor to `out_shape` on
+    its device; `ratios` = new_spacing / spacing per axis. Output index i
+    reads input index floor(i * ratio + 0.5), both steps in float32,
+    clamped into the volume."""
+    ratios = torch.as_tensor(ratios, dtype=torch.float32, device=vol.device)
+    out = vol
+    for axis in range(3):
+        pos = torch.arange(out_shape[axis], dtype=torch.float32,
+                           device=vol.device) * ratios[axis]
+        idx = torch.clamp(torch.floor(pos + 0.5).long(), 0, vol.shape[axis] - 1)
+        out = torch.index_select(out, axis, idx)
     return out

@@ -13,6 +13,7 @@ from coma_unet_tpu_torch.train.optim import (  # noqa: F401
 from coma_unet_tpu_torch.train.state import (  # noqa: F401
     TrainState,
     create_train_state,
+    param_count,
 )
 from coma_unet_tpu_torch.train.step import (  # noqa: F401
     global_norm,

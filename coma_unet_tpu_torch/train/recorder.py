@@ -203,3 +203,19 @@ def boxplot_roi_value_progression(arr: np.ndarray, x, label: str,
     ax.set_ylabel(label)
     fig.savefig(path + ".png", dpi=100, bbox_inches="tight")
     plt.close(fig)
+
+
+def scatter_corr(x, y, save_path: str) -> None:
+    """Prediction against ground truth, with the identity line."""
+    plt = _plt()
+    if plt is None:
+        return
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.scatter(x, y, s=8, alpha=0.6)
+    lo = min(np.min(x), np.min(y))
+    hi = max(np.max(x), np.max(y))
+    ax.plot([lo, hi], [lo, hi], "k--", lw=1)
+    ax.set_xlabel("ground truth")
+    ax.set_ylabel("prediction")
+    fig.savefig(save_path + ".png", dpi=100, bbox_inches="tight")
+    plt.close(fig)

@@ -1,6 +1,6 @@
 """Train state (counterpart of `coma_unet_tpu/train/state.py`): the model
 holds the parameters, the optimizer its state; `step` counts the updates as
-flax's `TrainState.step` does."""
+flax's `TrainState.step` does; `param_count` counts the parameters."""
 
 from __future__ import annotations
 
@@ -36,3 +36,9 @@ def create_train_state(model: torch.nn.Module, lr: float,
                        grad_acc: int = 1) -> TrainState:
     return TrainState(model, make_optimizer(model.parameters(), lr,
                                             weight_decay, grad_acc))
+
+
+def param_count(model: torch.nn.Module) -> int:
+    """The number of parameter elements (buffers such as batch norm's
+    running statistics left out, as flax keeps them out of `params`)."""
+    return sum(p.numel() for p in model.parameters())

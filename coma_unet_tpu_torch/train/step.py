@@ -33,10 +33,8 @@ from coma_unet_tpu_torch.losses.composite import GenerativeContrastiveLoss
 from coma_unet_tpu_torch.metrics.roi import roi_metrics
 from coma_unet_tpu_torch.metrics.voxel import voxel_metrics
 from coma_unet_tpu_torch.models.blocks import Dropout, seed_dropout
-from coma_unet_tpu_torch.models.registry import apply_model
+from coma_unet_tpu_torch.models.registry import MODEL_INPUTS, apply_model
 from coma_unet_tpu_torch.train.state import TrainState
-
-_INPUTS = ("mri", "covars", "roi_loc", "roi_std", "roi_compact")
 
 
 def _device_of(model: torch.nn.Module) -> Optional[torch.device]:
@@ -51,7 +49,7 @@ def _to_device(batch, device: Optional[torch.device]) -> Dict[str, torch.Tensor]
 
 def _apply(model, batch: Dict[str, torch.Tensor], prefix: str = "",
            with_projections: bool = True):
-    return apply_model(model, *(batch.get(prefix + k) for k in _INPUTS),
+    return apply_model(model, *(batch.get(prefix + k) for k in MODEL_INPUTS),
                        with_projections=with_projections)
 
 

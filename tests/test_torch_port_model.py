@@ -234,12 +234,12 @@ def _imports_outside_charts(tree):
 
 
 def test_port_source_imports_no_jax():
-    """AST scan: no import of jax, flax, optax, orbax, pandas or matplotlib
-    (matplotlib only inside the recorder's chart function), nothing of the
+    """AST scan: no import of jax, flax, optax, orbax, pandas, sklearn or
+    matplotlib (matplotlib only inside the recorder's chart function), nothing of the
     JAX package, no loader that runs a file by path, and no string that
     names a path into the JAX package."""
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "coma_unet_tpu",
-              "pandas", "matplotlib"}
+              "pandas", "sklearn", "matplotlib"}
     pkg = Path(coma_unet_tpu_torch.__file__).parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -248,9 +248,11 @@ def test_port_source_imports_no_jax():
     assert {"runtime", "analysis", "parallel"} <= {p.parent.name for p in files}
     assert {"baselines.py", "swin.py", "registry.py", "convattn.py", "uq.py"} <= {
         p.name for p in files if p.parent.name == "models"}
-    # the side models' losses and dataset
-    assert {"losses/weighted.py", "losses/templates.py", "data/image_dataset.py"} <= {
-        f"{p.parent.name}/{p.name}" for p in files}
+    # the side models' losses and dataset, the probe, the regional
+    # statistics and the profiler
+    assert {"losses/weighted.py", "losses/templates.py", "data/image_dataset.py",
+            "analysis/embeddings.py", "analysis/regions.py",
+            "utils/profiling.py"} <= {f"{p.parent.name}/{p.name}" for p in files}
     for path in files:
         tree = ast.parse(path.read_text())
         docs = {id(node) for node in _docstrings(tree)}
