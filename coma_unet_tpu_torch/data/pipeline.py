@@ -28,6 +28,7 @@ import torch
 
 from coma_unet_tpu_torch.config import ROI_INDICES
 from coma_unet_tpu_torch.data.covariates import PredictionTable
+from coma_unet_tpu_torch.utils.profiling import span
 
 # batch keys that stay on the host
 HOST_KEYS = ("sample_ids", "tau_paths", "valid")
@@ -119,9 +120,11 @@ def pin_batch(batch: Dict) -> Dict:
 def batch_to_device(batch: Dict, device: torch.device,
                     skip: Iterable[str] = HOST_KEYS) -> Dict[str, torch.Tensor]:
     """The batch's arrays on `device` (the host keys left out). Pinned
-    tensors are copied asynchronously."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items() if k not in skip}
+    tensors are copied asynchronously. Recorded as the span
+    `data.to_device` (`utils.profiling.span`)."""
+    with span("data.to_device"):
+        return {k: torch.as_tensor(v).to(device, non_blocking=True)
+                for k, v in batch.items() if k not in skip}
 
 
 def _load_drawn(dataset, with_partners: bool, job) -> Dict:

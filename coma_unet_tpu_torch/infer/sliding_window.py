@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from coma_unet_tpu_torch.models.registry import apply_model
+from coma_unet_tpu_torch.utils.profiling import span
 
 
 def _grid_starts(size: int, patch: int, stride: int) -> Sequence[int]:
@@ -46,14 +47,16 @@ def make_infer_fn(model: torch.nn.Module) -> Callable:
     """Inference forward: (mri, covars, roi_loc, roi_std, roi_compact) ->
     out [B, 1, D, H, W] f32 on the model's device, for any registry model.
     Inputs may be numpy arrays or tensors; they move to the model's
-    device."""
+    device. Each call is recorded as the span `infer.forward`
+    (`utils.profiling.span`)."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
     def infer(mri, covars, roi_loc, roi_std, roi_compact):
-        args = [torch.as_tensor(a, device=device)
-                for a in (mri, covars, roi_loc, roi_std, roi_compact)]
-        return apply_model(model, *args, with_projections=False).out
+        with span("infer.forward"):
+            args = [torch.as_tensor(a, device=device)
+                    for a in (mri, covars, roi_loc, roi_std, roi_compact)]
+            return apply_model(model, *args, with_projections=False).out
 
     return infer
 

@@ -20,6 +20,12 @@ sum over the valid rows of the per-sample RoiMSE, with pred_space_loss and
 tcds_loss 0. Batch norm's running statistics move in the train step and
 stay as they are in the eval step; dropout draws from generators seeded
 with (seed, step) each step (`seed_dropout`).
+
+A train step records its phases as spans (`utils.profiling.span`):
+`train.step` around the whole step, and inside it `train.forward` around
+each forward (three on the tCDS path), `train.loss` around the generative
+and the batch-coupled terms, `train.backward`, `train.grad_norm` and
+`train.optimizer`.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from coma_unet_tpu_torch.metrics.voxel import voxel_metrics
 from coma_unet_tpu_torch.models.blocks import Dropout, seed_dropout
 from coma_unet_tpu_torch.models.registry import MODEL_INPUTS, apply_model
 from coma_unet_tpu_torch.train.state import TrainState
+from coma_unet_tpu_torch.utils.profiling import span
 
 
 def _device_of(model: torch.nn.Module) -> Optional[torch.device]:
@@ -67,10 +74,12 @@ def make_loss_fn(model: torch.nn.Module, loss_config: LossConfig,
 
     def loss_fn(batch, roi_weights, voxel_weights=None):
         valid = batch.get("valid_mask")
-        outs = _apply(model, batch)
-        gen, total = criterion.generative(
-            outs.out, batch["tau"], batch["roi_compact"], roi_weights,
-            voxel_weights=voxel_weights, valid=valid)
+        with span("train.forward"):
+            outs = _apply(model, batch)
+        with span("train.loss"):
+            gen, total = criterion.generative(
+                outs.out, batch["tau"], batch["roi_compact"], roi_weights,
+                voxel_weights=voxel_weights, valid=valid)
         pred_space = tcds = torch.zeros((), dtype=torch.float32,
                                         device=total.device)
         if outs.projections:  # the baselines train on the generative term
@@ -78,7 +87,10 @@ def make_loss_fn(model: torch.nn.Module, loss_config: LossConfig,
                 kwargs = dict(rnc_features=gather(outs.projections[-1]),
                               rnc_labels=gather(batch["covars"]))
             else:
-                pos, neg = _apply(model, batch, "pos_"), _apply(model, batch, "neg_")
+                with span("train.forward"):
+                    pos = _apply(model, batch, "pos_")
+                with span("train.forward"):
+                    neg = _apply(model, batch, "neg_")
                 kwargs = dict(
                     anchor_projs=[gather(p) for p in outs.projections],
                     pos_projs=[gather(p) for p in pos.projections],
@@ -86,8 +98,9 @@ def make_loss_fn(model: torch.nn.Module, loss_config: LossConfig,
                     final_reprs=(tuple(gather(o.final_projection)
                                        for o in (outs, pos, neg))
                                  if loss_config.reg_weight != 0.0 else None))
-            pred_space, tcds = criterion.coupled(
-                valid=None if valid is None else gather(valid), **kwargs)
+            with span("train.loss"):
+                pred_space, tcds = criterion.coupled(
+                    valid=None if valid is None else gather(valid), **kwargs)
             pred_space, tcds = pred_space / world, tcds / world
             total = total + pred_space + tcds
         return total, {"loss": total.detach(), "gen_loss": gen.detach(),
@@ -125,22 +138,26 @@ def _step_of(model: torch.nn.Module, optimizer, seed: int, loss_fn: Callable,
 
     def step(batch: Dict[str, torch.Tensor], roi_weights: torch.Tensor,
              voxel_weights: Optional[torch.Tensor] = None):
-        model.train()
-        if dropout:
-            seed_dropout(model, seed, state.step)
-        optimizer.zero_grad(set_to_none=True)
-        batch = _to_device(batch, device)
-        roi_weights = torch.as_tensor(roi_weights, device=device)
-        if voxel_weights is not None:
-            voxel_weights = torch.as_tensor(voxel_weights, device=device)
-        total, metrics = loss_fn(batch, roi_weights, voxel_weights)
-        total.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if reduce is not None:
-            metrics = reduce(grads, batch, metrics)
-        metrics["grad_norm"] = global_norm(grads)
-        optimizer.step()
-        return metrics
+        with span("train.step"):
+            model.train()
+            if dropout:
+                seed_dropout(model, seed, state.step)
+            optimizer.zero_grad(set_to_none=True)
+            batch = _to_device(batch, device)
+            roi_weights = torch.as_tensor(roi_weights, device=device)
+            if voxel_weights is not None:
+                voxel_weights = torch.as_tensor(voxel_weights, device=device)
+            total, metrics = loss_fn(batch, roi_weights, voxel_weights)
+            with span("train.backward"):
+                total.backward()
+            grads = [p.grad for p in params if p.grad is not None]
+            if reduce is not None:
+                metrics = reduce(grads, batch, metrics)
+            with span("train.grad_norm"):
+                metrics["grad_norm"] = global_norm(grads)
+            with span("train.optimizer"):
+                optimizer.step()
+            return metrics
 
     return step
 
